@@ -1,0 +1,369 @@
+"""PyTorch executor for the serving engine: paged KV pools + the model
+forwards that read and write them — the port of
+`repro.serving.executor.PagedExecutor` (prefill, pool writes and copies,
+two-call chunked prefill, paged decode; the fused `mixed_step` waits for
+the paged-prefill kernels of a later slice).
+
+Physical layout follows the paper's §4: ONE pooled tensor per memory tier
+(device / host), shared by all layers — `(num_blocks, block_size, 2, KV,
+hd)` — so any physical block can hold any (request, layer) slice; logical
+placement lives in the block manager. Each pool carries ONE extra
+physical block (`trash_block`, id == num_*_blocks) that the block manager
+never hands out: padded batch rows scatter their garbage KV there.
+
+Where JAX donated the pool buffers to each jitted step, the port updates
+the pools in place (`index_copy_` / `index_put_` / slice `copy_`).
+
+Host tier: on CUDA the HOST pool is pinned CPU memory. Device-to-host and
+host-to-device block copies are `non_blocking` copies of contiguous runs
+of host blocks on the current stream, so they are ordered with the
+forwards that produce and consume them without any extra
+synchronisation. The only CPU-side access to the host pool (a same-pool
+host copy) synchronises the stream first. Overlapping the copies on a
+side stream is later work.
+
+Bucketed-shape contract (as in the reference): `prefill` pads the prompt
+buffer and `decode` the batch width R to power-of-two buckets, block
+tables round to 8-block granularity, padded rows carry trash-block
+tables. Every novel shape signature is counted in the registry's
+`jit_retraces` series, the reference's name for it: in the port a
+signature is what a later CUDA-graph capture would key on.
+"""
+from __future__ import annotations
+
+import collections
+import logging
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.models.model import (DecoderModel, layer_params,
+                                      mask_pad_logits, torch_dtype)
+from repro_torch.obs.registry import MetricsRegistry
+
+log = logging.getLogger(__name__)
+
+
+def _round_up(n, m):
+    return -(-n // m) * m
+
+
+def _bucket(n: int, lo: int = 1) -> int:
+    """Smallest power-of-two >= n (and >= lo) — the shape bucket."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _runs(ids: Sequence[int]):
+    """Maximal runs of consecutive ids: yields (i, j, ids[i]) with
+    ids[i:j] == range(ids[i], ids[i] + j - i)."""
+    i, n = 0, len(ids)
+    while i < n:
+        j = i + 1
+        while j < n and ids[j] == ids[j - 1] + 1:
+            j += 1
+        yield i, j, ids[i]
+        i = j
+
+
+class PagedExecutor:
+    """Owns the physical KV pools (device + host buffers, paged in
+    `block_size`-token blocks) and runs model forwards against them:
+    batched prefill, paged decode and two-call chunked prefill. Pure
+    mechanism — which blocks a request may touch is decided upstream by
+    `SchedulerCore`/`LayerwiseBlockManager`."""
+
+    def __init__(self, cfg: ModelConfig, params, num_device_blocks: int,
+                 num_host_blocks: int, block_size: int, *, device="cuda",
+                 seed: int = 0):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = DecoderModel(cfg, params, device=self.device, seed=seed)
+        self.params = self.model.params
+        hd = cfg.resolved_head_dim
+        dt = torch_dtype(cfg.dtype)
+        self.block_size = block_size
+        self.num_device_blocks = num_device_blocks
+        self.num_host_blocks = num_host_blocks
+        self._pinned = self.device.type == "cuda"
+        # +1: the trash block (id == num_*_blocks) absorbing padded rows'
+        # scatter writes; the block manager never allocates it and no
+        # block table with kv_len > 0 ever reads it
+        self.device_pool = torch.zeros(
+            (num_device_blocks + 1, block_size, 2, cfg.n_kv_heads, hd),
+            dtype=dt, device=self.device)
+        self.host_pool = torch.zeros(
+            (num_host_blocks + 1, block_size, 2, cfg.n_kv_heads, hd),
+            dtype=dt, pin_memory=self._pinned)
+        # logits rows that came out non-finite, counted on the device so
+        # the check never waits for it
+        self._nonfinite = torch.zeros((), dtype=torch.int64,
+                                      device=self.device)
+        # shape accounting: every novel (entry point, shape bucket)
+        # signature. Counts live in the obs registry; the owning engine
+        # swaps in the core's registry so one snapshot() carries both.
+        self.registry = MetricsRegistry()
+        self._jit_sigs: set = set()
+
+    @property
+    def jit_retraces(self) -> collections.Counter:
+        """Novel shape signatures per entry point (registry-backed
+        Counter — the reference's attribute shape)."""
+        return self.registry.counter_view("jit_retraces", "fn")
+
+    def _note_trace(self, fn: str, sig: tuple) -> None:
+        if (fn, sig) not in self._jit_sigs:
+            self._jit_sigs.add((fn, sig))
+            self.registry.inc("jit_retraces", fn=fn)
+            log.info("new shape signature #%d for %s%s",
+                     int(self.registry.get("jit_retraces", fn=fn)),
+                     fn, sig)
+
+    def nonfinite_logits(self) -> int:
+        """Logits rows with a NaN or inf since construction (waits for
+        the device)."""
+        return int(self._nonfinite)
+
+    def _note_logits(self, logits) -> None:
+        self._nonfinite += (~torch.isfinite(logits)).reshape(
+            -1, logits.shape[-1]).any(dim=-1).sum()
+
+    def _to_device(self, a, dtype=torch.int64):
+        """Host array / list -> device tensor without a stream sync
+        (staged through pinned memory on CUDA)."""
+        t = torch.as_tensor(np.asarray(a), dtype=dtype)
+        if self._pinned:
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _host_sync(self) -> None:
+        """Wait for queued copies into / out of the pinned host pool
+        before the CPU touches it."""
+        if self._pinned:
+            torch.cuda.current_stream(self.device).synchronize()
+
+    # -------------------------------------------------------------- prefill
+    def prefill(self, prompt: List[int], pad_to: int):
+        """Run one request's prefill (B=1). `pad_to` is bucketed to the
+        next power of two (>= 16). Returns (next_token, k_layers,
+        v_layers) with shapes (L, S_bucket, KV, hd); only the first
+        len(prompt) positions are valid (callers slice what they need)."""
+        S = len(prompt)
+        pad_to = _bucket(pad_to, 16)
+        self._note_trace("prefill", (pad_to,))
+        toks = np.zeros((1, pad_to), np.int64)
+        toks[0, :S] = prompt
+        batch = {"tokens": self._to_device(toks),
+                 "prompt_len": self._to_device([S], torch.int32)}
+        cache = self.model.init_cache(1, pad_to)
+        logits, cache = self.model.prefill(batch, cache)
+        self._note_logits(logits)
+        next_tok = int(torch.argmax(logits[0]))
+        return next_tok, cache["k"][:, 0], cache["v"][:, 0]
+
+    # ----------------------------------------------------- block movement
+    def _pool(self, tier: str):
+        return self.device_pool if tier == "device" else self.host_pool
+
+    def _put_blocks(self, tier: str, ids: List[int], blocks) -> None:
+        """pool[ids] = blocks, blocks (n, BS, 2, KV, hd) on the device.
+        Host writes go out as one async copy per contiguous run."""
+        if tier == "device":
+            self.device_pool.index_copy_(0, self._to_device(ids), blocks)
+            return
+        for i, j, first in _runs(ids):
+            self.host_pool[first:first + j - i].copy_(
+                blocks[i:j], non_blocking=True)
+
+    def _get_blocks(self, tier: str, ids: List[int]):
+        """pool[ids] as a new device tensor (n, BS, 2, KV, hd). Host reads
+        come in as one async copy per contiguous run."""
+        if tier == "device":
+            return self.device_pool[self._to_device(ids)]
+        parts = [self.host_pool[first:first + j - i].to(
+                     self.device, non_blocking=True)
+                 for i, j, first in _runs(ids)]
+        if not parts:
+            return self.device_pool.new_empty(
+                (0, *self.device_pool.shape[1:]))
+        return torch.cat(parts)
+
+    def write_layer(self, tier: str, block_ids: List[int], k, v):
+        """Write one layer's KV (>= len(block_ids) * BS rows, KV, hd) into
+        whole `block_ids` blocks, pad positions included."""
+        nb = len(block_ids)
+        S_pad = nb * self.block_size
+        pool = self._pool(tier)
+        kr = k[:S_pad].reshape(nb, self.block_size, *k.shape[1:])
+        vr = v[:S_pad].reshape(nb, self.block_size, *v.shape[1:])
+        kv = torch.stack([kr, vr], dim=2).to(pool.dtype)
+        self._put_blocks(tier, block_ids, kv)
+
+    def write_layer_slice(self, tier: str, block_ids: List[int],
+                          token_offset: int, k, v):
+        """Append one layer's chunk KV (C, KV, hd) into `block_ids` starting
+        at absolute token `token_offset` (need not be block-aligned)."""
+        BS = self.block_size
+        C = k.shape[0]
+        pos = np.arange(token_offset, token_offset + C)
+        if tier == "device":
+            blk = self._to_device(np.asarray(block_ids)[pos // BS])
+            off = self._to_device(pos % BS)
+            self.device_pool[blk, off, 0] = k.to(self.device_pool.dtype)
+            self.device_pool[blk, off, 1] = v.to(self.device_pool.dtype)
+            return
+        kv = torch.stack([k, v], dim=1).to(self.host_pool.dtype)
+        t = 0
+        while t < C:   # one async copy per touched block
+            p = token_offset + t
+            n = min(BS - p % BS, C - t)
+            self.host_pool[block_ids[p // BS], p % BS:p % BS + n].copy_(
+                kv[t:t + n], non_blocking=True)
+            t += n
+
+    def gather_layer(self, tier: str, block_ids: List[int], kv_valid=None):
+        """Dense (nb*BS, KV, hd) K and V of one layer's block list, on the
+        device — the contiguous prefix buffer two-call chunked prefill
+        attends against. With `kv_valid` set, only the ceil(kv_valid / BS)
+        blocks holding live tokens are read; the remaining rows come back
+        zero (callers mask them via kv_len anyway)."""
+        BS = self.block_size
+        nb = len(block_ids)
+        live = nb if kv_valid is None else min(
+            _round_up(kv_valid, BS) // BS, nb)
+        g = self._get_blocks(tier, list(block_ids[:live]))
+        shape = (nb * BS, *self.device_pool.shape[3:])
+        k = self.device_pool.new_zeros(shape)
+        v = self.device_pool.new_zeros(shape)
+        k[:live * BS] = g[:, :, 0].reshape(live * BS, *shape[1:])
+        v[:live * BS] = g[:, :, 1].reshape(live * BS, *shape[1:])
+        return k, v
+
+    def copy_blocks(self, src_tier: str, dst_tier: str, src_ids, dst_ids):
+        """Physical block copy between (or within) tiers: d2h/h2d
+        transfers and copy-on-write duplication. Reads every source block
+        before writing any destination (the reference's
+        `dst.at[dst_ids].set(src[src_ids])`)."""
+        src_ids, dst_ids = list(src_ids), list(dst_ids)
+        if src_tier == dst_tier == "host":
+            self._host_sync()
+            si = torch.as_tensor(src_ids, dtype=torch.int64)
+            di = torch.as_tensor(dst_ids, dtype=torch.int64)
+            self.host_pool.index_copy_(0, di, self.host_pool[si])
+            return
+        blocks = self._get_blocks(src_tier, src_ids)
+        self._put_blocks(dst_tier, dst_ids, blocks)
+
+    # ------------------------------------------------------- chunked prefill
+    def _chunk_forward(self, tokens, kbuf, vbuf, offset: int, kv_valid):
+        """One prefill chunk at absolute token `offset` — the two-call
+        chunk path. tokens: (C,) int64; kbuf/vbuf: (L, S_buf, KV, hd)
+        dense prefix buffers on the device (rows >= offset ignored). The
+        chunk's K/V are written into the buffers IN PLACE at rows
+        [offset, offset + C) (the reference writes a copy), then each
+        layer attends with q_offset = offset and kv_len = kv_valid.
+        Returns (last-position logits, k_chunk, v_chunk) with chunk KV
+        shaped (L, C, KV, hd)."""
+        cfg, params = self.cfg, self.params
+        C = tokens.shape[0]
+        x = params["embed"][tokens][None]                    # (1, C, d)
+        positions = offset + torch.arange(C, device=self.device)[None]
+        if cfg.pos_emb == "mrope":
+            positions = positions[None].expand(3, 1, C)
+        ks_out, vs_out = [], []
+        for l in range(cfg.n_layers):
+            lp = layer_params(params["layers"], l)
+            h = layers.apply_norm(cfg, lp["attn_norm"], x)
+            q, k, v = layers.qkv_proj(cfg, lp["attn"], h)
+            q = layers.apply_rope(cfg, q, positions)
+            k = layers.apply_rope(cfg, k, positions)
+            kbuf[l, offset:offset + C] = k[0]
+            vbuf[l, offset:offset + C] = v[0]
+            o = ops.flash_attention(q, kbuf[l][None], vbuf[l][None],
+                                    causal=True, kv_len=kv_valid,
+                                    q_offset=offset)
+            x = x + layers.attn_out(cfg, lp["attn"], o)
+            h = layers.apply_norm(cfg, lp["mlp_norm"], x)
+            x = x + layers.mlp(cfg, lp["mlp"], h)
+            ks_out.append(k[0])
+            vs_out.append(v[0])
+        x = layers.apply_norm(cfg, params["final_norm"], x)
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = mask_pad_logits(cfg, x[0, -1] @ w)
+        return logits, torch.stack(ks_out), torch.stack(vs_out)
+
+    def prefill_chunk(self, chunk: List[int], offset: int, kbuf, vbuf):
+        """Run `chunk` prompt tokens starting at `offset`. Returns
+        (logits, k_chunk, v_chunk); logits stay on the device — the
+        caller argmaxes them only on a request's FINAL chunk."""
+        self._note_trace("chunk", (len(chunk), kbuf.shape[1]))
+        logits, kc, vc = self._chunk_forward(
+            self._to_device(chunk), kbuf, vbuf, offset,
+            self._to_device([offset + len(chunk)], torch.int32))
+        self._note_logits(logits)
+        return logits, kc, vc
+
+    # --------------------------------------------------------------- decode
+    def _paged_decode(self, tokens, tables, kv_lens):
+        """tokens: (R,) int64; tables: (L, R, MAXB) int32 device block ids;
+        kv_lens: (R,) int32 tokens already cached. Writes each layer's new
+        K/V into the device pool in place; returns raw logits (the
+        reference does not mask pad-vocab logits on the decode side)."""
+        cfg, params = self.cfg, self.params
+        BS = self.block_size
+        R = tokens.shape[0]
+        dpool = self.device_pool
+        x = params["embed"][tokens][:, None]                 # (R, 1, d)
+        positions = kv_lens[:, None]     # the new token's absolute position
+        if cfg.pos_emb == "mrope":
+            positions = positions[None].expand(3, R, 1)
+        r_idx = torch.arange(R, device=self.device)
+        lens64 = kv_lens.long()
+        cur_block, cur_off = lens64 // BS, lens64 % BS
+        attend = kv_lens + 1
+        for l in range(cfg.n_layers):
+            lp = layer_params(params["layers"], l)
+            h = layers.apply_norm(cfg, lp["attn_norm"], x)
+            q, k, v = layers.decode_self_attention(cfg, lp["attn"], h,
+                                                   positions)
+            # scatter the new token's KV into its block
+            blk = tables[l][r_idx, cur_block].long()         # (R,)
+            dpool[blk, cur_off, 0] = k[:, 0].to(dpool.dtype)
+            dpool[blk, cur_off, 1] = v[:, 0].to(dpool.dtype)
+            o = ops.paged_attention(q[:, 0], dpool, tables[l], attend)
+            x = x + layers.attn_out(cfg, lp["attn"], o[:, None])
+            h = layers.apply_norm(cfg, lp["mlp_norm"], x)
+            x = x + layers.mlp(cfg, lp["mlp"], h)
+        x = layers.apply_norm(cfg, params["final_norm"], x)
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return x[:, 0] @ w
+
+    def decode(self, tokens: List[int], tables: np.ndarray,
+               kv_lens: List[int]) -> List[int]:
+        """One decode iteration. tables: (L, R, MAXB) int32 into the DEVICE
+        pool (caller guarantees residency). The batch width R is padded to
+        a power-of-two bucket and the table width MAXB to 8-block
+        granularity; padded rows carry trash-block tables (kv_len 0)."""
+        R = len(tokens)
+        L, _, maxb = tables.shape
+        Rb = _bucket(R)
+        MAXBb = _round_up(max(maxb, 1), 8)
+        self._note_trace("decode", (Rb, MAXBb))
+        toks = np.zeros(Rb, np.int64)
+        toks[:R] = tokens
+        lens = np.zeros(Rb, np.int32)
+        lens[:R] = kv_lens
+        tab = np.full((L, Rb, MAXBb), self.num_device_blocks, np.int32)
+        tab[:, :R, :maxb] = tables
+        logits = self._paged_decode(self._to_device(toks),
+                                    self._to_device(tab, torch.int32),
+                                    self._to_device(lens, torch.int32))
+        self._note_logits(logits[:R])
+        return torch.argmax(logits[:R], dim=-1).tolist()

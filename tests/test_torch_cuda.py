@@ -1,0 +1,98 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here is marked `cuda` and skips without an NVIDIA GPU
+(the kernels have no CPU mode; their plain versions are held against the
+JAX reference in tests/test_torch_kernels.py). This file imports no JAX,
+so it runs on a machine with only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: f32 atol = rtol = 2e-5 (the repo's Pallas-vs-reference
+tolerance); bf16 2e-2 (the plain paged version rounds its logits and
+probabilities to bf16 where the kernel keeps f32).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_prefill, paged_attention
+
+pytestmark = pytest.mark.cuda
+DTYPES = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
+SHAPES = [(32, 32, 128), (32, 8, 64)]     # llama2-7b, granite-3-2b
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+
+
+def _randn(shape, dtype, seed):
+    r = np.random.RandomState(seed)
+    return torch.from_numpy(r.randn(*shape).astype(np.float32)).to(
+        "cuda", dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("H,KV,D", SHAPES)
+def test_flash_kernel_matches_plain(dtype, tol, H, KV, D):
+    _need_cuda()
+    B, Sq, Skv = 2, 200, 256
+    q = _randn((B, Sq, H, D), dtype, 0)
+    k = _randn((B, Skv, KV, D), dtype, 1)
+    v = _randn((B, Skv, KV, D), dtype, 2)
+    kv_len = torch.tensor([131, 256], dtype=torch.int32, device="cuda")
+    before = flash_prefill.launches
+    for q_off in (0, 56, torch.tensor([56, 0], device="cuda")):
+        got = flash_prefill.flash_attention(q, k, v, kv_len=kv_len,
+                                            q_offset=q_off)
+        want = flash_prefill.flash_attention_plain(q, k, v, kv_len=kv_len,
+                                                   q_offset=q_off)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    assert flash_prefill.launches == before + 3
+
+
+@pytest.mark.parametrize("window", [17, 64])
+def test_flash_kernel_window(window):
+    _need_cuda()
+    q, k, v = (_randn((1, 256, 8, 64), torch.float32, s) for s in range(3))
+    got = flash_prefill.flash_attention(q, k, v, window=window)
+    want = flash_prefill.flash_attention_plain(q, k, v, window=window)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("H,KV,D", SHAPES)
+def test_paged_kernel_matches_plain(dtype, tol, H, KV, D):
+    _need_cuda()
+    B, NB, BS, MAXB = 4, 64, 16, 8
+    r = np.random.RandomState(3)
+    q = _randn((B, H, D), dtype, 4)
+    pool = _randn((NB, BS, 2, KV, D), dtype, 5)
+    tab = torch.from_numpy(r.permutation(NB)[:B * MAXB].reshape(B, MAXB)
+                           .astype(np.int32)).cuda()
+    kv_len = torch.tensor([1, 17, 128, 0], dtype=torch.int32, device="cuda")
+    got = paged_attention.paged_attention(q, pool, tab, kv_len)
+    want = paged_attention.paged_attention_plain(q, pool, tab, kv_len)
+    torch.testing.assert_close(got[:3].float(), want[:3].float(), atol=tol,
+                               rtol=tol)
+    assert torch.isfinite(got).all() and (got[3] == 0).all()
+
+
+def test_wrappers_reject_bad_inputs():
+    _need_cuda()
+    q = torch.zeros(1, 16, 4, 80, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_prefill.flash_attention(q, q, q)
+    q = torch.zeros(1, 16, 4, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_prefill.flash_attention(q, q, q)
+    q = torch.zeros(1, 16, 4, 64, device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_prefill.flash_attention(q, q, q)
+    pool = torch.zeros(4, 16, 2, 1, 64, device="cuda")   # G = 32
+    with pytest.raises(ValueError, match="H / KV"):
+        paged_attention.paged_attention(
+            torch.zeros(1, 32, 64, device="cuda"), pool,
+            torch.zeros(1, 1, dtype=torch.int32, device="cuda"),
+            torch.ones(1, dtype=torch.int32, device="cuda"))
