@@ -2,7 +2,7 @@
 """On-card smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one
 NVIDIA H100.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--profile]
 
 Phases, each of which raises (and so exits non-zero) on any failure:
 
@@ -36,6 +36,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            a pool that fits everything; prints the agreement share of
            the full token streams and wall-clock TTFT / TPOT / decode
            tokens per second.
+  profile  (only with --profile) torch.profiler over a few decode-only
+           steps of a vllm run at B = 8: wall and device-busy time per
+           step, device ops per step, top device ops.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -302,13 +305,15 @@ def phase_kernels():
     torch.cuda.empty_cache()
     flash_t = time_flash(gen)
     paged_t = time_paged(gen)
-    for name, t in (("flash_attention", flash_t),
-                    ("paged_attention", paged_t)):
+    for name, err, t in (("flash_attention", flash_err, flash_t),
+                         ("paged_attention", paged_err, paged_t)):
         lib = "n/a" if t["library_ms"] is None \
             else f"{t['library_ms']:.4f}"
-        _say(f"[kernels] {name} [{t['shape']}]: kernel_ms {t['ms']:.4f} "
-             f"plain_ms {t['plain_ms']:.4f} library_ms {lib} "
-             f"bound_ms {t['bound_ms']:.4f} ({t['bound_by']})")
+        _say(f"[kernels] {name} [{t['shape']}]: max_abs_err bf16 "
+             f"{err['bfloat16']:.3g} f32 {err['float32']:.3g}, "
+             f"kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} "
+             f"library_ms {lib} bound_ms {t['bound_ms']:.4f} "
+             f"({t['bound_by']})")
     _say(f"[kernels] phase {time.perf_counter() - t0:.1f}s")
     return {"flash_attention": (flash_err, flash_t),
             "paged_attention": (paged_err, paged_t)}
@@ -364,7 +369,7 @@ def _serve(cfg, params, policy, ndb, nhb, prompts, out_len, seed):
                        "decode_wall_s": decode_wall}
 
 
-def phase_serve():
+def phase_serve(profile=False):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_prefill as fp
@@ -435,8 +440,68 @@ def phase_serve():
              f"{[round(x * 1e3, 2) for x in tpot]}; decode "
              f"{s['decode_tokens']} tokens in {s['decode_wall_s']:.3f}s of "
              f"decode-only steps = {tps:.1f} tok/s")
-    return launches, {"layerkv": st, "vllm": st_v, "offloads": n_off,
-                      "reloads": n_rel, "agreement": agree / total}
+    serve = {"layerkv": st, "vllm": st_v, "offloads": n_off,
+             "reloads": n_rel, "agreement": agree / total}
+    if profile:
+        del eng_v, done_v
+        serve["profile"] = _profile_decode(cfg, params, prompts, out_len)
+    return launches, serve
+
+
+def _profile_decode(cfg, params, prompts, out_len, steps=4):
+    """torch.profiler over `steps` decode-only steps of a vllm run (all
+    requests resident, B = len(prompts)): wall per step, device-busy time
+    and share, launches per step, and the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.serving.engine import LayerKVEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ServeConfig
+    from repro_torch.serving.session import ServingSession
+    ec = ServeConfig.for_engine(policy="vllm", slo_aware=False,
+                                block_size=16, num_device_blocks=20000,
+                                num_host_blocks=16)
+    eng = LayerKVEngine(cfg, params, ec, device="cuda")
+    session = ServingSession(eng)
+    for i, p in enumerate(prompts):
+        session.submit(Request(rid=f"p{i}", prompt_len=len(p),
+                               output_len=out_len, arrival=0.0, prompt=p))
+    for _ in range(3):              # the prefill step, then two warm decodes
+        session.step()
+    if len(eng.decoding) != len(prompts):
+        raise AssertionError("profile window is not a full decode batch")
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            session.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy_us = sum(dev_us(e) for e in dev)
+    launches = sum(e.count for e in dev)
+    top = sorted(dev, key=dev_us, reverse=True)[:10]
+    out = {"steps": steps, "batch": len(prompts),
+           "wall_ms_per_step": wall / steps * 1e3,
+           "device_busy_ms_per_step": busy_us / steps / 1e3,
+           "device_busy_share": busy_us / (wall * 1e6),
+           "device_ops_per_step": launches / steps,
+           "top": [(e.key, dev_us(e) / steps / 1e3, e.count // steps)
+                   for e in top]}
+    _say(f"[profile] vllm decode B={len(prompts)}: "
+         f"{out['wall_ms_per_step']:.2f} ms wall/step, device busy "
+         f"{out['device_busy_ms_per_step']:.2f} ms/step "
+         f"({out['device_busy_share']:.3f}), "
+         f"{out['device_ops_per_step']:.0f} device ops/step")
+    for name, ms, n in out["top"]:
+        _say(f"[profile]   {ms:8.3f} ms/step  x{n:<5d} {name[:90]}")
+    return out
 
 
 # ------------------------------------------------------------------- main --
@@ -453,6 +518,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write every number of the run here (JSON)")
+    ap.add_argument("--profile", action="store_true",
+                    help="after the serve phase, trace a few decode steps "
+                         "with torch.profiler and print where they go")
     args = ap.parse_args(argv)
 
     import torch
@@ -472,7 +540,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     smi = phase_build()
     kern = phase_kernels()
-    launches, serve = phase_serve()
+    launches, serve = phase_serve(profile=args.profile)
 
     rows = []
     for name, (err, t) in kern.items():

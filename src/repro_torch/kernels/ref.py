@@ -16,9 +16,9 @@ NEG_INF = -1e30
 
 
 def _as_lens(x, B, device):
-    """int / sequence / tensor -> (B or 1,) int64 tensor on `device`."""
+    """int / sequence / tensor -> (B,) int64 tensor on `device`."""
     t = torch.as_tensor(x, device=device).reshape(-1).to(torch.int64)
-    return t if t.numel() == B else t.expand(B) if t.numel() == 1 else t
+    return t.expand(B) if t.numel() == 1 else t
 
 
 def mha_reference(q, k, v, *, causal=True, window=0, kv_len=None, q_offset=0,

@@ -19,8 +19,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
 
-_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-                 "float16": torch.float16}
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -3,7 +3,9 @@
 `LayerKVEngine` on granite-3-2b smoke at f32, from the same weights (the
 reference's init, carried across by `repro_torch.weights`) and the same
 prompts — in exclusive vllm, exclusive layerkv under a tight pool
-(offload + reload) and two-call chunked mode. Both engines are priced
+(offload + reload), two-call chunked mode, prefix-cache hits and a
+mid-run cancel; plus lossless preempt/resume inside the port. Both
+engines are priced
 with the same `TPU_V5E` profile here so their schedules, not only their
 tokens, can be compared."""
 import dataclasses
@@ -19,12 +21,14 @@ from repro.serving.costmodel import TPU_V5E as JAX_TPU_V5E
 from repro.serving.engine import LayerKVEngine as JaxEngine
 from repro.serving.request import Request as JaxRequest
 from repro.serving.scheduler import ServeConfig as JaxServeConfig
+from repro.serving.session import ServingSession as JaxSession
 from repro_torch.configs import get_smoke_config
 from repro_torch.serving.costmodel import H100, TPU_V5E
 from repro_torch.serving.engine import LayerKVEngine
 from repro_torch.serving.executor import PagedExecutor, _bucket, _runs
-from repro_torch.serving.request import Request
+from repro_torch.serving.request import Phase, Request
 from repro_torch.serving.scheduler import ServeConfig
+from repro_torch.serving.session import ServingSession
 from repro_torch.weights import from_jax_params
 
 torch.set_num_threads(2)
@@ -109,6 +113,93 @@ def test_engine_tokens_match_jax_engine(jax_params, mode):
     if mode == "chunked":
         assert max(r.n_chunks for r in teng.done) > 1
     assert teng.ex.nonfinite_logits() == 0
+
+
+def _shared_prefix_prompts(vocab, n=5, pre=24, seed=1):
+    r0 = np.random.RandomState(seed)
+    prefix = [int(x) for x in r0.randint(0, vocab, pre)]
+    return [(f"r{i}", int(r0.randint(6, 12)),
+             prefix + [int(x) for x in r0.randint(
+                 0, vocab, int(r0.randint(6, 20)))]) for i in range(n)]
+
+
+@pytest.mark.parametrize("chunked", [False, True],
+                         ids=["exclusive", "chunked"])
+def test_prefix_cache_hits_match_jax_engine(jax_params, chunked):
+    """Prefix-cache hits run the uncached suffix through the chunk path
+    (flash with a runtime q_offset over the shared blocks)."""
+    jcfg, jp = jax_params
+    spec = _shared_prefix_prompts(jcfg.vocab_size)
+    kw = dict(policy="layerkv", slo_aware=False, num_device_blocks=64,
+              num_host_blocks=512, block_size=8, chunked=chunked,
+              max_prefill_tokens=24, prefix_cache=True)
+
+    def staggered(cls):   # early prefills register before later arrivals
+        reqs = _reqs(cls, spec)
+        for i, r in enumerate(reqs):
+            r.arrival = i * 1e-4
+        return reqs
+    jeng = JaxEngine(jcfg, jp, JaxServeConfig.for_engine(**kw),
+                     hw=JAX_TPU_V5E)
+    jdone = {r.rid: r.generated for r in jeng.run(staggered(JaxRequest))}
+    teng = LayerKVEngine(_cfg(), from_jax_params(_flat(jp), _cfg(), "cpu"),
+                         ServeConfig.for_engine(**kw), hw=TPU_V5E,
+                         device="cpu")
+    tdone = {r.rid: r.generated for r in teng.run(staggered(Request))}
+    assert teng.bm.cache.n_hits == jeng.bm.cache.n_hits > 0
+    assert tdone == jdone
+
+
+def test_cancel_mid_run_matches_jax_engine(jax_params):
+    jcfg, jp = jax_params
+    spec = _prompts(jcfg.vocab_size, n=4, seed=3)
+    kw = dict(policy="layerkv", slo_aware=False, num_device_blocks=30,
+              num_host_blocks=512, block_size=8)
+    outs = []
+    for eng, sess_cls, req_cls in (
+            (JaxEngine(jcfg, jp, JaxServeConfig.for_engine(**kw),
+                       hw=JAX_TPU_V5E), JaxSession, JaxRequest),
+            (_port_engine(from_jax_params(_flat(jp), _cfg(), "cpu"), **kw),
+             ServingSession, Request)):
+        sess = sess_cls(eng)
+        handles = [sess.submit(r, arrival=0.0)
+                   for r in _reqs(req_cls, spec)]
+        for _ in range(3):
+            sess.step()
+        assert sess.cancel(handles[1])
+        outs.append({r.rid: list(r.generated) for r in sess.drain()})
+        eng.finish()
+    assert "r1" not in outs[0] and outs[0] == outs[1]
+
+
+def test_preempt_and_resume_is_lossless_in_port():
+    """Pause r0 mid-decode (KV demoted to the HOST pool and back): its
+    tokens equal an uninterrupted run's — the port's d2h/h2d copies keep
+    the bytes (mirrors tests/test_preemption.py on the reference)."""
+    sc = dict(policy="layerkv", preemption=True, admission="deadline",
+              num_device_blocks=96, block_size=8)
+    spec = _prompts(_cfg().vocab_size, n=3, plen=(24, 25), out=(8, 9))
+    ref = {r.rid: list(r.generated)
+           for r in _port_engine(None, **sc).run(_reqs(Request, spec))}
+    eng = _port_engine(None, **sc)
+    sess = ServingSession(eng)
+    for r in _reqs(Request, spec):
+        sess.submit(r, arrival=0.0)
+    preempted = False
+    while True:
+        if not preempted:
+            v = [r for r in eng.decoding
+                 if r.rid == "r0" and r.tokens_out >= 3]
+            if v:
+                assert eng.core.preempt_request(v[0], eng.now)
+                assert v[0].phase is Phase.PAUSED
+                preempted = True
+        if not sess.step():
+            break
+    got = {r.rid: list(r.generated) for r in sess.drain()}
+    assert preempted and eng.core.n_resumed == 1
+    assert got == ref
+    eng.finish()
 
 
 def test_port_vllm_matches_layerkv_with_offload():
