@@ -17,28 +17,47 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            KV = 8, D = 64) shapes with bucket-padded Sq 16 / 1024, ragged
            kv_len, and chunk-style q_offset > 0; paged decode at B = 1, 8,
            32 with power-of-two pad rows (kv_len = 0 on a trash block),
-           BS = 16, MAXB a multiple of 8, contexts up to 4096. Then time
-           each kernel at its main-path shape beside its plain version,
-           one PyTorch library call where one computes the same function
-           (scaled_dot_product_attention, a yardstick the port never
-           calls), and its bound: the larger of bytes / 3.35 TB/s and
-           flops / 989 TFLOP/s (H100 SXM data sheet, bf16 dense).
+           BS = 16, MAXB a multiple of 8, contexts up to 4096; paged
+           prefill at the same two shapes, tq = 32, BS = 16, on the cases
+           of tests/test_fused.py (chunk edges, a chunk + decode tokens + a
+           kv_len = 0 dummy, and the two-pool variant with the host pool
+           pinned on the CPU and host ids above the device pool's size),
+           and at the fused step's own layout and size (a 512-token chunk
+           at offset 512 among one-token segments, a dummy slot and tail
+           tiles, T = 1024, MAXB 64), one pool and two.
+           Then time each kernel at its main-path shape (paged prefill,
+           both variants, held once more against its plain version on
+           the timed inputs), beside its plain version, one PyTorch
+           library call where one computes the same
+           function (scaled_dot_product_attention, a yardstick the port
+           never calls), and its bound: the larger of bytes / 3.35 TB/s
+           and flops / 989 TFLOP/s (H100 SXM data sheet, bf16 dense).
   serve    llama2-7b at full width and depth, bf16, random weights from a
            seeded generator on the card, served by the port's
            LayerKVEngine (exclusive prefill, policy 'layerkv',
            slo_aware off, 16-token blocks) with a device pool tight enough
            to force layer-wise offload and reload: 8 requests of 256-1024
            prompt tokens, 32 output tokens each, all arriving at t = 0.
-           Kernel launch counts are zeroed just before this run and read
-           just after it. Asserts every request finishes, offload and
-           reload both happened, both kernels were launched, no logits
-           went non-finite, and every first token equals a 'vllm' run on
-           a pool that fits everything; prints the agreement share of
-           the full token streams and wall-clock TTFT / TPOT / decode
-           tokens per second.
+  fused    the same model, weights and prompts through the fused mixed
+           step (chunked, fused, 512-token prefill budget): chunk rows on
+           the paged-prefill kernel, over the pinned host pool for layers
+           offloaded mid-prefill, decode rows on the paged decode kernel.
+  moe      deepseek-moe-16b (arXiv:2401.06066) at full width and depth
+           (28 layers, 64 routed experts top-6 + 2 shared), bf16, random
+           weights made on the card after llama2-7b's are freed, through
+           the fused step: 6 requests of 256-1024 tokens, 16 output tokens.
+           Each of serve / fused / moe is a main path: kernel launch counts
+           are zeroed just before its layerkv run and read just after it.
+           Each asserts every request finishes, offload and reload both
+           happened, its kernels were launched, no logits went non-finite,
+           and every first token equals a 'vllm' run (same mode) on a pool
+           that fits everything; fused and moe also assert a step ran with
+           a host-tier chunk. Each prints the agreement share of the full
+           token streams and wall-clock TTFT / TPOT / decode tokens per
+           second.
   profile  (only with --profile) torch.profiler over a few decode-only
-           steps of a vllm run at B = 8: wall and device-busy time per
-           step, device ops per step, top device ops.
+           steps of an exclusive vllm llama2-7b run at B = 8: wall and
+           device-busy time per step, device ops per step, top device ops.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -58,6 +77,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16
+PCIE_BYTES_PER_S = 64e9        # PCIe Gen5 x16, one direction (spec)
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 FLASH_SHAPES = {"llama2-7b": (32, 32, 128), "granite-3-2b": (32, 8, 64)}
 
@@ -286,6 +306,169 @@ def time_paged(gen):
                   f"BS={BS}")
 
 
+def _pp_batch(gen, H, KV, D, dtype, specs, tq=32, BS=16, tail=0):
+    """A flat tq-padded batch of (q_offset, n_tokens) segments on the
+    card, followed by `tail` tail tiles that map to the last segment slot
+    with positions counting from 0, as `PagedExecutor.mixed_step` lays
+    out its bucketed chunk part: (q, seg_ids, q_pos, kv_len, live row
+    mask, MAXB). Tail rows are never live."""
+    import torch
+    dev = "cuda"
+    pads = [-(-max(n, 1) // tq) * tq for _, n in specs]
+    seg = torch.repeat_interleave(
+        torch.arange(len(specs), dtype=torch.int32, device=dev),
+        torch.tensor(pads, device=dev))
+    pos = torch.cat([off + torch.arange(p, dtype=torch.int32, device=dev)
+                     for (off, _), p in zip(specs, pads)])
+    klen = torch.tensor([off + n for off, n in specs], dtype=torch.int32,
+                        device=dev)
+    live = klen[seg.long()] > 0
+    if tail:
+        seg = torch.cat([seg, torch.full((tail * tq,), len(specs) - 1,
+                                         dtype=torch.int32, device=dev)])
+        pos = torch.cat([pos, torch.arange(tail * tq, dtype=torch.int32,
+                                           device=dev)])
+        live = torch.cat([live, torch.zeros(tail * tq, dtype=torch.bool,
+                                            device=dev)])
+    maxb = max(8, -(-max(-(-int(k) // BS) for k in klen.tolist()) // 8) * 8)
+    q = torch.randn(seg.numel(), H, D, generator=gen, device=dev).to(dtype)
+    return q, seg, pos, klen, live, maxb
+
+
+def check_paged_prefill(gen):
+    """The cases of tests/test_fused.py at the fused step's tile (tq =
+    MIXED_TQ = 32) and block size (16): chunk edges one segment at a
+    time, a chunk + decode tokens + a kv_len = 0 dummy in one call (live
+    rows compared, every row finite), and the two-pool variant with the
+    host pool pinned on the CPU and host ids above the device pool's
+    size. Returns the worst error per dtype for each variant."""
+    import torch
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.serving.executor import MIXED_TQ as TQ
+    BS = 16
+    worst = {"paged_prefill": {}, "paged_prefill_tiered": {}}
+    for arch, (H, KV, D) in FLASH_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = TOL[str(dtype).split(".")[1]]
+            key = str(dtype)[6:]
+            cases = [
+                ("chunk straddling a block", [(29, 11)], None),
+                ("block-aligned first chunk", [(0, 32)], None),
+                ("single-token final chunk", [(47, 1)], None),
+                ("mid-block start and end", [(5, 3)], None),
+                ("chunk + 2 decodes + dummy",
+                 [(9, 40), (300, 1), (170, 1), (0, 0)], None),
+                ("two pools, host ids > device pool",
+                 [(100, 60), (33, 17), (600, 1)], [True, False, True]),
+            ]
+            # the fused step's own layout at the main path's size: a
+            # 512-token chunk at offset 512 (kv_len 1024, MAXB 64), two
+            # one-token segments, a kv_len = 0 dummy slot, and 13 tail
+            # tiles on that slot bucketing T to 1024; one pool and two
+            big = [(512, 512), (1000, 1), (777, 1), (0, 0)]
+            cases += [("fused layout T=1024, one pool", big, None),
+                      ("fused layout T=1024, two pools", big,
+                       [True, False, True, False])]
+            for name, specs, tiers in cases:
+                tail = 13 if specs is big else 0
+                q, seg, pos, klen, live, maxb = _pp_batch(gen, H, KV, D,
+                                                          dtype, specs,
+                                                          tail=tail)
+                S = len(specs)
+                nb_dev = 8 if tiers else S * maxb
+                dpool = torch.randn(nb_dev, BS, 2, KV, D, generator=gen,
+                                    device="cuda").to(dtype)
+                kw = {"tq": TQ}
+                if tiers:
+                    nb_host = 256
+                    hpool = torch.randn(nb_host, BS, 2, KV, D, generator=gen,
+                                        device="cuda").to(dtype).cpu() \
+                        .pin_memory()
+                    tier = torch.tensor(tiers, device="cuda")
+                    lo = torch.where(tier, nb_dev, 0)[:, None]
+                    hi = torch.where(tier, nb_host, nb_dev)[:, None]
+                    u = torch.rand(S, maxb, generator=gen, device="cuda")
+                    tab = (lo + (u * (hi - lo)).long()).int()
+                    kw.update(host_pool=hpool, tier=tier)
+                    variant = "paged_prefill_tiered"
+                else:
+                    tab = torch.randperm(nb_dev, generator=gen,
+                                         device="cuda")[:S * maxb] \
+                        .reshape(S, maxb).int()
+                    variant = "paged_prefill"
+                got = pp.paged_prefill(q, dpool, tab, seg, pos, klen, **kw)
+                want = pp.paged_prefill_plain(q, dpool, tab, seg, pos, klen,
+                                              **kw)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"{variant}: non-finite output")
+                err, ok = _max_err(got[live], want[live], tol)
+                _say(f"[kernels] {variant} {arch} {key} {name}: "
+                     f"max_abs_err {err:.3g} (tol {tol})")
+                if not ok:
+                    raise AssertionError(f"{variant} kernel disagrees: "
+                                         f"{arch} {dtype} {name} err {err}")
+                worst[variant][key] = max(worst[variant].get(key, 0.0), err)
+    return worst
+
+
+def time_paged_prefill(gen):
+    """llama2-7b chunk attention of one layer at the fused path's shape:
+    one 512-token chunk at offset 512 (kv_len 1024), bf16, BS 16, tq 32,
+    over the device pool and, for the two-pool variant, over the same
+    blocks in the pinned host pool (read across PCIe)."""
+    import torch
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.serving.executor import MIXED_TQ as TQ
+    H, KV, D = FLASH_SHAPES["llama2-7b"]
+    BS, C, off = 16, 512, 512
+    q, seg, pos, klen, _, maxb = _pp_batch(gen, H, KV, D, torch.bfloat16,
+                                           [(off, C)])
+    NB = 4 * maxb
+    pool = torch.randn(NB, BS, 2, KV, D, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    tab = torch.randperm(NB, generator=gen, device="cuda")[:maxb] \
+        .reshape(1, maxb).int()
+    hpool = pool.cpu().pin_memory()
+    tier = torch.ones(1, dtype=torch.bool, device="cuda")
+    kvl = off + C
+    pairs = _flash_pairs(C, [off], [kvl])
+    flops = 4 * D * H * pairs
+    nbytes = (2 * q.numel() * 2 + kvl * 2 * KV * D * 2 + maxb * 4
+              + 2 * C * 4 + 4)
+    shape = (f"T={C} at offset {off} (kv_len {kvl}) H=KV={H} D={D} bf16 "
+             f"BS={BS} tq={TQ}")
+    out = {}
+    for name, kw in (("paged_prefill", {}),
+                     ("paged_prefill_tiered",
+                      {"host_pool": hpool, "tier": tier})):
+        got = pp.paged_prefill(q, pool, tab, seg, pos, klen, tq=TQ, **kw)
+        want = pp.paged_prefill_plain(q, pool, tab, seg, pos, klen, tq=TQ,
+                                      **kw)
+        torch.cuda.synchronize()
+        tol = TOL["bfloat16"]
+        err, ok = _max_err(got, want, tol)
+        _say(f"[kernels] {name} llama2-7b bfloat16 timed shape: "
+             f"max_abs_err {err:.3g} (tol {tol})")
+        if not ok or not torch.isfinite(got).all():
+            raise AssertionError(f"{name} kernel disagrees at the timed "
+                                 f"shape: err {err}")
+        del got, want
+        ms = _time_ms(lambda: pp.paged_prefill(q, pool, tab, seg, pos, klen,
+                                               tq=TQ, **kw))
+        plain = _time_ms(lambda: pp.paged_prefill_plain(
+            q, pool, tab, seg, pos, klen, tq=TQ, **kw), reps=5)
+        t = _bound(ms, plain, None, nbytes, flops, BF16_FLOPS_PER_S,
+                   shape + (" (K/V in the pinned host pool)"
+                            if kw else ""))
+        t["max_abs_err"] = err
+        if kw:   # the same K/V bytes over PCIe Gen5 x16 (spec, one way)
+            t["bound_ms_pcie"] = kvl * 2 * KV * D * 2 / PCIE_BYTES_PER_S \
+                * 1e3
+        out[name] = t
+    return out
+
+
 def _bound(ms, plain, lib, nbytes, flops, peak, shape):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -302,38 +485,57 @@ def phase_kernels():
     t0 = time.perf_counter()
     flash_err = check_flash(gen)
     paged_err = check_paged(gen)
+    pp_err = check_paged_prefill(gen)
     torch.cuda.empty_cache()
     flash_t = time_flash(gen)
     paged_t = time_paged(gen)
-    for name, err, t in (("flash_attention", flash_err, flash_t),
-                         ("paged_attention", paged_err, paged_t)):
-        lib = "n/a" if t["library_ms"] is None \
+    pp_t = time_paged_prefill(gen)
+    for name, t in pp_t.items():     # the timed shape's check counts too
+        pp_err[name]["bfloat16"] = max(pp_err[name]["bfloat16"],
+                                       t["max_abs_err"])
+    res = {"flash_attention": (flash_err, flash_t),
+           "paged_attention": (paged_err, paged_t),
+           "paged_prefill": (pp_err["paged_prefill"],
+                             pp_t["paged_prefill"]),
+           "paged_prefill_tiered": (pp_err["paged_prefill_tiered"],
+                                    pp_t["paged_prefill_tiered"])}
+    for name, (err, t) in res.items():
+        lib = "none" if t["library_ms"] is None \
             else f"{t['library_ms']:.4f}"
         _say(f"[kernels] {name} [{t['shape']}]: max_abs_err bf16 "
              f"{err['bfloat16']:.3g} f32 {err['float32']:.3g}, "
              f"kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} "
              f"library_ms {lib} bound_ms {t['bound_ms']:.4f} "
              f"({t['bound_by']})")
+    _say(f"[kernels] paged_prefill_tiered bound over PCIe (K/V bytes at "
+         f"64 GB/s): {pp_t['paged_prefill_tiered']['bound_ms_pcie']:.4f} "
+         f"ms")
     _say(f"[kernels] phase {time.perf_counter() - t0:.1f}s")
-    return {"flash_attention": (flash_err, flash_t),
-            "paged_attention": (paged_err, paged_t)}
+    return res
 
 
 # ------------------------------------------------------------------ serve --
 
-def _serve(cfg, params, policy, ndb, nhb, prompts, out_len, seed):
-    """Drive one engine through a ServingSession; returns (engine, done,
-    wall stats)."""
+def _sync(device):
     import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _serve(cfg, params, policy, ndb, nhb, prompts, out_len, seed,
+           device="cuda", **ec_kw):
+    """Drive one engine through a ServingSession; returns (engine, done,
+    wall stats). `ec_kw` goes to ServeConfig (chunked / fused /
+    max_prefill_tokens)."""
     from repro_torch.serving.engine import LayerKVEngine
     from repro_torch.serving.request import Request
     from repro_torch.serving.scheduler import ServeConfig
     from repro_torch.serving.session import ServingSession
     ec = ServeConfig.for_engine(policy=policy, slo_aware=False,
                                 block_size=16, num_device_blocks=ndb,
-                                num_host_blocks=nhb)
-    eng = LayerKVEngine(cfg, params, ec, device="cuda", seed=seed)
-    torch.cuda.synchronize()
+                                num_host_blocks=nhb, **ec_kw)
+    eng = LayerKVEngine(cfg, params, ec, device=device, seed=seed)
+    _sync(device)
     session = ServingSession(eng)
     handles = [session.submit(Request(rid=f"r{i}", prompt_len=len(p),
                                       output_len=out_len, arrival=0.0,
@@ -347,7 +549,7 @@ def _serve(cfg, params, policy, ndb, nhb, prompts, out_len, seed):
         firsts_before = len(first)
         if not session.step():
             break
-        torch.cuda.synchronize()
+        _sync(device)
         now = time.perf_counter()
         steps += 1
         for h in handles:
@@ -369,35 +571,51 @@ def _serve(cfg, params, policy, ndb, nhb, prompts, out_len, seed):
                        "decode_wall_s": decode_wall}
 
 
-def phase_serve(profile=False):
-    import torch
-    from repro_torch.configs import get_config
+def _zero_launches():
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import paged_attention as pa
-    cfg = get_config("llama2-7b")             # full width and depth, bf16
-    prompts = _prompts(cfg.vocab_size)
-    out_len = 32
-    _say(f"[serve] llama2-7b L={cfg.n_layers} d={cfg.d_model} "
-         f"H={cfg.n_heads} KV={cfg.n_kv_heads} bf16, {len(prompts)} "
-         f"requests, prompts {sorted(len(p) for p in prompts)}, "
-         f"{out_len} output tokens each")
+    from repro_torch.kernels import paged_prefill as pp
+    fp.launches = pa.launches = pp.launches = pp.launches_tiered = 0
 
-    # ---- the main path: layerkv on a tight pool (counts zeroed first)
-    fp.launches = 0
-    pa.launches = 0
+
+def _launches():
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_prefill as pp
+    return {"flash_attention": fp.launches, "paged_attention": pa.launches,
+            "paged_prefill": pp.launches,
+            "paged_prefill_tiered": pp.launches_tiered}
+
+
+def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
+                ndb_ref, device="cuda", **ec_kw):
+    """One main path and its reference. The main path is a layerkv run
+    on a device pool of `ndb` blocks, tight enough to force layer-wise
+    offload and reload, with every kernel launch count zeroed just before
+    it and read just after it; the reference is a vllm run, same config,
+    on a pool of `ndb_ref` blocks that fits every request whole. Asserts
+    every request finishes with `out_len` tokens, offload and reload both
+    happened, each kernel in `kernels` was launched, no logits went
+    non-finite (either run), and every first token equals the
+    reference's; prints the full-stream agreement and wall-clock TTFT /
+    TPOT / decode tokens per second. Returns a result dict (tokens,
+    stats, launches, params)."""
+    import torch
+    on_cuda = torch.device(device).type == "cuda"
+    _zero_launches()
     t0 = time.perf_counter()
-    eng, done, st = _serve(cfg, None, "layerkv", 4096, 16384, prompts,
-                           out_len, seed=0)
-    launches = {"flash_attention": fp.launches,
-                "paged_attention": pa.launches}
-    _say(f"[serve] layerkv: {len(done)} done in {st['wall_s']:.2f}s wall "
+    eng, done, st = _serve(cfg, params, "layerkv", ndb, nhb, prompts,
+                           out_len, seed=0, device=device, **ec_kw)
+    launches = _launches()
+    _say(f"[{tag}] layerkv: {len(done)} done in {st['wall_s']:.2f}s wall "
          f"({st['steps']} steps; setup+run {time.perf_counter() - t0:.1f}s)"
          f", launches {launches}")
     kinds = [x.kind for x in eng.off.ledger.log]
     n_off, n_rel = kinds.count("offload"), kinds.count("reload")
-    _say(f"[serve] layerkv ledger: {n_off} offloads, {n_rel} reloads, "
-         f"peak device memory "
-         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    mem = (f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB"
+           if on_cuda else "n/a (cpu)")
+    _say(f"[{tag}] layerkv ledger: {n_off} offloads, {n_rel} reloads, "
+         f"peak device memory {mem}")
     if len(done) != len(prompts):
         raise AssertionError(f"only {len(done)} of {len(prompts)} finished")
     for r in done:
@@ -406,17 +624,19 @@ def phase_serve(profile=False):
                                  f"expected {out_len}")
     if not (n_off > 0 and n_rel > 0):
         raise AssertionError("the pool did not force offload and reload")
-    if not all(v > 0 for v in launches.values()):
+    if on_cuda and not all(launches[k] > 0 for k in kernels):
         raise AssertionError(f"a kernel was never launched: {launches}")
     if eng.ex.nonfinite_logits():
         raise AssertionError("non-finite logits on the layerkv run")
+    host_steps = sum(1 for fn, sig in eng.ex._jit_sigs
+                     if fn == "mixed" and sig[-1])
     lk_tokens = {r.rid: list(r.generated) for r in done}
     params = eng.ex.params
 
     # ---- reference run: vllm on a pool that fits every request whole
     del eng, done
-    eng_v, done_v, st_v = _serve(cfg, params, "vllm", 20000, 16, prompts,
-                                 out_len, seed=0)
+    eng_v, done_v, st_v = _serve(cfg, params, "vllm", ndb_ref, 16, prompts,
+                                 out_len, seed=0, device=device, **ec_kw)
     if eng_v.ex.nonfinite_logits():
         raise AssertionError("non-finite logits on the vllm run")
     v_tokens = {r.rid: list(r.generated) for r in done_v}
@@ -426,7 +646,7 @@ def phase_serve(profile=False):
     agree = sum(a == b for rid in lk_tokens
                 for a, b in zip(lk_tokens[rid], v_tokens[rid]))
     total = sum(len(t) for t in lk_tokens.values())
-    _say(f"[serve] first tokens identical to vllm for all "
+    _say(f"[{tag}] first tokens identical to vllm for all "
          f"{len(lk_tokens)} requests; full-stream agreement "
          f"{agree}/{total} = {agree / total:.3f} (not asserted: bf16 decode "
          f"batches differ between policies)")
@@ -435,17 +655,112 @@ def phase_serve(profile=False):
         tpot = sorted(s["tpot_s"].values())
         tps = s["decode_tokens"] / s["decode_wall_s"] \
             if s["decode_wall_s"] else float("nan")
-        _say(f"[serve] {name} wall-clock: TTFT s "
+        s["decode_tok_per_s"] = tps
+        _say(f"[{tag}] {name} wall-clock: TTFT s "
              f"{[round(x, 4) for x in ttft]}; TPOT ms "
              f"{[round(x * 1e3, 2) for x in tpot]}; decode "
              f"{s['decode_tokens']} tokens in {s['decode_wall_s']:.3f}s of "
              f"decode-only steps = {tps:.1f} tok/s")
-    serve = {"layerkv": st, "vllm": st_v, "offloads": n_off,
-             "reloads": n_rel, "agreement": agree / total}
+    return {"layerkv": st, "vllm": st_v, "offloads": n_off,
+            "reloads": n_rel, "agreement": agree / total,
+            "launches": launches, "host_tier_signatures": host_steps,
+            "tokens": lk_tokens, "params": params}
+
+
+# The three main paths: model, prompts (count, seed), output tokens, the
+# device blocks of the layerkv run (tight: forces layer-wise offload and
+# reload, and in fused mode chunks with host-resident layers) and of its
+# vllm reference (fits everything), the engine mode, and the kernels the
+# path must launch. tests/test_torch_chip_smoke.py dry-runs the scheduler
+# on these settings at the full configs.
+PATHS = {
+    "serve": dict(arch="llama2-7b", n=8, seed=0, out_len=32, ndb=4096,
+                  ndb_ref=20000, nhb=16384, mode={},
+                  kernels=("flash_attention", "paged_attention")),
+    "fused": dict(arch="llama2-7b", n=8, seed=0, out_len=32, ndb=4096,
+                  ndb_ref=20000, nhb=16384,
+                  mode=dict(chunked=True, fused=True,
+                            max_prefill_tokens=512),
+                  kernels=("paged_prefill", "paged_prefill_tiered",
+                           "paged_attention")),
+    "moe": dict(arch="deepseek-moe-16b", n=6, seed=1, out_len=16, ndb=2048,
+                ndb_ref=20000, nhb=16384,
+                mode=dict(chunked=True, fused=True, max_prefill_tokens=512),
+                kernels=("paged_prefill", "paged_prefill_tiered",
+                         "paged_attention")),
+}
+
+
+def _run_path(tag, cfg, params, device):
+    """Drive path `tag` (settings from PATHS) through `_serve_pair`.
+    Returns (result, prompts, out_len)."""
+    pc = PATHS[tag]
+    prompts = _prompts(cfg.vocab_size, n=pc["n"], seed=pc["seed"])
+    res = _serve_pair(tag, cfg, params, prompts, pc["out_len"],
+                      pc["kernels"], pc["ndb"], pc["nhb"], pc["ndb_ref"],
+                      device=device, **pc["mode"])
+    if pc["mode"].get("fused") and not res["host_tier_signatures"]:
+        raise AssertionError("no fused step ran with a host-tier chunk")
+    return res, prompts, pc["out_len"]
+
+
+def _describe(tag, cfg):
+    pc = PATHS[tag]
+    lens = sorted(len(p) for p in _prompts(cfg.vocab_size, n=pc["n"],
+                                           seed=pc["seed"]))
+    _say(f"[{tag}] {cfg.arch_id} L={cfg.n_layers} d={cfg.d_model} "
+         f"H={cfg.n_heads} KV={cfg.n_kv_heads} {cfg.dtype}, {pc['n']} "
+         f"requests, prompts {lens}, {pc['out_len']} output tokens each, "
+         f"mode {pc['mode'] or 'exclusive prefill'}")
+
+
+def phase_serve(profile=False):
+    """llama2-7b, exclusive prefill (flash prefill + paged decode)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(PATHS["serve"]["arch"])   # full width and depth, bf16
+    _describe("serve", cfg)
+    res, prompts, out_len = _run_path("serve", cfg, None, "cuda")
     if profile:
-        del eng_v, done_v
-        serve["profile"] = _profile_decode(cfg, params, prompts, out_len)
-    return launches, serve
+        res["profile"] = _profile_decode(cfg, res["params"], prompts,
+                                         out_len)
+    return res
+
+
+def phase_fused(params, excl_tokens):
+    """llama2-7b through the fused mixed step with the serve phase's
+    weights and prompts: paged prefill over one pool and over two (chunks
+    with host-resident layers), paged decode for the decode rows."""
+    from repro_torch.configs import get_config
+    cfg = get_config(PATHS["fused"]["arch"])
+    _describe("fused", cfg)
+    res, _, _ = _run_path("fused", cfg, params, "cuda")
+    agree = sum(a == b for rid, t in res["tokens"].items()
+                for a, b in zip(t, excl_tokens[rid]))
+    total = sum(len(t) for t in res["tokens"].values())
+    _say(f"[fused] agreement with the exclusive-prefill layerkv run: "
+         f"{agree}/{total} = {agree / total:.3f} (not asserted)")
+    res["agreement_exclusive"] = agree / total
+    return res
+
+
+def phase_moe():
+    """deepseek-moe-16b (arXiv:2401.06066) at full width and depth, bf16,
+    random weights from a seeded generator on the card, served through
+    the fused mixed step: MoE FFN (dropless, grouped by expert), paged
+    prefill over one and two pools, paged decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import flatten_params
+    cfg = get_config(PATHS["moe"]["arch"])
+    m = cfg.moe
+    _describe("moe", cfg)
+    _say(f"[moe] {m.n_experts} routed experts top-{m.top_k} + "
+         f"{m.n_shared} shared, d_expert={m.d_expert}, vocab "
+         f"{cfg.vocab_size}")
+    res, _, _ = _run_path("moe", cfg, None, "cuda")
+    n = sum(t.numel() for t in flatten_params(res["params"]).values())
+    _say(f"[moe] {n / 1e9:.2f} B parameters")
+    res["n_params"] = n
+    return res
 
 
 def _profile_decode(cfg, params, prompts, out_len, steps=4):
@@ -508,10 +823,19 @@ def _profile_decode(cfg, params, prompts, out_len, steps=4):
 
 REPLACES = {
     "flash_attention": ("src/repro_torch/csrc/flash_prefill.cu",
-                        "src/repro/kernels/flash_prefill.py:83"),
+                        "src/repro/kernels/flash_prefill.py:83", None),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                        "src/repro/kernels/paged_attention.py:73"),
+                        "src/repro/kernels/paged_attention.py:73", None),
+    "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
+                      "src/repro/kernels/paged_prefill.py:140",
+                      "src/repro/kernels/paged_prefill.py:186"),
+    "paged_prefill_tiered": ("src/repro_torch/csrc/paged_prefill.cu",
+                             "src/repro/kernels/paged_prefill.py:140",
+                             "src/repro/kernels/paged_prefill.py:210"),
 }
+# the main path whose launch count each kernel's row reports
+MAIN_PATH = {"flash_attention": "serve", "paged_attention": "serve",
+             "paged_prefill": "fused", "paged_prefill_tiered": "fused"}
 
 
 def main(argv=None) -> int:
@@ -519,7 +843,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every number of the run here (JSON)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the serve phase, trace a few decode steps "
+                    help="in the serve phase, trace a few decode steps "
                          "with torch.profiler and print where they go")
     args = ap.parse_args(argv)
 
@@ -540,26 +864,40 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     smi = phase_build()
     kern = phase_kernels()
-    launches, serve = phase_serve(profile=args.profile)
+    paths = {"serve": phase_serve(profile=args.profile)}
+    params = paths["serve"].pop("params")
+    paths["fused"] = phase_fused(params, paths["serve"]["tokens"])
+    del params
+    paths["fused"].pop("params")
+    torch.cuda.empty_cache()         # llama2-7b's weights go before MoE's
+    torch.cuda.reset_peak_memory_stats()
+    paths["moe"] = phase_moe()
+    paths["moe"].pop("params")
+    torch.cuda.empty_cache()
 
     rows = []
     for name, (err, t) in kern.items():
-        src_path, replaces = REPLACES[name]
+        src_path, replaces, call = REPLACES[name]
         rows.append({
             "name": name, "route": "cuda", "source": src_path,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": paths[MAIN_PATH[name]]["launches"][name],
+            "launches_by_path": {k: v["launches"][name]
+                                 for k, v in paths.items()},
             "max_abs_err": err["bfloat16"],
             "max_abs_err_f32": err["float32"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
+        if call:
+            rows[-1]["pallas_call"] = call
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"nvidia_smi": smi, "kernels": rows, "serve": serve,
+            json.dump({"nvidia_smi": smi, "kernels": rows, "paths": paths,
                        "device": device,
                        "seconds": time.perf_counter() - t0}, f, indent=1,
                       default=str)

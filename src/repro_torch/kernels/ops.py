@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import paged_prefill as _pp
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
@@ -25,3 +26,17 @@ def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
 def paged_attention(q, kv_pool, block_table, kv_len, *, softmax_scale=None):
     return _pa.paged_attention(q, kv_pool, block_table, kv_len,
                                softmax_scale=softmax_scale)
+
+
+def paged_prefill(q, kv_pool, block_table, seg_ids, q_pos, kv_len, *,
+                  host_pool=None, tier=None, tq=8, softmax_scale=None):
+    """Segmented prefill/decode attention straight over the paged pool(s).
+
+    q: (T, H, D) flat token batch — per-request segments each padded to a
+    multiple of `tq` (so a query tile never straddles segments); the
+    chunk's own KV must already be written into the pool. block_table:
+    (S, MAXB); seg_ids/q_pos: (T,); kv_len: (S,). With `tier` (S,), a
+    segment whose flag is set reads `host_pool`. Returns (T, H, D)."""
+    return _pp.paged_prefill(q, kv_pool, block_table, seg_ids, q_pos,
+                             kv_len, host_pool=host_pool, tier=tier, tq=tq,
+                             softmax_scale=softmax_scale)

@@ -5,8 +5,9 @@ values are rounded to the storage dtype, so f32 results match the JAX
 oracles to float rounding.
 
 The CUDA wrappers (`flash_prefill.flash_attention`,
-`paged_attention.paged_attention`) run these for CPU tensors only; the
-tests and `chip_smoke.py` hold the kernels against them.
+`paged_attention.paged_attention`, `paged_prefill.paged_prefill`) run
+these for CPU tensors only; the tests and `chip_smoke.py` hold the
+kernels against them.
 """
 from __future__ import annotations
 
@@ -161,3 +162,61 @@ def paged_attention_reference(q, kv_pool, block_table, kv_len, *,
     out = mha_reference(q[:, None], k, v, causal=False, kv_len=kv_len,
                         softmax_scale=softmax_scale)
     return out[:, 0]
+
+
+def paged_prefill_reference(q, kv_pool, block_table, seg_ids, q_pos, kv_len,
+                            *, host_pool=None, tier=None, tq=8,
+                            softmax_scale=None):
+    """Segmented GQA prefill attention straight over a paged KV pool (the
+    paged-prefill kernel's plain version).
+
+    The token batch is a flat concatenation of per-request segments (a
+    prefill chunk, a one-token decode, a kv_len = 0 dummy), each padded to
+    a multiple of the query tile `tq`, so a tile never straddles two
+    segments. Every query attends causally against its segment's KV in
+    the pool (the chunk's own KV must already be written there). KV is
+    gathered once per query tile, as the kernel chases the table per tile.
+
+    q:           (T, H, D) flat token batch, T % tq == 0
+    kv_pool:     (NB, BS, 2, KV, D) device pool; [..., 0/1, :, :] = K/V
+    block_table: (S, MAXB) int physical block ids per segment
+    seg_ids:     (T,) int segment of each token
+    q_pos:       (T,) int absolute position of each token
+    kv_len:      (S,) int valid tokens per segment (prefix + chunk)
+    host_pool/tier: with `tier` (S,) set, a segment whose flag is set
+                 reads `host_pool` (NBH, BS, 2, KV, D) instead; the host
+                 pool may lie on the CPU (its gathered blocks are moved to
+                 q's device). Out-of-range ids are clamped into each pool
+                 (the not-selected gather is discarded), as in the
+                 reference.
+    returns      (T, H, D)
+    """
+    T, H, D = q.shape
+    S, MAXB = block_table.shape
+    BS, KV = kv_pool.shape[1], kv_pool.shape[3]
+    G = H // KV
+    NT = T // tq
+    dev = q.device
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    tile_seg = seg_ids.reshape(NT, tq)[:, 0].long()
+    tab_t = block_table.long()[tile_seg]                    # (NT, MAXB)
+    g = kv_pool[torch.clamp(tab_t, max=kv_pool.shape[0] - 1)]
+    if tier is not None:                          # (NT, MAXB, BS, 2, KV, D)
+        hid = torch.clamp(tab_t, max=host_pool.shape[0] - 1)
+        gh = host_pool[hid.to(host_pool.device)].to(dev)
+        tt = tier.to(dev).bool()[tile_seg]
+        g = torch.where(tt[:, None, None, None, None, None], gh, g)
+    k = g[:, :, :, 0].reshape(NT, MAXB * BS, KV, D)
+    v = g[:, :, :, 1].reshape(NT, MAXB * BS, KV, D)
+    qh = (q * scale).reshape(NT, tq, KV, G, D)
+    logits = torch.einsum("ntkgd,nskd->nkgts", qh, k).float()
+    k_pos = torch.arange(MAXB * BS, device=dev)
+    qp = q_pos.long().reshape(NT, tq)
+    lens = kv_len.long()[tile_seg]
+    mask = (qp[:, :, None] >= k_pos[None, None]) \
+        & (k_pos[None, None] < lens[:, None, None])
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.tensor(NEG_INF, device=dev))
+    p = torch.softmax(logits, dim=-1)             # (NT, KV, G, tq, Skv)
+    out = torch.einsum("nkgts,nskd->ntkgd", p.to(v.dtype), v)
+    return out.reshape(T, H, D)

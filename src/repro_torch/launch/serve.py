@@ -7,12 +7,14 @@ produces it.
         --smoke --policy layerkv --requests 16 --device-blocks 64
 
 The flags are `repro.launch.serve`'s, for one replica: --policy,
---no-slo-aware, --chunked (two-call), --prefix-cache, --preemption,
---admission, --interactive-every, --shed-overload, --trace. Not yet
-ported, and rejected: --fused, --replicas > 1, --fault-plan and
---liveness-timeout. `--device` (default cuda) selects where it runs;
-without a CUDA device it raises unless given `--device cpu`. Prints the
-per-token stream, per-request TTFT, and the offload-ledger summary.
+--no-slo-aware, --chunked, --fused (implies --chunked: one forward per
+iteration, chunks attending straight over the paged pools),
+--prefix-cache, --preemption, --admission, --interactive-every,
+--shed-overload, --trace. Not yet ported, and rejected: --replicas > 1,
+--fault-plan and --liveness-timeout. `--device` (default cuda) selects
+where it runs; without a CUDA device it raises unless given
+`--device cpu`. Prints the per-token stream, per-request TTFT, and the
+offload-ledger summary.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ def main(argv=None):
     ap.add_argument("--chunked", action="store_true",
                     help="chunked prefill + mixed batching (two calls)")
     ap.add_argument("--fused", action="store_true",
-                    help="not yet ported")
+                    help="ONE forward per iteration, chunks + decode "
+                         "sharing the weight stream (implies --chunked)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="ref-counted cross-request prefix sharing")
     ap.add_argument("--chunk-size", type=int, default=32,
@@ -77,8 +80,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    for flag, on in (("--fused", args.fused),
-                     ("--replicas > 1", args.replicas > 1),
+    for flag, on in (("--replicas > 1", args.replicas > 1),
                      ("--fault-plan", args.fault_plan is not None),
                      ("--liveness-timeout",
                       args.liveness_timeout is not None)):
@@ -121,7 +123,8 @@ def main(argv=None):
     sc = ServeConfig.for_engine(
         policy=args.policy,
         slo_aware=not args.no_slo_aware,
-        chunked=args.chunked,
+        chunked=args.chunked or args.fused,
+        fused=args.fused,
         prefix_cache=args.prefix_cache,
         preemption=args.preemption,
         admission=args.admission,
@@ -146,7 +149,8 @@ def main(argv=None):
     done = session.drain()
 
     ttfts = [r.ttft for r in done]
-    print(f"policy={args.policy} chunked={args.chunked} "
+    print(f"policy={args.policy} chunked={args.chunked or args.fused} "
+          f"fused={args.fused} "
           f"prefix_cache={args.prefix_cache} "
           f"preemption={args.preemption} admission={args.admission} "
           f"device={engine.ex.device}")

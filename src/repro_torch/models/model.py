@@ -1,4 +1,4 @@
-"""The dense decoder-only model — the port of the dense part of
+"""The decoder-only model (dense and MoE) — the port of
 `repro.models.model._decoder_model` (`init`, `init_cache`, `prefill`,
 `_mask_pad_logits`).
 
@@ -7,8 +7,9 @@
     logits, cache = model.prefill(batch, cache)   # fill cache, last-pos logits
 
 Layers run as a Python loop over the layer-stacked params (the
-reference's `lax.scan`). Dense-cache `decode`, `kv_quant`, MoE and the
-other families wait for later slices; the constructor raises for them.
+reference's `lax.scan`). MoE blocks run `moe.moe_ffn`; the port serves
+them dropless only. Dense-cache `decode`, `kv_quant` and the other
+families wait for later slices; the constructor raises for them.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -73,29 +74,37 @@ def mask_pad_logits(cfg: ModelConfig, logits):
     return logits.masked_fill(iota >= cfg.vocab_size, -1e30)
 
 
+def ffn(cfg: ModelConfig, p, h, *, dropless=True):
+    """The block's feed-forward: dense MLP, or the MoE FFN (dropless on
+    every serving path, as in the reference's executor)."""
+    if cfg.family == "moe":
+        return moe.moe_ffn(cfg, p["moe"], h, dropless=dropless)
+    return layers.mlp(cfg, p["mlp"], h)
+
+
 def block_forward(cfg: ModelConfig, p, x, positions, *, window=0,
-                  kv_len=None):
-    """Full-sequence dense transformer block. Returns (x, (k, v))."""
+                  kv_len=None, dropless=False):
+    """Full-sequence transformer block. Returns (x, (k, v))."""
     h = layers.apply_norm(cfg, p["attn_norm"], x)
     attn, kv = layers.self_attention(cfg, p["attn"], h, positions,
                                      causal=True, window=window,
                                      kv_len=kv_len)
     x = x + attn
     h = layers.apply_norm(cfg, p["mlp_norm"], x)
-    return x + layers.mlp(cfg, p["mlp"], h), kv
+    return x + ffn(cfg, p, h, dropless=dropless), kv
 
 
 class DecoderModel(nn.Module):
-    """Dense decoder with params as a nested dict (`self.params`, the
-    reference's pytree layout) whose tensors are also registered, flat,
-    as frozen parameters of the module."""
+    """Decoder (dense or MoE) with params as a nested dict
+    (`self.params`, the reference's pytree layout) whose tensors are also
+    registered, flat, as frozen parameters of the module."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, device="cuda",
                  seed: int = 0):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise ValueError(f"family {cfg.family!r} is not yet ported "
-                             "(dense only)")
+                             "(dense and moe only)")
         if cfg.kv_quant:
             raise ValueError("kv_quant is not yet ported")
         self.cfg = cfg
@@ -119,12 +128,16 @@ class DecoderModel(nn.Module):
         gen.manual_seed(seed)
         stacked = None
         for l in range(cfg.n_layers):
-            lp = flatten_params({
+            block = {
                 "attn_norm": layers.init_norm(cfg, cfg.d_model, dt, dev),
                 "attn": layers.init_attention(cfg, gen, dt, dev),
                 "mlp_norm": layers.init_norm(cfg, cfg.d_model, dt, dev),
-                "mlp": layers.init_mlp(cfg, gen, dt, dev),
-            })
+            }
+            if cfg.family == "moe":
+                block["moe"] = moe.init_moe(cfg, gen, dt, dev)
+            else:
+                block["mlp"] = layers.init_mlp(cfg, gen, dt, dev)
+            lp = flatten_params(block)
             if stacked is None:
                 stacked = {k: torch.empty((cfg.n_layers, *t.shape),
                                           dtype=t.dtype, device=dev)
@@ -162,11 +175,12 @@ class DecoderModel(nn.Module):
         w = p["embed"].T if self.cfg.tie_embeddings else p["lm_head"]
         return mask_pad_logits(self.cfg, x @ w)
 
-    def prefill(self, batch, cache):
+    def prefill(self, batch, cache, dropless=False):
         """batch: tokens (B, S) int, optional prompt_len (B,) int (the
         valid prefix; keys past it are masked). Writes every layer's K/V
         into `cache` in place and returns (logits at each row's last valid
-        position, cache)."""
+        position, cache). `dropless` is the MoE FFN's (the serving
+        executor passes True, as the reference's does)."""
         cfg, p = self.cfg, self.params
         tokens = batch["tokens"]
         x = p["embed"][tokens]
@@ -177,7 +191,8 @@ class DecoderModel(nn.Module):
         W = min(S, S_buf)   # sliding-window cache keeps the trailing W
         for l in range(cfg.n_layers):
             x, (k, v) = block_forward(cfg, layer_params(p["layers"], l), x,
-                                      positions, kv_len=kv_len)
+                                      positions, kv_len=kv_len,
+                                      dropless=dropless)
             cache["k"][l, :, :W] = k[:, S - W:]
             cache["v"][l, :, :W] = v[:, S - W:]
         new_len = (kv_len.to(torch.int32) if kv_len is not None

@@ -12,9 +12,12 @@ scheduler, Eq.5 forecast) to the `PagedExecutor`. Two policies:
              streamed/promoted back for decode.
 
 Orthogonally, `ServeConfig.chunked` selects the engine-step semantics
-(exclusive vLLM-0.5.5 prefill vs two-call chunked prefill + mixed
-batching). `ServeConfig.fused` (the one-forward `mixed_step`) and every
-family but `dense` are not yet ported: the constructor raises for them.
+(exclusive vLLM-0.5.5 prefill vs chunked prefill + mixed batching) and
+`ServeConfig.fused` (chunked only) collapses the iteration's two executor
+calls into ONE `PagedExecutor.mixed_step`, whose prefill chunks attend
+straight over the paged pools (the host pool too, for layers offloaded
+mid-prefill). Families: dense and MoE; the constructor raises for the
+others.
 
 Everything decision-shaped — admission (policy-ordered, Alg.1 budgeted),
 the device-need gate, the Eq.4 layer-split allocation, chunk assembly,
@@ -42,7 +45,8 @@ from repro_torch.core import DEVICE, HOST, LayerwiseBlockManager, \
     OffloadEngine, SLOScheduler
 from repro_torch.core.predictor import HistogramPredictor, LengthPredictor
 from repro_torch.serving.costmodel import H100, CostModel, HWProfile
-from repro_torch.serving.executor import PagedExecutor
+from repro_torch.serving.executor import MixedChunk, MixedDecode, \
+    PagedExecutor
 from repro_torch.serving.request import Phase, Request
 from repro_torch.serving.scheduler import CoreDelegateMixin, \
     SchedulerCore, ServeConfig
@@ -67,12 +71,9 @@ class LayerKVEngine(CoreDelegateMixin):
                  device="cuda", seed: int = 0):
         self.cfg = cfg
         self.ec = (ec or ServeConfig.for_engine()).validate()
-        if self.ec.fused:
-            raise ValueError("fused=True (the one-forward mixed_step) is "
-                             "not yet ported")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise ValueError(f"family {cfg.family!r} is not yet ported "
-                             "(dense only)")
+                             "(dense and moe only)")
         ndb = self.ec.num_device_blocks or 128  # 0 = backend default
         self.ex = PagedExecutor(cfg, params, ndb,
                                 self.ec.num_host_blocks, self.ec.block_size,
@@ -227,6 +228,58 @@ class LayerKVEngine(CoreDelegateMixin):
             r.generated.append(int(torch.argmax(logits)))
         # otherwise the cached buffers already hold this chunk's K/V (the
         # chunk forward wrote them in place)
+
+    # ---------------------------------------------------------- fused step
+    def _run_mixed(self, chunk_work: List[tuple],
+                   sel: List[Request]) -> None:
+        """One fused iteration: every prefill chunk AND the decode batch in
+        a single `PagedExecutor.mixed_step` forward — one weight stream per
+        layer per iteration. Chunk tokens attend straight against the paged
+        pools (block tables sliced to the live prefix + chunk), so the
+        dense prefix gather of the two-call path is gone; new KV is
+        written into the pools inside the step. Bookkeeping (ledger d2h,
+        prefill progress, prefix registration, token appends) mirrors
+        `_run_chunk` + `_run_decode` exactly."""
+        for r in sel:
+            for l in list(self.bm.tables[r.rid]):
+                self.bm.extend_layer(r.rid, l, 1)
+        chunks: List[MixedChunk] = []
+        for r, c in chunk_work:
+            p = r.prefill_done
+            nb_live = -(-(p + c) // self.ec.block_size)
+            tabs, tiers = [], []
+            for l in range(self.L):
+                a = self.bm.allocation(r.rid, l)
+                tabs.append(a.blocks[:nb_live])
+                tiers.append(a.pool == HOST)
+            chunks.append(MixedChunk(tokens=r.prompt[p:p + c], offset=p,
+                                     tables=tabs, tiers=tiers))
+        decodes: List[MixedDecode] = []
+        for r in sel:
+            ctx = r.prompt_len + r.tokens_out - 1
+            tabs = []
+            for l in range(self.L):
+                a = self.bm.allocation(r.rid, l)
+                assert a.pool == DEVICE
+                tabs.append(a.blocks)
+            decodes.append(MixedDecode(token=r.generated[-1], ctx=ctx,
+                                       tables=tabs))
+        out = self.ex.mixed_step(chunks, decodes)
+        for i, (r, c) in enumerate(chunk_work):
+            n_off = len(self.bm.layers_on(r.rid, HOST))
+            if n_off:
+                self.off.ledger.submit(
+                    self.now, self.cost.kv_bytes(c, n_off), "offload")
+            r.prefill_done += c
+            r.n_chunks += 1
+            if self.ec.prefix_cache and r.prompt:
+                self.bm.register_prefix(r.rid, r.prompt,
+                                        upto=r.prefill_done)
+            if r.prefill_complete:
+                r.generated.append(int(out[i]))
+        for j, r in enumerate(sel):
+            r.generated.append(int(out[len(chunk_work) + j]))
+            r.tokens_out += 1
 
     # ------------------------------------------------------ residency mgmt
     def _ensure_device(self, r: Request) -> bool:
@@ -393,11 +446,19 @@ class LayerKVEngine(CoreDelegateMixin):
         for r, c in chunk_work:
             chunk_time += self.cost.chunk_prefill_time(c, r.prefill_done)
 
-        # two calls: the chunk forwards, then the decode step
-        for r, c in chunk_work:
-            self._run_chunk(r, c)
-        dec_time = self._run_decode(sel) if sel else 0.0
-        self.now += max(chunk_time, dec_time)
+        if self.ec.fused:
+            # ONE forward: chunks + decode batch share the weight stream
+            R = len(sel)
+            avg_ctx = (int(sum(r.prompt_len + r.tokens_out - 1
+                               for r in sel) / R) + 1) if sel else 0
+            self._run_mixed(chunk_work, sel)
+            self.now += self.cost.mixed_step_time(chunk_time, R, avg_ctx,
+                                                  fused=True)
+        else:
+            for r, c in chunk_work:
+                self._run_chunk(r, c)
+            dec_time = self._run_decode(sel) if sel else 0.0
+            self.now += max(chunk_time, dec_time)
 
         for r in sel:
             r.note_token(self.now)

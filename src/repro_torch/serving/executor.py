@@ -1,8 +1,9 @@
 """PyTorch executor for the serving engine: paged KV pools + the model
 forwards that read and write them — the port of
 `repro.serving.executor.PagedExecutor` (prefill, pool writes and copies,
-two-call chunked prefill, paged decode; the fused `mixed_step` waits for
-the paged-prefill kernels of a later slice).
+two-call chunked prefill, paged decode, and the fused `mixed_step`, whose
+chunk rows attend straight over the pools through the paged-prefill
+kernel). Decoder-only families: dense and MoE.
 
 Physical layout follows the paper's §4: ONE pooled tensor per memory tier
 (device / host), shared by all layers — `(num_blocks, block_size, 2, KV,
@@ -22,16 +23,23 @@ synchronisation. The only CPU-side access to the host pool (a same-pool
 host copy) synchronises the stream first. Overlapping the copies on a
 side stream is later work.
 
+Inside a fused step, chunk rows whose layer is host-resident write their
+new K/V into the pinned host pool as async copies of contiguous slot runs
+on the current stream, before that layer's attention reads the host pool
+in place through its device-mapped address (stream order, no sync).
+
 Bucketed-shape contract (as in the reference): `prefill` pads the prompt
-buffer and `decode` the batch width R to power-of-two buckets, block
-tables round to 8-block granularity, padded rows carry trash-block
-tables. Every novel shape signature is counted in the registry's
+buffer, `decode` the batch width R, and `mixed_step` the chunk rows Tc /
+chunk segments Sc / decode width Rb / output rows Sb to power-of-two
+buckets, block tables round to 8-block granularity, padded rows carry
+trash-block tables. Every novel shape signature is counted in the registry's
 `jit_retraces` series, the reference's name for it: in the port a
 signature is what a later CUDA-graph capture would key on.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import logging
 from typing import List, Sequence
 
@@ -42,11 +50,16 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers
-from repro_torch.models.model import (DecoderModel, layer_params,
+from repro_torch.models.model import (DecoderModel, ffn, layer_params,
                                       mask_pad_logits, torch_dtype)
 from repro_torch.obs.registry import MetricsRegistry
 
 log = logging.getLogger(__name__)
+
+# query-tile granularity of the fused mixed step: every chunk segment's
+# tokens are padded to a multiple of TQ so a query tile never straddles
+# two segments (the reference's value)
+MIXED_TQ = 32
 
 
 def _round_up(n, m):
@@ -73,10 +86,30 @@ def _runs(ids: Sequence[int]):
         i = j
 
 
+@dataclasses.dataclass
+class MixedChunk:
+    """One prefill chunk riding the fused mixed step."""
+    tokens: List[int]        # chunk token ids
+    offset: int              # absolute position of tokens[0] (= prefill_done)
+    tables: List[List[int]]  # per-layer LIVE block ids — only the
+    #                          ceil((offset + len(tokens)) / BS) blocks that
+    #                          hold valid KV, never the full allocation
+    tiers: List[bool]        # per-layer: True = blocks live in the HOST pool
+
+
+@dataclasses.dataclass
+class MixedDecode:
+    """One decode token riding the fused mixed step."""
+    token: int               # last generated token (the step's input)
+    ctx: int                 # tokens already cached; KV grows to ctx + 1
+    tables: List[List[int]]  # per-layer DEVICE block ids
+
+
 class PagedExecutor:
     """Owns the physical KV pools (device + host buffers, paged in
     `block_size`-token blocks) and runs model forwards against them:
-    batched prefill, paged decode and two-call chunked prefill. Pure
+    batched prefill, paged decode, two-call chunked prefill, and the fused
+    `mixed_step`. Pure
     mechanism — which blocks a request may touch is decided upstream by
     `SchedulerCore`/`LayerwiseBlockManager`."""
 
@@ -163,7 +196,7 @@ class PagedExecutor:
         batch = {"tokens": self._to_device(toks),
                  "prompt_len": self._to_device([S], torch.int32)}
         cache = self.model.init_cache(1, pad_to)
-        logits, cache = self.model.prefill(batch, cache)
+        logits, cache = self.model.prefill(batch, cache, dropless=True)
         self._note_logits(logits)
         next_tok = int(torch.argmax(logits[0]))
         return next_tok, cache["k"][:, 0], cache["v"][:, 0]
@@ -291,7 +324,7 @@ class PagedExecutor:
                                     q_offset=offset)
             x = x + layers.attn_out(cfg, lp["attn"], o)
             h = layers.apply_norm(cfg, lp["mlp_norm"], x)
-            x = x + layers.mlp(cfg, lp["mlp"], h)
+            x = x + ffn(cfg, lp, h)
             ks_out.append(k[0])
             vs_out.append(v[0])
         x = layers.apply_norm(cfg, params["final_norm"], x)
@@ -309,6 +342,174 @@ class PagedExecutor:
             self._to_device([offset + len(chunk)], torch.int32))
         self._note_logits(logits)
         return logits, kc, vc
+
+    # ----------------------------------------------------------- fused step
+    def _host_scatter(self, runs, k, v) -> None:
+        """Write chunk rows' K/V (T, KV, hd) into the HOST pool: one async
+        copy per run (row_a, row_b, slot) of consecutive pool slots
+        (slot = block * BS + offset), on the current stream."""
+        if not runs:
+            return
+        hp = self.host_pool
+        kv = torch.stack([k, v], dim=1).to(hp.dtype)     # (T, 2, KV, hd)
+        flat = hp.view(-1, *hp.shape[2:])                # (slots, 2, KV, hd)
+        for a, b, slot in runs:
+            flat[slot:slot + b - a].copy_(kv[a:b], non_blocking=True)
+
+    def _mixed_forward(self, tokens, q_pos, off, blk_dev, host_runs, c_seg,
+                       c_qpos, c_kvlens, c_tables, c_tier, d_tables,
+                       d_kvlens, sample_idx, is_chunk, has_host: bool,
+                       Tc: int, Rb: int):
+        """ONE forward for a whole serving iteration: prefill-chunk tokens
+        and decode tokens ride the same flat batch, so each layer's
+        weights stream once. Per layer: project QKV for all T tokens,
+        write the new K/V into the pool(s) at per-token (block, offset)
+        slots, then attend straight over the pool. The flat batch is
+        [chunk part (Tc rows, segment-padded to the query tile) | decode
+        part (Rb rows)]: chunk rows go through the paged-prefill kernel,
+        decode rows through the paged decode kernel.
+
+        tokens/q_pos/off: (T,) flat batch; blk_dev: (L, T) device-pool
+        write targets (trash block for rows that do not write the device
+        tier); host_runs: per layer, the host-pool slot runs of the chunk
+        rows whose layer is host-resident. Chunk part: c_seg/c_qpos (Tc,),
+        c_kvlens (Sc,), c_tables (L, Sc, MAXBc), c_tier (L, Sc). Decode
+        part: d_tables (L, Rb, MAXBd), d_kvlens (Rb,) cached tokens
+        (attends ctx + 1 after the in-step write). sample_idx: (Sb,) flat
+        row each output samples; is_chunk selects pad-vocab masking (chunk
+        samples masked, decode samples raw, as the two-call paths do).
+        Writes the pools in place; returns (Sb, V) logits."""
+        cfg, params = self.cfg, self.params
+        dpool, hpool = self.device_pool, self.host_pool
+        T = tokens.shape[0]
+        x = params["embed"][tokens][None]                  # (1, T, d)
+        positions = q_pos[None]                            # (1, T)
+        if cfg.pos_emb == "mrope":
+            positions = positions[None].expand(3, 1, T)
+        for l in range(cfg.n_layers):
+            lp = layer_params(params["layers"], l)
+            h = layers.apply_norm(cfg, lp["attn_norm"], x)
+            q, k, v = layers.qkv_proj(cfg, lp["attn"], h)
+            q = layers.apply_rope(cfg, q, positions)
+            k = layers.apply_rope(cfg, k, positions)
+            dpool[blk_dev[l], off, 0] = k[0].to(dpool.dtype)
+            dpool[blk_dev[l], off, 1] = v[0].to(dpool.dtype)
+            if has_host:
+                self._host_scatter(host_runs[l], k[0], v[0])
+            parts = []
+            if Tc:
+                parts.append(ops.paged_prefill(
+                    q[0, :Tc].contiguous(), dpool, c_tables[l], c_seg,
+                    c_qpos, c_kvlens,
+                    host_pool=hpool if has_host else None,
+                    tier=c_tier[l] if has_host else None, tq=MIXED_TQ))
+            if Rb:
+                parts.append(ops.paged_attention(
+                    q[0, Tc:].contiguous(), dpool, d_tables[l],
+                    d_kvlens + 1))
+            o = torch.cat(parts) if len(parts) > 1 else parts[0]
+            x = x + layers.attn_out(cfg, lp["attn"], o[None])
+            h = layers.apply_norm(cfg, lp["mlp_norm"], x)
+            x = x + ffn(cfg, lp, h)
+        x = layers.apply_norm(cfg, params["final_norm"], x)
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = x[0][sample_idx] @ w                      # (Sb, V)
+        return torch.where(is_chunk[:, None], mask_pad_logits(cfg, logits),
+                           logits)
+
+    def mixed_step(self, chunks: List[MixedChunk],
+                   decodes: List[MixedDecode]) -> List[int]:
+        """Run one fused iteration: all prefill chunks + the decode batch
+        in one forward (one weight stream). Chunk and decode K/V are
+        written into the pools inside the step; attention reads the pools
+        directly. Shapes are power-of-two bucketed (chunk rows Tc, chunk
+        segments Sc, decode width Rb, output rows Sb; table widths round
+        to 8 blocks) with padded rows writing the trash block. Returns
+        the (n_chunks + n_decodes,) argmax'd next tokens (chunk rows are
+        only meaningful for a request's final chunk)."""
+        TQ = MIXED_TQ
+        BS = self.block_size
+        L = self.cfg.n_layers
+        n_c, n_d = len(chunks), len(decodes)
+        assert n_c + n_d > 0, "mixed_step needs at least one segment"
+        pads = [_round_up(len(c.tokens), TQ) for c in chunks]
+        Tc = _bucket(sum(pads), TQ) if n_c else 0
+        Sc = _bucket(n_c) if n_c else 0
+        Rb = _bucket(n_d) if n_d else 0
+        Sb = _bucket(n_c + n_d)
+        T = Tc + Rb
+        MAXBc = _round_up(max((len(c.tables[0]) for c in chunks),
+                              default=1), 8) if n_c else 0
+        MAXBd = _round_up(max((len(d.tables[0]) for d in decodes),
+                              default=1), 8) if n_d else 0
+
+        tokens = np.zeros(T, np.int64)
+        q_pos = np.zeros(T, np.int32)
+        off = np.zeros(T, np.int64)
+        blk_dev = np.full((L, T), self.num_device_blocks, np.int64)  # trash
+        host_runs: List[list] = [[] for _ in range(L)]
+        c_seg = np.full(Tc, max(Sc - 1, 0), np.int32)
+        c_tables = np.zeros((L, Sc, MAXBc), np.int32)
+        c_tier = np.zeros((L, Sc), np.int32)
+        c_kvlens = np.zeros(Sc, np.int32)
+        d_tables = np.full((L, Rb, MAXBd), self.num_device_blocks, np.int32)
+        d_kvlens = np.zeros(Rb, np.int32)
+        sample_idx = np.zeros(Sb, np.int64)
+        is_chunk = np.zeros(Sb, bool)
+
+        t0 = 0
+        for i, c in enumerate(chunks):
+            C = len(c.tokens)
+            tokens[t0:t0 + C] = c.tokens
+            q_pos[t0:t0 + pads[i]] = c.offset + np.arange(pads[i])
+            c_seg[t0:t0 + pads[i]] = i
+            pos = c.offset + np.arange(C)
+            off[t0:t0 + C] = pos % BS
+            nb = len(c.tables[0])
+            for l in range(L):
+                lblk = np.asarray(c.tables[l], np.int64)
+                c_tables[l, i, :nb] = lblk
+                c_tier[l, i] = c.tiers[l]
+                if c.tiers[l]:
+                    slots = lblk[pos // BS] * BS + pos % BS
+                    host_runs[l].extend((t0 + a, t0 + b, int(s0))
+                                        for a, b, s0 in _runs(slots))
+                else:
+                    blk_dev[l, t0:t0 + C] = lblk[pos // BS]
+            c_kvlens[i] = c.offset + C
+            sample_idx[i] = t0 + C - 1
+            is_chunk[i] = True
+            t0 += pads[i]
+        # chunk-part tail tiles: contiguous positions (a query tile's base
+        # + row arithmetic stays valid); they map to the last chunk
+        # segment slot (a kv_len=0 dummy when Sc > n_c), write only trash,
+        # and their outputs are discarded
+        q_pos[t0:Tc] = np.arange(Tc - t0)
+        for j, d in enumerate(decodes):
+            t = Tc + j
+            tokens[t] = d.token
+            q_pos[t] = d.ctx
+            off[t] = d.ctx % BS
+            nb = len(d.tables[0])
+            for l in range(L):
+                d_tables[l, j, :nb] = d.tables[l]
+                blk_dev[l, t] = d.tables[l][d.ctx // BS]
+            d_kvlens[j] = d.ctx
+            sample_idx[n_c + j] = t
+        has_host = bool(c_tier.any())
+        self._note_trace("mixed", (Tc, Sc, Rb, Sb, MAXBc, MAXBd, has_host))
+        dv = self._to_device
+        logits = self._mixed_forward(
+            dv(tokens), dv(q_pos, torch.int32), dv(off), dv(blk_dev),
+            host_runs, dv(c_seg, torch.int32), dv(q_pos[:Tc], torch.int32),
+            dv(c_kvlens, torch.int32), dv(c_tables, torch.int32),
+            dv(c_tier, torch.int32), dv(d_tables, torch.int32),
+            dv(d_kvlens, torch.int32), dv(sample_idx), dv(is_chunk,
+                                                          torch.bool),
+            has_host, Tc, Rb)
+        n = n_c + n_d
+        self._note_logits(logits[:n])
+        return torch.argmax(logits[:n], dim=-1).tolist()
 
     # --------------------------------------------------------------- decode
     def _paged_decode(self, tokens, tables, kv_lens):
@@ -340,7 +541,7 @@ class PagedExecutor:
             o = ops.paged_attention(q[:, 0], dpool, tables[l], attend)
             x = x + layers.attn_out(cfg, lp["attn"], o[:, None])
             h = layers.apply_norm(cfg, lp["mlp_norm"], x)
-            x = x + layers.mlp(cfg, lp["mlp"], h)
+            x = x + ffn(cfg, lp, h)
         x = layers.apply_norm(cfg, params["final_norm"], x)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return x[:, 0] @ w

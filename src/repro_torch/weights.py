@@ -3,7 +3,13 @@
 The reference's params are a pytree of arrays; flattened they are a dict
 keyed like ``layers/attn/wq`` (layer-stacked leaves keep their leading
 (L, ...) axis). The port keeps JAX's (in, out) matrix layout and computes
-`x @ w`, so crossing over is a copy, never a transpose.
+`x @ w`, so crossing over is a copy, never a transpose. MoE leaves
+(``layers/moe/{router,we_gate,we_up,we_down,shared/*}``) cross the same
+way.
+
+Every leaf keeps its own dtype: the reference keeps some leaves in f32
+whatever the model dtype is (the MoE router, `repro.models.moe`), and
+the port computes with them in f32 too.
 
 `repro.training.checkpoint.save` writes exactly that flat dict as
 ``arrays.npz`` plus a ``manifest.json`` that records each array's
@@ -14,7 +20,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -25,17 +31,24 @@ from repro_torch.models.model import torch_dtype, unflatten_params
 
 
 def from_jax_params(flat: Dict[str, np.ndarray], cfg: ModelConfig,
-                    device="cuda"):
-    """Flat ``{'layers/attn/wq': array, ...}`` (numpy, any float dtype incl.
-    ml_dtypes bfloat16) -> the port's nested params in `cfg.dtype` on
-    `device`."""
+                    device="cuda", dtypes: Optional[Dict[str, str]] = None):
+    """Flat ``{'layers/attn/wq': array, ...}`` (numpy f32 / bf16, incl.
+    ml_dtypes bfloat16) -> the port's nested params on `device`, each leaf
+    in its own dtype, or in ``dtypes[key]`` where given (a checkpoint
+    manifest's record of arrays widened to f32 on save). Raises if a leaf
+    is in neither `cfg.dtype` nor f32."""
     dev = resolve_device(device)
-    dt = torch_dtype(cfg.dtype)
+    allowed = {torch_dtype(cfg.dtype), torch.float32}
     out = {}
     for key, arr in flat.items():
         a = np.asarray(arr)
+        name = (dtypes or {}).get(key, a.dtype.name)
         if a.dtype.name == "bfloat16":   # torch cannot read ml_dtypes' bf16
             a = a.astype(np.float32)
+        dt = torch_dtype(name)
+        if dt not in allowed:
+            raise ValueError(f"{key}: dtype {name} is neither the model's "
+                             f"{cfg.dtype} nor float32")
         out[key] = torch.tensor(a, dtype=dt, device=dev)   # always a copy
     return unflatten_params(out)
 
@@ -48,4 +61,5 @@ def load_checkpoint(path: str, cfg: ModelConfig, device="cuda"):
         manifest = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as data:
         flat = {k: data[k] for k in manifest["keys"]}
-    return from_jax_params(flat, cfg, device), manifest.get("meta", {})
+    return (from_jax_params(flat, cfg, device, manifest.get("dtypes")),
+            manifest.get("meta", {}))

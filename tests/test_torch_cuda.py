@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import flash_prefill, paged_attention
+from repro_torch.kernels import flash_prefill, paged_attention, \
+    paged_prefill
 
 pytestmark = pytest.mark.cuda
 DTYPES = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
@@ -96,3 +97,88 @@ def test_wrappers_reject_bad_inputs():
             torch.zeros(1, 32, 64, device="cuda"), pool,
             torch.zeros(1, 1, dtype=torch.int32, device="cuda"),
             torch.ones(1, dtype=torch.int32, device="cuda"))
+
+
+def _segments(specs, H, D, MAXB, NB, tq, seed):
+    """A flat tq-padded batch of (q_offset, n_tokens) segments on the
+    card, tables drawn from a permutation of NB ids."""
+    r = np.random.RandomState(seed)
+    pads = [-(-max(n, 1) // tq) * tq for _, n in specs]
+    seg = np.repeat(np.arange(len(specs)), pads).astype(np.int32)
+    pos = np.concatenate([off + np.arange(p) for (off, _), p
+                          in zip(specs, pads)]).astype(np.int32)
+    klen = np.asarray([off + n for off, n in specs], np.int32)
+    tab = r.permutation(NB)[:len(specs) * MAXB].reshape(len(specs), MAXB)
+    cuda = [torch.from_numpy(a.astype(np.int32)).cuda()
+            for a in (tab, seg, pos, klen)]
+    return (_randn((sum(pads), H, D), torch.float32, seed), cuda,
+            klen[seg] > 0)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("H,KV,D", SHAPES)
+@pytest.mark.parametrize("tq", [8, 32])
+def test_paged_prefill_kernel_matches_plain(dtype, tol, H, KV, D, tq):
+    """Chunk edges (straddling a block, block-aligned, one token, mid-block
+    start and end), decode tokens and a kv_len = 0 dummy in one call;
+    live rows compared, every row finite, dummy rows 0."""
+    _need_cuda()
+    NB, BS, MAXB = 64, 16, 8
+    pool = _randn((NB, BS, 2, KV, D), dtype, 7)
+    specs = [(29, 11), (0, 16), (47, 1), (5, 3), (70, 40), (90, 1), (0, 0)]
+    q, (tab, seg, pos, klen), live = _segments(specs, H, D, MAXB, NB, tq, 8)
+    q = q.to(dtype)
+    before = paged_prefill.launches
+    got = paged_prefill.paged_prefill(q, pool, tab, seg, pos, klen, tq=tq)
+    want = paged_prefill.paged_prefill_plain(q, pool, tab, seg, pos, klen,
+                                             tq=tq)
+    torch.cuda.synchronize()
+    live = torch.from_numpy(live).cuda()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=tol, rtol=tol)
+    assert torch.isfinite(got).all() and (got[~live] == 0).all()
+    assert paged_prefill.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("H,KV,D", SHAPES)
+def test_paged_prefill_kernel_two_pools(dtype, tol, H, KV, D):
+    """A host-resident segment reads the pinned HOST pool in place, with
+    ids above the device pool's size; device segments read the device
+    pool."""
+    _need_cuda()
+    BS, MAXB = 16, 4
+    dpool = _randn((8, BS, 2, KV, D), dtype, 9)
+    hpool = _randn((64, BS, 2, KV, D), dtype, 10).cpu().pin_memory()
+    q, (_, seg, pos, klen), _ = _segments([(20, 30), (33, 17), (3, 1)], H,
+                                          D, MAXB, 64, 32, 11)
+    q = q.to(dtype)
+    tab = torch.tensor([[60, 33, 51, 40], [2, 5, 1, 7], [12, 0, 0, 0]],
+                       dtype=torch.int32, device="cuda")
+    tier = torch.tensor([True, False, True], device="cuda")
+    before = paged_prefill.launches_tiered
+    got = paged_prefill.paged_prefill(q, dpool, tab, seg, pos, klen,
+                                      host_pool=hpool, tier=tier, tq=32)
+    want = paged_prefill.paged_prefill_plain(q, dpool, tab, seg, pos, klen,
+                                             host_pool=hpool, tier=tier,
+                                             tq=32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+    assert paged_prefill.launches_tiered == before + 1
+
+
+def test_paged_prefill_wrapper_rejects_bad_inputs():
+    _need_cuda()
+    pool = torch.zeros(4, 16, 2, 2, 64, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    args = (torch.zeros(8, 4, 64, device="cuda"), pool,
+            torch.zeros(1, 2, **i32), torch.zeros(8, **i32),
+            torch.arange(8, **i32), torch.ones(1, **i32))
+    with pytest.raises(ValueError, match="multiple of tq"):
+        paged_prefill.paged_prefill(*args, tq=16)
+    with pytest.raises(ValueError, match="pinned"):
+        paged_prefill.paged_prefill(*args, host_pool=pool.cpu(),
+                                    tier=torch.ones(1, **i32))
+    with pytest.raises(ValueError, match="go together"):
+        paged_prefill.paged_prefill(*args, tier=torch.ones(1, **i32))

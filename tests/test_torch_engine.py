@@ -230,12 +230,16 @@ def test_sanitizer_and_tracer_run_on_port_engine():
 
 
 def test_unported_engine_modes_raise():
-    with pytest.raises(ValueError, match="not yet ported"):
-        _port_engine(None, chunked=True, fused=True)
-    moe = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
-                              dtype="float32")
-    with pytest.raises(ValueError, match="not yet ported"):
-        LayerKVEngine(moe, None, ServeConfig.for_engine(), device="cpu")
+    """Dense and MoE, fused or not, are ported (tests/test_torch_fused.py);
+    the other families and the int8 KV cache still raise."""
+    for arch, extra in (("qwen2-vl-7b", {}),
+                        ("deepseek-moe-16b", {"kv_quant": True})):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                  **extra)
+        with pytest.raises(ValueError, match="not yet ported"):
+            LayerKVEngine(cfg, None, ServeConfig.for_engine(chunked=True,
+                                                            fused=True),
+                          device="cpu")
 
 
 # -------------------------------------------------------- executor units --

@@ -110,8 +110,7 @@ def test_serve_cli_raises_without_cuda_and_rejects_unported(no_cuda, capsys):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "granite-3-2b", "--smoke", "--requests", "1"])
-    for flags in (["--fused"], ["--replicas", "2"],
-                  ["--fault-plan", "random:1"],
+    for flags in (["--replicas", "2"], ["--fault-plan", "random:1"],
                   ["--liveness-timeout", "1.0"]):
         with pytest.raises(SystemExit):
             serve.main(["--arch", "granite-3-2b", "--smoke", *flags])
@@ -125,6 +124,16 @@ def test_serve_cli_runs_on_cpu(capsys):
                 "4", "--device-blocks", "16", "--quiet"])
     out = capsys.readouterr().out
     assert "served=3" in out and "device=cpu" in out
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-moe-16b"])
+def test_serve_cli_runs_fused_on_cpu(arch, capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--fused",
+                "--requests", "4", "--prompt-len", "40", "--output-len",
+                "4", "--device-blocks", "30", "--quiet"])
+    out = capsys.readouterr().out
+    assert "served=4" in out and "chunked=True fused=True" in out
 
 
 def test_chip_smoke_refuses_without_cuda(no_cuda, capsys):

@@ -202,7 +202,8 @@ def test_seeded_init_is_deterministic_with_reference_shapes():
     assert not torch.equal(a["layers/attn/wq"], c["layers/attn/wq"])
 
 
-@pytest.mark.parametrize("arch,extra", [("deepseek-moe-16b", {}),
+@pytest.mark.parametrize("arch,extra", [("deepseek-moe-16b",
+                                         {"kv_quant": True}),
                                         ("granite-3-2b", {"kv_quant": True})])
 def test_unported_model_variants_raise(arch, extra):
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",

@@ -1,0 +1,136 @@
+"""Port parity, paged chunk-prefill attention: the port's plain
+`paged_prefill` (what the CUDA wrapper runs for CPU tensors) against the
+JAX oracle `repro.kernels.ref.paged_prefill_reference` and the Pallas
+kernel `paged_prefill_pallas` in interpret mode, on the cases of
+tests/test_fused.py: chunk edges, a chunk + decode tokens + a kv_len = 0
+dummy in one call, and the two-pool (host tier) variant with host ids
+above the device pool's size. Inputs are made with numpy from a seed and
+handed to both sides; f32 atol = rtol = 2e-5, the repo's Pallas-vs-ref
+tolerance.
+
+The CUDA kernel itself runs only on a GPU (tests/test_torch_cuda.py).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.paged_prefill import paged_prefill_pallas
+from repro_torch.kernels import ops, paged_prefill
+from repro_torch.kernels import ref as tref
+
+torch.set_num_threads(2)
+TOL = dict(atol=2e-5, rtol=2e-5)
+TQ = 8
+
+
+def _pool(nb, bs, kv, d, seed=0):
+    return np.random.RandomState(seed).randn(nb, bs, 2, kv, d) \
+        .astype(np.float32)
+
+
+def _segments(specs, h, d, maxb, nb, tq=TQ, seed=1):
+    """A flat tq-padded batch from (q_offset, n_q_tokens) specs: (q, tab,
+    seg_ids, q_pos, kv_len) as numpy arrays."""
+    rng = np.random.RandomState(seed)
+    pads = [-(-max(n, 1) // tq) * tq for _, n in specs]
+    T = sum(pads)
+    seg_ids = np.zeros(T, np.int32)
+    q_pos = np.zeros(T, np.int32)
+    kv_len = np.zeros(len(specs), np.int32)
+    t = 0
+    for i, ((off, n), pad) in enumerate(zip(specs, pads)):
+        seg_ids[t:t + pad] = i
+        q_pos[t:t + pad] = off + np.arange(pad)
+        kv_len[i] = off + n
+        t += pad
+    tab = rng.permutation(nb)[:len(specs) * maxb].reshape(len(specs), maxb)
+    q = rng.randn(T, h, d).astype(np.float32)
+    return q, tab.astype(np.int32), seg_ids, q_pos, kv_len
+
+
+def _both(q, pool, tab, seg, pos, klen, hpool=None, tier=None, tq=TQ):
+    """(port plain, JAX oracle, Pallas interpret) outputs as numpy."""
+    t = [torch.from_numpy(np.ascontiguousarray(a))
+         for a in (q, pool, tab, seg, pos, klen)]
+    th = None if hpool is None else torch.from_numpy(hpool)
+    tt = None if tier is None else torch.from_numpy(tier)
+    got = paged_prefill.paged_prefill(*t, host_pool=th, tier=tt, tq=tq)
+    j = [jnp.asarray(a) for a in (q, pool, tab, seg, pos, klen)]
+    jh = None if hpool is None else jnp.asarray(hpool)
+    jt = None if tier is None else jnp.asarray(tier)
+    want = jref.paged_prefill_reference(*j, host_pool=jh, tier=jt, tq=tq)
+    pallas = paged_prefill_pallas(*j, host_pool=jh, tier=jt, tq=tq)
+    return got.numpy(), np.asarray(want), np.asarray(pallas)
+
+
+@pytest.mark.parametrize("spec", [
+    (13, 11),   # chunk straddling a block boundary (BS=8)
+    (0, 16),    # first chunk of a fresh prompt, block-aligned
+    (23, 1),    # single-token final chunk
+    (5, 3),     # mid-block start AND end
+])
+def test_paged_prefill_plain_matches_jax_edges(spec):
+    H, KV, D, BS, NB, MAXB = 6, 2, 64, 8, 32, 4
+    pool = _pool(NB, BS, KV, D)
+    q, tab, seg, pos, klen = _segments([spec], H, D, MAXB, NB)
+    got, want, pallas = _both(q, pool, tab, seg, pos, klen)
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, pallas, **TOL)
+
+
+def test_paged_prefill_plain_multi_segment_chunk_decode_dummy():
+    """One call serving a chunk, two decode tokens and a kv_len = 0 dummy
+    — the fused step's steady-state layout. Live rows are compared; every
+    row must be finite."""
+    H, KV, D, BS, NB, MAXB = 8, 2, 32, 8, 48, 5
+    pool = _pool(NB, BS, KV, D)
+    specs = [(9, 12), (30, 1), (17, 1), (0, 0)]
+    q, tab, seg, pos, klen = _segments(specs, H, D, MAXB, NB)
+    got, want, pallas = _both(q, pool, tab, seg, pos, klen)
+    live = klen[seg] > 0
+    np.testing.assert_allclose(got[live], want[live], **TOL)
+    np.testing.assert_allclose(got[live], pallas[live], **TOL)
+    assert np.all(np.isfinite(got))
+
+
+def test_paged_prefill_plain_host_tier_variant():
+    """Two pools: a host-resident segment reads the HOST pool with ids
+    valid only there (above the device pool's size)."""
+    H, KV, D, BS, MAXB = 4, 1, 32, 8, 3
+    dpool = _pool(8, BS, KV, D, seed=3)
+    hpool = _pool(64, BS, KV, D, seed=4)
+    q, _, seg, pos, klen = _segments([(4, 9), (11, 5)], H, D, MAXB, 8)
+    tab = np.asarray([[60, 33, 51], [2, 5, 1]], np.int32)
+    tier = np.asarray([True, False])
+    got, want, pallas = _both(q, dpool, tab, seg, pos, klen, hpool, tier)
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, pallas, **TOL)
+
+
+def test_paged_prefill_plain_at_mixed_tq_with_tail_tiles():
+    """The executor's layout at tq = MIXED_TQ = 32: a GQA chunk at an
+    offset, a decode token, and a tail tile mapped to a kv_len = 0 dummy
+    slot (live rows compared)."""
+    H, KV, D, BS, NB, MAXB = 8, 2, 64, 16, 40, 6
+    pool = _pool(NB, BS, KV, D, seed=5)
+    q, tab, seg, pos, klen = _segments([(37, 40), (70, 1), (0, 0)], H, D,
+                                       MAXB, NB, tq=32, seed=6)
+    got, want, _ = _both(q, pool, tab, seg, pos, klen, tq=32)
+    live = klen[seg] > 0
+    np.testing.assert_allclose(got[live], want[live], **TOL)
+    assert np.all(np.isfinite(got))
+
+
+def test_ops_paged_prefill_runs_the_plain_version_on_cpu():
+    H, KV, D, BS, NB, MAXB = 4, 2, 64, 8, 16, 2
+    pool = _pool(NB, BS, KV, D)
+    q, tab, seg, pos, klen = _segments([(3, 5)], H, D, MAXB, NB)
+    t = [torch.from_numpy(a) for a in (q, pool, tab, seg, pos, klen)]
+    before = (paged_prefill.launches, paged_prefill.launches_tiered)
+    a = ops.paged_prefill(*t)
+    b = tref.paged_prefill_reference(*t)
+    assert torch.equal(a, b)
+    # CPU calls are not kernel launches
+    assert (paged_prefill.launches, paged_prefill.launches_tiered) == before
