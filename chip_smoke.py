@@ -24,14 +24,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            pinned on the CPU and host ids above the device pool's size),
            and at the fused step's own layout and size (a 512-token chunk
            at offset 512 among one-token segments, a dummy slot and tail
-           tiles, T = 1024, MAXB 64), one pool and two.
+           tiles, T = 1024, MAXB 64), one pool and two; RMSNorm forward
+           against its plain version and its backward (dx, dw) against
+           autograd through the plain version, and the flash backward
+           (dq, dk, dv) against autograd through the plain flash
+           attention, causal with GQA, each at the train path's shapes
+           (B 4, S 1024; granite-3-2b: d 2048, H 32, KV 8, D 64) and at
+           llama2-7b's serving shapes, in bf16 and f32. Gradients are sums
+           over rows or keys taken in another order, so their atol is
+           the tolerance times the largest |gradient|.
            Then time each kernel at its main-path shape (paged prefill,
            both variants, held once more against its plain version on
            the timed inputs), beside its plain version, one PyTorch
            library call where one computes the same
-           function (scaled_dot_product_attention, a yardstick the port
-           never calls), and its bound: the larger of bytes / 3.35 TB/s
-           and flops / 989 TFLOP/s (H100 SXM data sheet, bf16 dense).
+           function (scaled_dot_product_attention, its backward with
+           enable_gqa, F.rms_norm and its autograd backward: yardsticks the
+           port never calls), and its bound: the larger of bytes /
+           3.35 TB/s and operations / the peak for their type (989 TFLOP/s
+           bf16 dense for attention, 67 TFLOP/s f32 for the norm's
+           elementwise math; H100 SXM data sheet).
   serve    llama2-7b at full width and depth, bf16, random weights from a
            seeded generator on the card, served by the port's
            LayerKVEngine (exclusive prefill, policy 'layerkv',
@@ -55,9 +66,20 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            a host-tier chunk. Each prints the agreement share of the full
            token streams and wall-clock TTFT / TPOT / decode tokens per
            second.
+  train    granite-3-2b (hf:ibm-granite/granite-3.0-2b-base) at full
+           width and depth, bf16, random weights from a seeded generator
+           on the card, trained by the port's `train_loop.train` for a
+           few AdamW steps on `SyntheticLM` batches of 4 x 1024 tokens,
+           every block under activation checkpointing. Asserts every loss
+           and grad norm is finite, the step-0 loss is within 1 of
+           ln(vocab), and the RMSNorm and flash kernels ran forward and
+           backward; prints the launches per step, step time, tokens/s
+           and peak device memory. The serve, fused and moe paths also
+           assert RMSNorm launches (every norm of the model runs it).
   profile  (only with --profile) torch.profiler over a few decode-only
-           steps of an exclusive vllm llama2-7b run at B = 8: wall and
-           device-busy time per step, device ops per step, top device ops.
+           steps of an exclusive vllm llama2-7b run at B = 8, and over one
+           train step after the train phase: wall and device-busy time per
+           step, device ops per step, top device ops.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -67,6 +89,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -78,8 +101,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16
 PCIE_BYTES_PER_S = 64e9        # PCIe Gen5 x16, one direction (spec)
+F32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 FLASH_SHAPES = {"llama2-7b": (32, 32, 128), "granite-3-2b": (32, 8, 64)}
+# the train path: model, steps, batch x sequence (tokens per step)
+TRAIN = dict(arch="granite-3-2b", steps=5, batch=4, seq=1024)
+# RMSNorm shapes: the train path's activations, llama2-7b prefill / decode
+NORM_SHAPES = {"train": (TRAIN["batch"], TRAIN["seq"], 2048),
+               "llama2-7b prefill": (1, 1024, 4096),
+               "llama2-7b decode": (8, 1, 4096)}
 
 
 def _say(*a):
@@ -115,6 +145,16 @@ def _max_err(got, want, tol):
     d = (got.float() - want.float()).abs()
     ok = bool((d <= tol + tol * want.float().abs()).all())
     return float(d.max()), ok
+
+
+def _max_err_grad(got, want, tol):
+    """As `_max_err` for a gradient, a sum over rows or keys taken in
+    another order: atol = tol * max |want|, rtol = tol. Returns (max
+    |got - want|, ok, max |want|)."""
+    d = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    scale = float(w.max())
+    return float(d.max()), bool((d <= tol * scale + tol * w).all()), scale
 
 
 # ------------------------------------------------------------------ build --
@@ -469,6 +509,159 @@ def time_paged_prefill(gen):
     return out
 
 
+def check_rmsnorm(gen):
+    """RMSNorm forward against its plain version, and its backward (dx,
+    dw) against autograd through the plain version, at NORM_SHAPES in
+    bf16 and f32. Returns the worst errors per dtype of each."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rn
+    worst = {"rmsnorm": {}, "rmsnorm_bwd": {}}
+    for name, shape in NORM_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            key = str(dtype)[6:]
+            tol = TOL[key]
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = (1 + 0.1 * torch.randn(shape[-1], generator=gen,
+                                       device="cuda")).to(dtype)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            errs = {}
+            errs["rmsnorm"] = _max_err(rn.rmsnorm(x, w),
+                                       rn.rmsnorm_plain(x, w), tol)
+            grads = []
+            for fn in (rn.rmsnorm, rn.rmsnorm_plain):
+                xg, wg = (t.clone().requires_grad_() for t in (x, w))
+                fn(xg, wg).backward(dy)
+                grads.append((xg.grad, wg.grad))
+            torch.cuda.synchronize()
+            (gx, gw), (px, pw) = grads
+            ex, ok_x, sx = _max_err_grad(gx, px, tol)
+            ew, ok_w, sw = _max_err_grad(gw, pw, tol)
+            errs["rmsnorm_bwd"] = (max(ex, ew), ok_x and ok_w)
+            for kern, (err, ok) in errs.items():
+                grad = (f", grad: dx {ex:.3g} of max |dx| {sx:.3g}, dw "
+                        f"{ew:.3g} of max |dw| {sw:.3g}"
+                        if kern.endswith("bwd") else "")
+                _say(f"[kernels] {kern} {name} {tuple(shape)} {key}: "
+                     f"max_abs_err {err:.3g} (tol {tol}{grad})")
+                if not ok:
+                    raise AssertionError(f"{kern} kernel disagrees: {name} "
+                                         f"{dtype} err {err}")
+                worst[kern][key] = max(worst[kern].get(key, 0.0), err)
+    return worst
+
+
+def _flash_grads(fn, q, k, v, do, **kw):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fn(*leaves, **kw).backward(do)
+    return [t.grad for t in leaves]
+
+
+def check_flash_bwd(gen):
+    """The flash backward (dq, dk, dv) against autograd through the plain
+    flash attention, causal: at the train path's shape (B 4, S 1024,
+    granite-3-2b heads, GQA 4:1) and llama2-7b's (B 1, S 1024), bf16 and
+    f32. Returns the worst error per dtype."""
+    import torch
+    from repro_torch.kernels import flash_prefill as fp
+    worst = {}
+    cases = [("train granite-3-2b", TRAIN["batch"], FLASH_SHAPES[
+        "granite-3-2b"]), ("llama2-7b", 1, FLASH_SHAPES["llama2-7b"])]
+    S = TRAIN["seq"]
+    for name, B, (H, KV, D) in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            key = str(dtype)[6:]
+            tol = TOL[key]
+            q, k, v, _, _ = _flash_case(gen, H, KV, D, dtype, B, S, S, [S],
+                                        0)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            got = _flash_grads(fp.flash_attention, q, k, v, do)
+            want = _flash_grads(fp.flash_attention_plain, q, k, v, do)
+            torch.cuda.synchronize()
+            res = [_max_err_grad(g, p, tol) for g, p in zip(got, want)]
+            err, ok = max(r[0] for r in res), all(r[1] for r in res)
+            each = ", ".join(f"{n} {e:.3g} of max |{n}| {m:.3g}"
+                             for n, (e, _, m) in zip(("dq", "dk", "dv"), res))
+            _say(f"[kernels] flash_attention_bwd {name} B={B} S={S} H={H} "
+                 f"KV={KV} D={D} {key} causal: max_abs_err {err:.3g} (tol "
+                 f"{tol}, grad: {each})")
+            if not ok:
+                raise AssertionError(f"flash backward disagrees: {name} "
+                                     f"{dtype} err {err}")
+            worst[key] = max(worst.get(key, 0.0), err)
+            del q, k, v, do, got, want
+    return worst
+
+
+def time_rmsnorm(gen):
+    """RMSNorm at the train path's activations (4096 rows of 2048, bf16):
+    the forward and the backward, each beside its plain version and
+    F.rms_norm (forward; its autograd backward)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    shape = NORM_SHAPES["train"]
+    d = shape[-1]
+    n = shape[0] * shape[1] * d
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")) \
+        .to(torch.bfloat16)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    desc = f"{shape[0] * shape[1]} rows x d={d} bf16"
+    fwd = _bound(
+        _time_ms(lambda: rn.rmsnorm(x, w)),
+        _time_ms(lambda: rn.rmsnorm_plain(x, w), reps=5),
+        _time_ms(lambda: F.rms_norm(x, (d,), w, eps=1e-6)),
+        2 * n * 2 + d * 2, 4 * n, F32_FLOPS_PER_S, desc)
+    _, rstd = rn._forward(x, w, 1e-6, keep_rstd=True)
+
+    def grad_ms(fn, reps):
+        xg, wg = (t.clone().requires_grad_() for t in (x, w))
+        y = fn(xg, wg)
+        return _time_ms(lambda: torch.autograd.grad(
+            y, (xg, wg), dy, retain_graph=True), reps=reps)
+    bwd = _bound(
+        _time_ms(lambda: rn.rmsnorm_bwd(dy, x, w, rstd)),
+        grad_ms(rn.rmsnorm_plain, 5),
+        grad_ms(lambda a, b: F.rms_norm(a, (d,), b, eps=1e-6), 20),
+        3 * n * 2 + 2 * d * 2 + n // d * 4, 10 * n, F32_FLOPS_PER_S, desc)
+    return fwd, bwd
+
+
+def time_flash_bwd(gen):
+    """The flash backward at the train path's shape (B 4, S 1024, H 32,
+    KV 8, D 64, bf16, causal), beside autograd through the plain version
+    and the backward of scaled_dot_product_attention with enable_gqa."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_prefill as fp
+    H, KV, D = FLASH_SHAPES["granite-3-2b"]
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    q, k, v, _, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, S, S,
+                                [S] * B, 0)
+    do = torch.randn(q.shape, generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    out, lse = fp._launch_fwd(q, k, v, True, 0, None, 0, D ** -0.5,
+                              keep_lse=True)
+    ms = _time_ms(lambda: fp.flash_attention_bwd(q, k, v, out, do, lse))
+
+    def grad_ms(fn, leaves, g, reps):
+        leaves = [t.clone().requires_grad_() for t in leaves]
+        y = fn(*leaves)
+        return _time_ms(lambda: torch.autograd.grad(
+            y, leaves, g, retain_graph=True), reps=reps)
+    plain = grad_ms(fp.flash_attention_plain, (q, k, v), do, 3)
+    lib = grad_ms(lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, is_causal=True, enable_gqa=True),
+        [t.transpose(1, 2).contiguous() for t in (q, k, v)],
+        do.transpose(1, 2).contiguous(), 20)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
+    # five products of 2 * D operations per visible (query, key) pair:
+    # S and dP recomputed, dV, dQ, dK
+    flops = 10 * D * H * _flash_pairs(S, [0] * B, [S] * B)
+    return _bound(ms, plain, lib, nbytes, flops, BF16_FLOPS_PER_S,
+                  f"B={B} S={S} H={H} KV={KV} D={D} bf16 causal")
+
+
 def _bound(ms, plain, lib, nbytes, flops, peak, shape):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -486,10 +679,15 @@ def phase_kernels():
     flash_err = check_flash(gen)
     paged_err = check_paged(gen)
     pp_err = check_paged_prefill(gen)
+    norm_err = check_rmsnorm(gen)
+    fbwd_err = check_flash_bwd(gen)
     torch.cuda.empty_cache()
     flash_t = time_flash(gen)
     paged_t = time_paged(gen)
     pp_t = time_paged_prefill(gen)
+    norm_t, norm_bwd_t = time_rmsnorm(gen)
+    fbwd_t = time_flash_bwd(gen)
+    torch.cuda.empty_cache()
     for name, t in pp_t.items():     # the timed shape's check counts too
         pp_err[name]["bfloat16"] = max(pp_err[name]["bfloat16"],
                                        t["max_abs_err"])
@@ -498,7 +696,10 @@ def phase_kernels():
            "paged_prefill": (pp_err["paged_prefill"],
                              pp_t["paged_prefill"]),
            "paged_prefill_tiered": (pp_err["paged_prefill_tiered"],
-                                    pp_t["paged_prefill_tiered"])}
+                                    pp_t["paged_prefill_tiered"]),
+           "rmsnorm": (norm_err["rmsnorm"], norm_t),
+           "rmsnorm_bwd": (norm_err["rmsnorm_bwd"], norm_bwd_t),
+           "flash_attention_bwd": (fbwd_err, fbwd_t)}
     for name, (err, t) in res.items():
         lib = "none" if t["library_ms"] is None \
             else f"{t['library_ms']:.4f}"
@@ -575,16 +776,21 @@ def _zero_launches():
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import rmsnorm as rn
     fp.launches = pa.launches = pp.launches = pp.launches_tiered = 0
+    fp.launches_bwd = rn.launches = rn.launches_bwd = 0
 
 
 def _launches():
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import rmsnorm as rn
     return {"flash_attention": fp.launches, "paged_attention": pa.launches,
             "paged_prefill": pp.launches,
-            "paged_prefill_tiered": pp.launches_tiered}
+            "paged_prefill_tiered": pp.launches_tiered,
+            "rmsnorm": rn.launches, "rmsnorm_bwd": rn.launches_bwd,
+            "flash_attention_bwd": fp.launches_bwd}
 
 
 def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
@@ -676,18 +882,18 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
 PATHS = {
     "serve": dict(arch="llama2-7b", n=8, seed=0, out_len=32, ndb=4096,
                   ndb_ref=20000, nhb=16384, mode={},
-                  kernels=("flash_attention", "paged_attention")),
+                  kernels=("flash_attention", "paged_attention", "rmsnorm")),
     "fused": dict(arch="llama2-7b", n=8, seed=0, out_len=32, ndb=4096,
                   ndb_ref=20000, nhb=16384,
                   mode=dict(chunked=True, fused=True,
                             max_prefill_tokens=512),
                   kernels=("paged_prefill", "paged_prefill_tiered",
-                           "paged_attention")),
+                           "paged_attention", "rmsnorm")),
     "moe": dict(arch="deepseek-moe-16b", n=6, seed=1, out_len=16, ndb=2048,
                 ndb_ref=20000, nhb=16384,
                 mode=dict(chunked=True, fused=True, max_prefill_tokens=512),
                 kernels=("paged_prefill", "paged_prefill_tiered",
-                         "paged_attention")),
+                         "paged_attention", "rmsnorm")),
 }
 
 
@@ -763,12 +969,79 @@ def phase_moe():
     return res
 
 
+def _dense_params(cfg):
+    """Parameter count of a dense decoder (`DecoderModel._init`)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn = d * cfg.n_q_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+    layer = attn + 3 * d * cfg.d_ff + 2 * d
+    head = 0 if cfg.tie_embeddings else d * cfg.padded_vocab
+    return cfg.padded_vocab * d + cfg.n_layers * layer + d + head
+
+
+def phase_train(profile=False):
+    """granite-3-2b at full width and depth, bf16, trained for
+    TRAIN["steps"] AdamW steps by the port's `train_loop.train` from
+    random weights (a seeded generator on the card) on SyntheticLM
+    batches: the kernels' launch counts are zeroed just before and read
+    just after. Asserts finite losses and grad norms, a step-0 loss near
+    ln(vocab), and RMSNorm and flash launches forward and backward."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import train
+    cfg = get_config(TRAIN["arch"])
+    steps, B, S = TRAIN["steps"], TRAIN["batch"], TRAIN["seq"]
+    n_params = _dense_params(cfg)
+    _say(f"[train] {cfg.arch_id} L={cfg.n_layers} d={cfg.d_model} "
+         f"H={cfg.n_heads} KV={cfg.n_kv_heads} d_ff={cfg.d_ff} vocab "
+         f"{cfg.vocab_size} (padded {cfg.padded_vocab}) {cfg.dtype}, "
+         f"{n_params / 1e9:.3f} B parameters; {steps} AdamW steps of "
+         f"{B} x {S} tokens, remat on")
+    _say(f"[train] device memory in use before: "
+         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    res = train(cfg, steps=steps, dc=DataConfig(batch_size=B, seq_len=S),
+                seed=0, device="cuda", log_every=1)
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    steady = sorted(res.step_s[1:])[len(res.step_s[1:]) // 2]
+    _say(f"[train] launches {launches}; per step {per_step}")
+    _say(f"[train] step wall s {[round(t, 4) for t in res.step_s]}; "
+         f"steady (median of steps 1..) {steady:.4f} s = "
+         f"{B * S / steady:.0f} tokens/s; peak device memory "
+         f"{peak / 2**30:.2f} GiB")
+    if not all(math.isfinite(x) for x in res.losses + res.grad_norms):
+        raise AssertionError(f"non-finite loss or grad norm: {res.losses} "
+                             f"{res.grad_norms}")
+    ln_v = math.log(cfg.vocab_size)
+    if abs(res.losses[0] - ln_v) > 1.0:
+        raise AssertionError(f"step-0 loss {res.losses[0]} is not near "
+                             f"ln(vocab) = {ln_v:.3f}")
+    missing = [k for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                           "flash_attention_bwd") if not launches[k]]
+    if missing:
+        raise AssertionError(f"kernels never launched in training: "
+                             f"{missing}")
+    out = {"losses": res.losses, "grad_norms": res.grad_norms,
+           "step_s": res.step_s, "steady_step_s": steady,
+           "tokens_per_s": B * S / steady, "peak_bytes": peak,
+           "n_params": n_params, "launches": launches,
+           "launches_per_step": per_step}
+    if profile:
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["profile"] = _profile_train(cfg, B, S)
+    return out
+
+
 def _profile_decode(cfg, params, prompts, out_len, steps=4):
     """torch.profiler over `steps` decode-only steps of a vllm run (all
     requests resident, B = len(prompts)): wall per step, device-busy time
     and share, launches per step, and the top device ops."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.serving.engine import LayerKVEngine
     from repro_torch.serving.request import Request
     from repro_torch.serving.scheduler import ServeConfig
@@ -785,30 +1058,8 @@ def _profile_decode(cfg, params, prompts, out_len, steps=4):
         session.step()
     if len(eng.decoding) != len(prompts):
         raise AssertionError("profile window is not a full decode batch")
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            session.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages()
-           if str(getattr(e, "device_type", "")).endswith("CUDA")]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    busy_us = sum(dev_us(e) for e in dev)
-    launches = sum(e.count for e in dev)
-    top = sorted(dev, key=dev_us, reverse=True)[:10]
-    out = {"steps": steps, "batch": len(prompts),
-           "wall_ms_per_step": wall / steps * 1e3,
-           "device_busy_ms_per_step": busy_us / steps / 1e3,
-           "device_busy_share": busy_us / (wall * 1e6),
-           "device_ops_per_step": launches / steps,
-           "top": [(e.key, dev_us(e) / steps / 1e3, e.count // steps)
-                   for e in top]}
+    out = _trace(session.step, steps)
+    out["batch"] = len(prompts)
     _say(f"[profile] vllm decode B={len(prompts)}: "
          f"{out['wall_ms_per_step']:.2f} ms wall/step, device busy "
          f"{out['device_busy_ms_per_step']:.2f} ms/step "
@@ -819,23 +1070,101 @@ def _profile_decode(cfg, params, prompts, out_len, steps=4):
     return out
 
 
+def _trace(step, steps, top=10):
+    """torch.profiler over `steps` calls of `step()`: wall per step,
+    device-busy time and share, device ops per step, and the `top`
+    device ops by time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy_us = sum(dev_us(e) for e in dev)
+    launches = sum(e.count for e in dev)
+    best = sorted(dev, key=dev_us, reverse=True)[:top]
+    return {"steps": steps,
+            "wall_ms_per_step": wall / steps * 1e3,
+            "device_busy_ms_per_step": busy_us / steps / 1e3,
+            "device_busy_share": busy_us / (wall * 1e6),
+            "device_ops_per_step": launches / steps,
+            "top": [(e.key, dev_us(e) / steps / 1e3, e.count // steps)
+                    for e in best]}
+
+
+def _profile_train(cfg, B, S):
+    """torch.profiler over one train step of `cfg` (random weights, after
+    one warm-up step): where the step's device time goes."""
+    import torch
+    from repro_torch.models import DecoderModel
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    model = DecoderModel(cfg, device="cuda", seed=0)
+    model.requires_grad_(True)
+    state = [init_opt_state(model.params)]
+    step_fn = make_train_step(model, AdamWConfig(lr=1e-3))
+    data = SyntheticLM(cfg, DataConfig(batch_size=B, seq_len=S),
+                       device="cuda").batches()
+    batches = [next(data), next(data)]
+
+    def step():
+        state[0], _ = step_fn(state[0], batches.pop())
+    step()
+    out = _trace(step, 1, top=15)
+    _say(f"[profile] train step {cfg.arch_id} {B} x {S}: "
+         f"{out['wall_ms_per_step']:.1f} ms wall, device busy "
+         f"{out['device_busy_ms_per_step']:.1f} ms "
+         f"({out['device_busy_share']:.3f}), "
+         f"{out['device_ops_per_step']:.0f} device ops")
+    for name, ms, n in out["top"]:
+        _say(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+    return out
+
+
 # ------------------------------------------------------------------- main --
 
+_NO_PALLAS_BWD = ("the JAX package has no Pallas backward: its training "
+                  "differentiates the jnp ")
+# per kernel: source, the TPU kernel it replaces, its pallas_call, a note
 REPLACES = {
     "flash_attention": ("src/repro_torch/csrc/flash_prefill.cu",
-                        "src/repro/kernels/flash_prefill.py:83", None),
+                        "src/repro/kernels/flash_prefill.py:83", None, None),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                        "src/repro/kernels/paged_attention.py:73", None),
+                        "src/repro/kernels/paged_attention.py:73", None,
+                        None),
     "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
                       "src/repro/kernels/paged_prefill.py:140",
-                      "src/repro/kernels/paged_prefill.py:186"),
+                      "src/repro/kernels/paged_prefill.py:186", None),
     "paged_prefill_tiered": ("src/repro_torch/csrc/paged_prefill.cu",
                              "src/repro/kernels/paged_prefill.py:140",
-                             "src/repro/kernels/paged_prefill.py:210"),
+                             "src/repro/kernels/paged_prefill.py:210", None),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:29",
+                "src/repro/kernels/rmsnorm.py:44", None),
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:29", None,
+                    _NO_PALLAS_BWD + "norm, src/repro/models/layers.py:35"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_backward.cu",
+                            "src/repro/kernels/flash_prefill.py:83", None,
+                            _NO_PALLAS_BWD + "oracle, src/repro/kernels/"
+                            "ref.py flash_attention_reference"),
 }
 # the main path whose launch count each kernel's row reports
 MAIN_PATH = {"flash_attention": "serve", "paged_attention": "serve",
-             "paged_prefill": "fused", "paged_prefill_tiered": "fused"}
+             "paged_prefill": "fused", "paged_prefill_tiered": "fused",
+             "rmsnorm": "train", "rmsnorm_bwd": "train",
+             "flash_attention_bwd": "train"}
 
 
 def main(argv=None) -> int:
@@ -843,8 +1172,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every number of the run here (JSON)")
     ap.add_argument("--profile", action="store_true",
-                    help="in the serve phase, trace a few decode steps "
-                         "with torch.profiler and print where they go")
+                    help="trace a few decode steps of the serve phase and "
+                         "one step of the train phase with torch.profiler "
+                         "and print where they go")
     args = ap.parse_args(argv)
 
     import torch
@@ -873,11 +1203,14 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     paths["moe"] = phase_moe()
     paths["moe"].pop("params")
+    gc.collect()        # the engines hold reference cycles: free the MoE
+    torch.cuda.empty_cache()     # weights and pools before training
+    paths["train"] = phase_train(profile=args.profile)
     torch.cuda.empty_cache()
 
     rows = []
     for name, (err, t) in kern.items():
-        src_path, replaces, call = REPLACES[name]
+        src_path, replaces, call, note = REPLACES[name]
         rows.append({
             "name": name, "route": "cuda", "source": src_path,
             "replaces": replaces,
@@ -891,6 +1224,8 @@ def main(argv=None) -> int:
             "library_ms": t["library_ms"], "shape": t["shape"]})
         if call:
             rows[-1]["pallas_call"] = call
+        if note:
+            rows[-1]["note"] = note
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.out:

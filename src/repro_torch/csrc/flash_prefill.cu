@@ -27,6 +27,10 @@
 // QK^T, masked scores are -1e30 (not -inf), and the final normaliser is
 // clamped at 1e-30. A row with no valid key at all comes out finite (0
 // when every tile is skipped); its value is not otherwise specified.
+//
+// With a non-null `lse` (f32, (B, H, Sq)) each row's log-sum-exp of its
+// scaled, masked scores, m + log(max(l, 1e-30)), is written too: the
+// backward kernels (flash_backward.cu) recompute P from it.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -45,35 +49,11 @@ constexpr size_t smem_bytes() {
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-// Copy rows [row0, row0 + nrows) of a (.., rows, heads, D) tensor's head
-// `head` into a f32 shared tile with row pitch `pitch`; rows >= valid are
-// zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* base, int row0, int nrows,
-                                          int valid, int row_stride,
-                                          float* tile, int pitch, float mul) {
-  constexpr int N = Vec16<T>::N;
-  constexpr int VPR = D / N;  // vectors per row
-  for (int idx = threadIdx.x; idx < nrows * VPR; idx += THREADS) {
-    const int r = idx / VPR;
-    const int c = (idx % VPR) * N;
-    float vals[N];
-    if (row0 + r < valid) {
-      load_vec16<T>(base + (size_t)(row0 + r) * row_stride + c, vals);
-    } else {
-#pragma unroll
-      for (int i = 0; i < N; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) tile[r * pitch + c + i] = vals[i] * mul;
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 const int* __restrict__ kv_len,
+                 float* __restrict__ lse, const int* __restrict__ kv_len,
                  const int* __restrict__ q_offset, int q_offset_scalar,
                  int Sq, int Skv, int H, int KV, int causal, int window,
                  float scale) {
@@ -107,7 +87,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + ((size_t)b * Skv * KV + kvh) * D;    // row stride KV*D
   const T* vb = v + ((size_t)b * Skv * KV + kvh) * D;
 
-  load_tile<T, D>(qb, q0, BQ, Sq, H * D, Qs, D + 1, scale);
+  load_tile<T, D, THREADS>(qb, q0, BQ, Sq, H * D, Qs, D + 1, scale);
 
   float m[RPT], l[RPT], o[RPT][OPT];
 #pragma unroll
@@ -121,8 +101,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // previous tile's PV is done with Vs / Ps
-    load_tile<T, D>(kb, k0, BK, Skv, KV * D, Ks, D + 1, 1.f);
-    load_tile<T, D>(vb, k0, BK, Skv, KV * D, Vs, D, 1.f);
+    load_tile<T, D, THREADS>(kb, k0, BK, Skv, KV * D, Ks, D + 1, 1.f);
+    load_tile<T, D, THREADS>(vb, k0, BK, Skv, KV * D, Vs, D, 1.f);
     __syncthreads();
 
     // S = (q * scale) K^T for rows ty + 16 i, cols tx + 16 j
@@ -201,6 +181,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty + 16 * i;
     if (r >= q_rows) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse && tx == 0)
+      lse[((size_t)b * H + h) * Sq + q0 + r] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
     T* orow = out + (((size_t)b * Sq + q0 + r) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < OPT; ++j)
@@ -210,7 +193,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const int* kv_len, const int* q_offset,
+                   float* lse, const int* kv_len, const int* q_offset,
                    int q_offset_scalar, int B, int Sq, int Skv, int H,
                    int KV, int causal, int window, float scale,
                    cudaStream_t stream) {
@@ -222,7 +205,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), kv_len, q_offset,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, kv_len, q_offset,
       q_offset_scalar, Sq, Skv, H, KV, causal, window, scale);
   return cudaGetLastError();
 }
@@ -230,11 +213,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 }  // namespace repro_torch
 
-// C entry bound with ctypes. dtype: 0 = float32, 1 = bfloat16. kv_len and
-// q_offset may be null (all keys valid / use q_offset_scalar). Returns a
-// cudaError_t; 0 on a successful launch.
+// C entry bound with ctypes. dtype: 0 = float32, 1 = bfloat16. lse,
+// kv_len and q_offset may be null (no log-sum-exp / all keys valid / use
+// q_offset_scalar). Returns a cudaError_t; 0 on a successful launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out,
+                                   const void* v, void* out, float* lse,
                                    const int* kv_len, const int* q_offset,
                                    int q_offset_scalar, int B, int Sq,
                                    int Skv, int H, int KV, int D, int causal,
@@ -244,7 +227,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (B == 0 || Sq == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_CASE(T, DD)                                             \
-  return (int)launch<T, DD>(q, k, v, out, kv_len, q_offset,                 \
+  return (int)launch<T, DD>(q, k, v, out, lse, kv_len, q_offset,            \
                             q_offset_scalar, B, Sq, Skv, H, KV, causal,     \
                             window, scale, s)
   if (dtype == 0 && D == 64) REPRO_FLASH_CASE(float, 64);

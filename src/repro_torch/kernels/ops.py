@@ -1,5 +1,6 @@
-"""Attention entry points the model and the executor call — the port of
-`repro.kernels.ops`, with the same signatures minus `backend=`.
+"""Kernel entry points the model and the executor call — the port of
+`repro.kernels.ops` (attention, with the same signatures minus
+`backend=`) plus the fused RMSNorm that `models.layers.rmsnorm` runs.
 
 The backend follows the tensors: CPU tensors run the plain PyTorch
 versions (`ref.py`), CUDA tensors launch the hand-written kernels or
@@ -12,6 +13,7 @@ from __future__ import annotations
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_prefill as _pp
+from repro_torch.kernels import rmsnorm as _rn
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
@@ -40,3 +42,9 @@ def paged_prefill(q, kv_pool, block_table, seg_ids, q_pos, kv_len, *,
     return _pp.paged_prefill(q, kv_pool, block_table, seg_ids, q_pos,
                              kv_len, host_pool=host_pool, tier=tier, tq=tq,
                              softmax_scale=softmax_scale)
+
+
+def rmsnorm(x, w, eps=1e-6):
+    """x: (..., d); w: (d,). `x * rsqrt(mean(x^2) + eps)` in f32, rounded
+    to x.dtype, times w; differentiable (a backward kernel on CUDA)."""
+    return _rn.rmsnorm(x, w, eps)

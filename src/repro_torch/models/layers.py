@@ -40,9 +40,7 @@ def embed_init(gen, vocab, dim, dtype, device):
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x, w, eps=1e-6):
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+    return ops.rmsnorm(x, w, eps)
 
 
 def layernorm(x, w, b, eps=1e-5):

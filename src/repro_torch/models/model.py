@@ -1,20 +1,27 @@
 """The decoder-only model (dense and MoE) — the port of
 `repro.models.model._decoder_model` (`init`, `init_cache`, `prefill`,
-`_mask_pad_logits`).
+`train_logits`, `_mask_pad_logits`) and of `Model.loss` /
+`cross_entropy`.
 
     model = DecoderModel(cfg, params=None, device="cuda", seed=0)
     cache = model.init_cache(batch_size, cache_len)
     logits, cache = model.prefill(batch, cache)   # fill cache, last-pos logits
+    model.requires_grad_(True)                    # weights trainable
+    loss, metrics = model.loss(batch)             # teacher forcing, remat
 
 Layers run as a Python loop over the layer-stacked params (the
 reference's `lax.scan`). MoE blocks run `moe.moe_ffn`; the port serves
-them dropless only. Dense-cache `decode`, `kv_quant` and the other
-families wait for later slices; the constructor raises for them.
+them dropless only and trains dense models only (the MoE capacity path
+with its load-balance loss is not ported yet). Dense-cache `decode`,
+`kv_quant` and the other families wait for later slices; the
+constructor raises for them. Weights are frozen (`requires_grad=False`)
+until `requires_grad_(True)`; the serving paths never turn it on.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -57,6 +64,16 @@ def unflatten_params(flat):
     return tree
 
 
+def unbind_layers(tree):
+    """Per-layer views of layer-stacked params, one `unbind` per leaf. Its
+    backward stacks the layers' gradients once; indexing each layer
+    (`layer_params`) would add a full-size zero tensor per layer."""
+    flat = {k: v.unbind(0) for k, v in flatten_params(tree).items()}
+    n = len(next(iter(flat.values())))
+    return [unflatten_params({k: v[l] for k, v in flat.items()})
+            for l in range(n)]
+
+
 def positions_for(cfg: ModelConfig, B, S, device):
     """Absolute positions 0..S-1 of a full-sequence forward."""
     pos = torch.arange(S, device=device)[None].expand(B, S)
@@ -72,6 +89,18 @@ def mask_pad_logits(cfg: ModelConfig, logits):
         return logits
     iota = torch.arange(logits.shape[-1], device=logits.device)
     return logits.masked_fill(iota >= cfg.vocab_size, -1e30)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """logits (B,S,V) any-dtype, labels (B,S) int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def ffn(cfg: ModelConfig, p, h, *, dropless=True):
@@ -169,6 +198,37 @@ class DecoderModel(nn.Module):
         }
 
     # --------------------------------------------------------------- forward
+    def train_logits(self, batch, remat=True):
+        """Full-sequence teacher-forcing logits (B, S, padded_vocab),
+        pad-vocab masked. batch: tokens (B, S) int. With `remat` each
+        block runs under `torch.utils.checkpoint` (the reference's
+        `jax.checkpoint`): only its input is kept, and the backward runs
+        its forward again."""
+        cfg, p = self.cfg, self.params
+        if cfg.family == "moe":
+            raise NotImplementedError(
+                "MoE training: the capacity path (dropless=False, with its "
+                "load-balance loss) is not yet ported")
+        x = p["embed"][batch["tokens"]]
+        B, S = x.shape[:2]
+        positions = positions_for(cfg, B, S, self.device)
+
+        def block(x, lp):
+            return block_forward(cfg, lp, x, positions)[0]
+
+        for lp in unbind_layers(p["layers"]):
+            x = (checkpoint(block, x, lp, use_reentrant=False) if remat
+                 else block(x, lp))
+        x = layers.apply_norm(cfg, p["final_norm"], x)
+        return self.unembed(x)
+
+    def loss(self, batch):
+        """(total, metrics): mean next-token cross-entropy over
+        batch["labels"] (B, S), masked by batch["loss_mask"] if given."""
+        ce = cross_entropy(self.train_logits(batch), batch["labels"],
+                           batch.get("loss_mask"))
+        return ce, {"ce": ce.detach(), "loss": ce.detach()}
+
     def unembed(self, x):
         """Final-norm features -> logits, pad-vocab masked (prefill side)."""
         p = self.params

@@ -8,14 +8,18 @@ so it runs on a machine with only PyTorch:
 
 Tolerances: f32 atol = rtol = 2e-5 (the repo's Pallas-vs-reference
 tolerance); bf16 2e-2 (the plain paged version rounds its logits and
-probabilities to bf16 where the kernel keeps f32).
+probabilities to bf16 where the kernel keeps f32). Gradients (RMSNorm
+and flash backward against autograd through the plain versions) are
+sums over rows or keys taken in another order, so their atol is the
+same tolerance times the largest |gradient|; in bf16 autograd through
+the plain RMSNorm also rounds dy * w to bf16 where the kernel keeps f32.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_prefill, paged_attention, \
-    paged_prefill
+    paged_prefill, rmsnorm
 
 pytestmark = pytest.mark.cuda
 DTYPES = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
@@ -182,3 +186,97 @@ def test_paged_prefill_wrapper_rejects_bad_inputs():
                                     tier=torch.ones(1, **i32))
     with pytest.raises(ValueError, match="go together"):
         paged_prefill.paged_prefill(*args, tier=torch.ones(1, **i32))
+
+
+def _close_grad(got, want, tol):
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * scale,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("shape", [(4, 128), (3, 33, 512), (300, 2048),
+                                   (8, 4096)])
+def test_rmsnorm_kernel_matches_plain(dtype, tol, shape):
+    _need_cuda()
+    x = _randn(shape, dtype, 10)
+    w = (_randn(shape[-1:], torch.float32, 11) * 0.1 + 1).to(dtype)
+    before = rmsnorm.launches
+    got = rmsnorm.rmsnorm(x, w)
+    torch.testing.assert_close(got.float(), rmsnorm.rmsnorm_plain(x, w)
+                               .float(), atol=tol, rtol=tol)
+    assert rmsnorm.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("shape", [(4, 128), (3, 33, 512), (1000, 2048)])
+def test_rmsnorm_backward_matches_autograd(dtype, tol, shape):
+    _need_cuda()
+    x = _randn(shape, dtype, 12)
+    w = (_randn(shape[-1:], torch.float32, 13) * 0.1 + 1).to(dtype)
+    dy = _randn(shape, dtype, 14)
+    before = rmsnorm.launches_bwd
+    grads = []
+    for fn in (rmsnorm.rmsnorm, rmsnorm.rmsnorm_plain):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fn(xg, wg).backward(dy)
+        grads.append((xg.grad, wg.grad))
+    assert rmsnorm.launches_bwd == before + 1
+    (gx, gw), (px, pw) = grads
+    assert gx.dtype == gw.dtype == dtype
+    _close_grad(gx, px, tol)
+    _close_grad(gw, pw, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("H,KV,D", SHAPES)
+@pytest.mark.parametrize("case", ["causal", "window", "offset",
+                                  "full"])
+def test_flash_backward_matches_autograd(dtype, tol, H, KV, D, case):
+    _need_cuda()
+    B, Sq, Skv = 2, 200, 200
+    kw = {"causal": True, "window": 0, "q_offset": 0}
+    if case == "window":
+        kw["window"] = 48
+    elif case == "offset":          # a chunk at the end of its context
+        Sq, kw["q_offset"] = 72, 128
+    elif case == "full":
+        kw["causal"] = False
+    q = _randn((B, Sq, H, D), dtype, 20)
+    k = _randn((B, Skv, KV, D), dtype, 21)
+    v = _randn((B, Skv, KV, D), dtype, 22)
+    do = _randn((B, Sq, H, D), dtype, 23)
+    before = flash_prefill.launches_bwd
+    got = []
+    for fn in (flash_prefill.flash_attention,
+               flash_prefill.flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, **kw)
+        out.backward(do)
+        got.append((out.detach(), *(t.grad for t in leaves)))
+    assert flash_prefill.launches_bwd == before + 1
+    torch.testing.assert_close(got[0][0].float(), got[1][0].float(),
+                               atol=tol, rtol=tol)
+    for a, b in zip(got[0][1:], got[1][1:]):
+        _close_grad(a, b, tol)
+
+
+def test_backward_wrappers_reject_bad_inputs():
+    _need_cuda()
+    w = torch.ones(12, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rmsnorm.rmsnorm(torch.zeros(4, 12, device="cuda"), w)
+    with pytest.raises(ValueError, match="dtype"):
+        rmsnorm.rmsnorm(torch.zeros(4, 16, device="cuda",
+                                    dtype=torch.float16),
+                        torch.ones(16, device="cuda", dtype=torch.float16))
+    with pytest.raises(ValueError, match="w must be"):
+        rmsnorm.rmsnorm(torch.zeros(4, 16, device="cuda"),
+                        torch.ones(16, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm.rmsnorm(torch.zeros(16, 4, device="cuda").T,
+                        torch.ones(16, device="cuda"))
+    q = torch.zeros(1, 16, 4, 64, device="cuda", requires_grad=True)
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_prefill.flash_attention(q, q, q, kv_len=torch.ones(
+            1, dtype=torch.int32, device="cuda"))

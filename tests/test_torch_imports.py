@@ -91,6 +91,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from repro_torch.models import DecoderModel
     from repro_torch.serving.engine import LayerKVEngine
     from repro_torch.serving.executor import PagedExecutor
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.train_loop import train
     from repro_torch.weights import from_jax_params
     cfg = _cfg()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -101,6 +103,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         DecoderModel(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         from_jax_params({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SyntheticLM(cfg, DataConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(cfg, steps=1)
     # asking for the CPU is the only way onto it
     assert PagedExecutor(cfg, None, 8, 8, 8, device="cpu").device.type \
         == "cpu"
