@@ -8,14 +8,21 @@ Phases, each of which raises (and so exits non-zero) on any failure:
 
   build    compile the port's CUDA kernels from `src/repro_torch/csrc`
            (one nvcc per source, in parallel) and print build seconds, the
-           compiler's register / spill report, and the card's name and
+           compiler's register / spill report and warnings, the count of
+           tensor-core instructions (HGMMA = wgmma, HMMA = mma.sync) in
+           the SASS of the two flash libraries (it fails if the forward
+           has no HGMMA or the backward neither), and the card's name and
            power limit as nvidia-smi gives them.
   kernels  hold each kernel against its plain PyTorch version on the card,
            in bf16 (atol = rtol = 2e-2) and f32 (atol = rtol = 2e-5, the
            repo's Pallas-vs-reference tolerance): flash prefill at
            llama2-7b (H = KV = 32, D = 128) and granite-3-2b (H = 32,
            KV = 8, D = 64) shapes with bucket-padded Sq 16 / 1024, ragged
-           kv_len, and chunk-style q_offset > 0; paged decode at B = 1, 8,
+           kv_len, and chunk-style q_offset > 0, and at the edges of the
+           bf16 kernel's 128 x 128 tiles with G = H / KV in {1, 4, 8} at
+           D = 64 and 128 (Sq 1000 / Skv 1037, kv_len below one tile,
+           per-row q_offset with kv_len across a tile, a window of 200);
+           paged decode at B = 1, 8,
            32 with power-of-two pad rows (kv_len = 0 on a trash block),
            BS = 16, MAXB a multiple of 8, contexts up to 4096; paged
            prefill at the same two shapes, tq = 32, BS = 16, on the cases
@@ -30,12 +37,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            (dq, dk, dv) against autograd through the plain flash
            attention, causal with GQA, each at the train path's shapes
            (B 4, S 1024; granite-3-2b: d 2048, H 32, KV 8, D 64) and at
-           llama2-7b's serving shapes, in bf16 and f32. Gradients are sums
+           llama2-7b's serving shapes (the flash backward also off the
+           64-row grid at q_offset 37, with a window, and at G in {1, 4,
+           8} x D in {64, 128}), in bf16 and f32. Gradients are sums
            over rows or keys taken in another order, so their atol is
            the tolerance times the largest |gradient|.
-           Then time each kernel at its main-path shape (paged prefill,
-           both variants, held once more against its plain version on
-           the timed inputs), beside its plain version, one PyTorch
+           Then time each kernel at its main-path shape (the flash
+           forward also at the train path's; paged prefill, both
+           variants, held once more against its plain version on the
+           timed inputs) with CUDA events around back-to-back calls that
+           a spin kernel let the host enqueue first (device time, not the
+           host's launch rate), beside its plain version, one PyTorch
            library call where one computes the same
            function (scaled_dot_product_attention, its backward with
            enable_gqa, F.rms_norm and its autograd backward: yardsticks the
@@ -104,6 +116,9 @@ PCIE_BYTES_PER_S = 64e9        # PCIe Gen5 x16, one direction (spec)
 F32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 FLASH_SHAPES = {"llama2-7b": (32, 32, 128), "granite-3-2b": (32, 8, 64)}
+# (H, KV, D) that complete G = H / KV in {1, 4, 8} at D = 64 and 128 for
+# the flash checks
+FLASH_GQA_SHAPES = [(32, 32, 64), (32, 4, 64), (32, 8, 128), (32, 4, 128)]
 # the train path: model, steps, batch x sequence (tokens per step)
 TRAIN = dict(arch="granite-3-2b", steps=5, batch=4, seq=1024)
 # RMSNorm shapes: the train path's activations, llama2-7b prefill / decode
@@ -125,12 +140,22 @@ def _smi() -> str:
 
 
 def _time_ms(fn, reps=20, warm=3):
+    """Device milliseconds per call of `fn`: CUDA events around `reps`
+    calls, after `warm` warm-up calls. A spin kernel holds the stream
+    while the host enqueues the timed calls, so the events see them run
+    back to back and a slow host's launch overhead does not stretch a
+    short kernel's time (unless `fn` synchronises)."""
     import torch
+    t0 = time.perf_counter()
     for _ in range(warm):
         fn()
+    host_s = (time.perf_counter() - t0) / warm
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
+    # spin for ~1.5x the host's enqueue time of the timed calls (cycles
+    # at up to 2 GHz), at most one second
+    torch.cuda._sleep(int(min(1.5 * reps * host_s, 1.0) * 2e9))
     s.record()
     for _ in range(reps):
         fn()
@@ -167,8 +192,17 @@ def phase_build():
          f"(wall {time.perf_counter() - t0:.1f}s, parallel nvcc, sm_90a)")
     for name in _build.SOURCES:
         for line in _build.log_text(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "arning" in line:
                 _say(f"[build] {name}: {line.strip()}")
+    sass = {}
+    for name in ("flash_prefill", "flash_backward"):
+        sass[name] = _build.sass_counts(name)
+        _say(f"[build] {name}: tensor-core instructions in its SASS "
+             f"(cuobjdump -sass): {sass[name]}")
+    if not sass["flash_prefill"]["HGMMA"]:
+        raise AssertionError("the flash forward holds no HGMMA (wgmma)")
+    if not any(sass["flash_backward"].values()):
+        raise AssertionError("the flash backward holds no HMMA / HGMMA")
     smi = _smi()
     _say(f"[build] nvidia-smi: {smi}")
     return smi
@@ -199,25 +233,42 @@ def _flash_case(gen, H, KV, D, dtype, B, Sq, Skv, kv_len, q_off):
 
 
 def check_flash(gen):
+    """The flash forward against its plain version: the engine's cases
+    (bucket padding, ragged kv_len, chunk q_offset, scalar and per row)
+    at both serving shapes, and the edges of the kernel's tiling (128
+    query rows x 128 keys) at G = H / KV in {1, 4, 8} and D in {64, 128}:
+    Sq and Skv off the tile grid, kv_len below one tile, per-row q_offset
+    with kv_len across a tile boundary, and a sliding window."""
     import torch
     from repro_torch.kernels import flash_prefill as fp
     worst = {}
-    for arch, (H, KV, D) in FLASH_SHAPES.items():
+    engine_cases = [
+        ("prompt 11 in bucket 16", 1, 16, 16, [11], 0, 0),
+        ("ragged bucket 1024", 2, 1024, 1024, [1000, 617], 0, 0),
+        ("chunk q_offset 512", 1, 32, 1024, [544], 512, 0),
+        ("chunk per-row q_offset", 2, 32, 1024, [32, 732], [0, 700], 0),
+    ]
+    edge_cases = [
+        ("Sq 1000 Skv 1037 q_offset 37", 1, 1000, 1037, [1037], 37, 0),
+        ("kv_len below one tile", 2, 200, 256, [5, 100], 0, 0),
+        ("per-row q_offset, kv_len across a tile", 2, 96, 512, [200, 300],
+         [104, 250], 0),
+        ("window 200", 1, 1000, 1037, [1037], 37, 200),
+    ]
+    shapes = [(arch, hkd, engine_cases + edge_cases)
+              for arch, hkd in FLASH_SHAPES.items()]
+    shapes += [(f"G={H // KV} D={D}", (H, KV, D), edge_cases)
+               for H, KV, D in FLASH_GQA_SHAPES]
+    for arch, (H, KV, D), cases in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
-            cases = [
-                ("prompt 11 in bucket 16", 1, 16, 16, [11], 0),
-                ("ragged bucket 1024", 2, 1024, 1024, [1000, 617], 0),
-                ("chunk q_offset 512", 1, 32, 1024, [544], 512),
-                ("chunk per-row q_offset", 2, 32, 1024, [32, 732],
-                 [0, 700]),
-            ]
-            for name, B, Sq, Skv, kv_len, q_off in cases:
+            for name, B, Sq, Skv, kv_len, q_off, window in cases:
                 q, k, v, lens, off = _flash_case(gen, H, KV, D, dtype, B, Sq,
                                                  Skv, kv_len, q_off)
-                got = fp.flash_attention(q, k, v, kv_len=lens, q_offset=off)
+                got = fp.flash_attention(q, k, v, kv_len=lens, q_offset=off,
+                                         window=window)
                 want = fp.flash_attention_plain(q, k, v, kv_len=lens,
-                                                q_offset=off)
+                                                q_offset=off, window=window)
                 torch.cuda.synchronize()
                 err, ok = _max_err(got, want, tol)
                 _say(f"[kernels] flash {arch} {str(dtype)[6:]} {name}: "
@@ -293,25 +344,38 @@ def _prompts(vocab=32000, n=8, lo=256, hi=1024, seed=0):
 
 
 def time_flash(gen):
-    """llama2-7b prefill attention at the main path's largest bucket:
-    one prompt of 1024 tokens, bf16."""
+    """The flash forward, bf16 causal, at llama2-7b prefill attention at
+    the main path's largest bucket (one prompt of 1024 tokens) and at the
+    train path's shape (granite-3-2b, B 4, S 1024, GQA 4:1), each beside
+    its plain version and scaled_dot_product_attention (enable_gqa at the
+    train shape). Returns the serve shape's row with the train shape's
+    under "at_train_shape"."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill as fp
-    H, KV, D = FLASH_SHAPES["llama2-7b"]
-    S = 1024
-    q, k, v, lens, _ = _flash_case(gen, H, KV, D, torch.bfloat16, 1, S, S,
-                                   [S], 0)
-    ms = _time_ms(lambda: fp.flash_attention(q, k, v, kv_len=lens))
-    plain = _time_ms(lambda: fp.flash_attention_plain(q, k, v, kv_len=lens),
-                     reps=5)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # (B, H, S, D)
-    lib = _time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    nbytes = 4 * q.numel() * q.element_size() + lens.numel() * 4
-    flops = 4 * D * H * _flash_pairs(S, [0], [S])
-    return _bound(ms, plain, lib, nbytes, flops, BF16_FLOPS_PER_S,
-                  f"B=1 Sq=Skv={S} H=KV={H} D={D} bf16 causal")
+    S = TRAIN["seq"]
+    rows = []
+    for (H, KV, D), B, lens_arg in ((FLASH_SHAPES["llama2-7b"], 1, True),
+                                    (FLASH_SHAPES["granite-3-2b"],
+                                     TRAIN["batch"], False)):
+        q, k, v, lens, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, S,
+                                       S, [S] * B, 0)
+        lens = lens if lens_arg else None   # the train path passes none
+        ms = _time_ms(lambda: fp.flash_attention(q, k, v, kv_len=lens))
+        plain = _time_ms(lambda: fp.flash_attention_plain(
+            q, k, v, kv_len=lens), reps=5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, D)
+        lib = _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=KV != H))
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size() \
+            + (lens.numel() * 4 if lens is not None else 0)
+        flops = 4 * D * H * _flash_pairs(S, [0] * B, [S] * B)
+        rows.append(_bound(ms, plain, lib, nbytes, flops, BF16_FLOPS_PER_S,
+                           f"B={B} Sq=Skv={S} H={H} KV={KV} D={D} bf16 "
+                           f"causal"))
+        del q, k, v, qt, kt, vt
+    rows[0]["at_train_shape"] = rows[1]
+    return rows[0]
 
 
 def time_paged(gen):
@@ -559,31 +623,39 @@ def _flash_grads(fn, q, k, v, do, **kw):
 def check_flash_bwd(gen):
     """The flash backward (dq, dk, dv) against autograd through the plain
     flash attention, causal: at the train path's shape (B 4, S 1024,
-    granite-3-2b heads, GQA 4:1) and llama2-7b's (B 1, S 1024), bf16 and
-    f32. Returns the worst error per dtype."""
+    granite-3-2b heads, GQA 4:1) and llama2-7b's (B 1, S 1024), and at
+    the edges of the kernels' tiling: Sq and Skv off the 64-row grid (a
+    chunk at q_offset 37), a sliding window, and G in {1, 4, 8} at D in
+    {64, 128}; bf16 and f32. Returns the worst error per dtype."""
     import torch
     from repro_torch.kernels import flash_prefill as fp
     worst = {}
-    cases = [("train granite-3-2b", TRAIN["batch"], FLASH_SHAPES[
-        "granite-3-2b"]), ("llama2-7b", 1, FLASH_SHAPES["llama2-7b"])]
     S = TRAIN["seq"]
-    for name, B, (H, KV, D) in cases:
+    gran, llama = FLASH_SHAPES["granite-3-2b"], FLASH_SHAPES["llama2-7b"]
+    cases = [("train granite-3-2b", TRAIN["batch"], gran, S, S, 0, 0),
+             ("llama2-7b", 1, llama, S, S, 0, 0),
+             ("Sq 1000 Skv 1037 q_offset 37", 1, gran, 1000, 1037, 37, 0),
+             ("window 200", 1, llama, 1000, 1037, 37, 200)]
+    cases += [(f"G={H // KV} D={D}", 1, (H, KV, D), 512, 512, 0, 0)
+              for H, KV, D in [gran, llama] + FLASH_GQA_SHAPES]
+    for name, B, (H, KV, D), Sq, Skv, q_off, window in cases:
         for dtype in (torch.bfloat16, torch.float32):
             key = str(dtype)[6:]
             tol = TOL[key]
-            q, k, v, _, _ = _flash_case(gen, H, KV, D, dtype, B, S, S, [S],
-                                        0)
+            q, k, v, _, _ = _flash_case(gen, H, KV, D, dtype, B, Sq, Skv,
+                                        [Skv], 0)
             do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-            got = _flash_grads(fp.flash_attention, q, k, v, do)
-            want = _flash_grads(fp.flash_attention_plain, q, k, v, do)
+            kw = dict(q_offset=q_off, window=window)
+            got = _flash_grads(fp.flash_attention, q, k, v, do, **kw)
+            want = _flash_grads(fp.flash_attention_plain, q, k, v, do, **kw)
             torch.cuda.synchronize()
             res = [_max_err_grad(g, p, tol) for g, p in zip(got, want)]
             err, ok = max(r[0] for r in res), all(r[1] for r in res)
             each = ", ".join(f"{n} {e:.3g} of max |{n}| {m:.3g}"
                              for n, (e, _, m) in zip(("dq", "dk", "dv"), res))
-            _say(f"[kernels] flash_attention_bwd {name} B={B} S={S} H={H} "
-                 f"KV={KV} D={D} {key} causal: max_abs_err {err:.3g} (tol "
-                 f"{tol}, grad: {each})")
+            _say(f"[kernels] flash_attention_bwd {name} B={B} Sq={Sq} "
+                 f"Skv={Skv} H={H} KV={KV} D={D} {key} causal: max_abs_err "
+                 f"{err:.3g} (tol {tol}, grad: {each})")
             if not ok:
                 raise AssertionError(f"flash backward disagrees: {name} "
                                      f"{dtype} err {err}")
@@ -708,6 +780,12 @@ def phase_kernels():
              f"kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} "
              f"library_ms {lib} bound_ms {t['bound_ms']:.4f} "
              f"({t['bound_by']})")
+        also = t.get("at_train_shape")
+        if also:
+            _say(f"[kernels] {name} [{also['shape']}]: kernel_ms "
+                 f"{also['ms']:.4f} plain_ms {also['plain_ms']:.4f} "
+                 f"library_ms {also['library_ms']:.4f} bound_ms "
+                 f"{also['bound_ms']:.4f} ({also['bound_by']})")
     _say(f"[kernels] paged_prefill_tiered bound over PCIe (K/V bytes at "
          f"64 GB/s): {pp_t['paged_prefill_tiered']['bound_ms_pcie']:.4f} "
          f"ms")
@@ -1222,6 +1300,8 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
+        if "at_train_shape" in t:
+            rows[-1]["at_train_shape"] = t["at_train_shape"]
         if call:
             rows[-1]["pallas_call"] = call
         if note:

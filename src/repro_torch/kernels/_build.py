@@ -97,6 +97,22 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def sass_counts(name: str, ops=("HGMMA", "HMMA")) -> Dict[str, int]:
+    """How many instructions of each opcode in `ops` the built library
+    of kernel `name` holds, from `cuobjdump -sass` (the toolkit's
+    disassembler beside nvcc): the proof that a kernel's products run on
+    the tensor cores (HGMMA is wgmma, HMMA is mma.sync)."""
+    lib = _target(name)
+    if not lib.exists():
+        raise RuntimeError(f"{lib} is not built")
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    words = [ln.split() for ln in sass.splitlines() if "/*" in ln]
+    return {op: sum(1 for w in words for t in w if t.split(".")[0] == op)
+            for op in ops}
+
+
 def log_text(name: str) -> str:
     """The last build's compiler report for `name` ('' if none)."""
     p = BUILD_DIR / f"{name}.log"

@@ -66,6 +66,37 @@ def test_flash_kernel_window(window):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
+# G = H / KV in {1, 4, 8} at D = 64 and 128
+GQA_SHAPES = [(8, 8, 64), (8, 2, 64), (8, 1, 64), (8, 8, 128), (8, 2, 128),
+              (8, 1, 128)]
+# the forward's tile edges (128 query rows x 128 keys): (B, Sq, Skv,
+# kv_len, q_offset, window)
+FWD_EDGES = {
+    "ragged Sq Skv": (1, 1000, 1037, [1037], 37, 0),
+    "kv_len below one tile": (2, 200, 256, [5, 100], 0, 0),
+    "per-row q_offset across a tile": (2, 96, 512, [200, 300], [104, 250],
+                                       0),
+    "window": (1, 1000, 1037, [1037], 37, 200),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("H,KV,D", GQA_SHAPES)
+@pytest.mark.parametrize("case", list(FWD_EDGES))
+def test_flash_kernel_tile_edges(dtype, tol, H, KV, D, case):
+    _need_cuda()
+    B, Sq, Skv, kv_len, q_off, window = FWD_EDGES[case]
+    q = _randn((B, Sq, H, D), dtype, 30)
+    k = _randn((B, Skv, KV, D), dtype, 31)
+    v = _randn((B, Skv, KV, D), dtype, 32)
+    kw = dict(kv_len=torch.tensor(kv_len, dtype=torch.int32, device="cuda"),
+              q_offset=q_off if isinstance(q_off, int) else torch.tensor(
+                  q_off, dtype=torch.int32, device="cuda"), window=window)
+    got = flash_prefill.flash_attention(q, k, v, **kw)
+    want = flash_prefill.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("H,KV,D", SHAPES)
 def test_paged_kernel_matches_plain(dtype, tol, H, KV, D):
@@ -259,6 +290,47 @@ def test_flash_backward_matches_autograd(dtype, tol, H, KV, D, case):
                                atol=tol, rtol=tol)
     for a, b in zip(got[0][1:], got[1][1:]):
         _close_grad(a, b, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("H,KV,D", GQA_SHAPES)
+@pytest.mark.parametrize("case", ["ragged", "window"])
+def test_flash_backward_tile_edges(dtype, tol, H, KV, D, case):
+    """Sq and Skv off the 64-row grid (a chunk at q_offset 37), with and
+    without a window, at G in {1, 4, 8} and D in {64, 128}."""
+    _need_cuda()
+    B, Sq, Skv = 1, 300, 337
+    kw = {"causal": True, "q_offset": 37,
+          "window": 100 if case == "window" else 0}
+    q = _randn((B, Sq, H, D), dtype, 40)
+    k = _randn((B, Skv, KV, D), dtype, 41)
+    v = _randn((B, Skv, KV, D), dtype, 42)
+    do = _randn((B, Sq, H, D), dtype, 43)
+    got = []
+    for fn in (flash_prefill.flash_attention,
+               flash_prefill.flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, **kw).backward(do)
+        got.append([t.grad for t in leaves])
+    for a, b in zip(*got):
+        _close_grad(a, b, tol)
+
+
+def test_flash_kernels_run_on_tensor_cores():
+    """The flash forward's SASS holds wgmma (HGMMA), the backward's
+    mma.sync (HMMA) or wgmma; the compiler's report of the two libraries
+    is printed, spills included."""
+    _need_cuda()
+    from repro_torch.kernels import _build
+    _build.build(["flash_prefill", "flash_backward"])
+    fwd = _build.sass_counts("flash_prefill")
+    bwd = _build.sass_counts("flash_backward")
+    for name in ("flash_prefill", "flash_backward"):
+        for line in _build.log_text(name).splitlines():
+            if "spill" in line or "registers" in line:
+                print(name, line.strip())
+    assert fwd["HGMMA"] > 0, fwd
+    assert bwd["HMMA"] + bwd["HGMMA"] > 0, bwd
 
 
 def test_backward_wrappers_reject_bad_inputs():

@@ -8,6 +8,7 @@ tolerance atol = rtol = 2e-5, the repo's Pallas-vs-ref tolerance
 
 The CUDA kernels themselves run only on a GPU (tests/test_torch_cuda.py).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -186,3 +187,82 @@ def test_paged_pad_rows_finite():
     assert torch.isfinite(out).all()
     _close(out[:1], jref.paged_attention_reference(
         *_j(q, pool, tab, kv_len))[:1])
+
+
+# ------------------------------------------ flash: the kernels' tile edges --
+
+# G = H / KV in {1, 4, 8} at D = 64 and 128, the head layouts the card
+# checks (chip_smoke.py, tests/test_torch_cuda.py) at small widths
+GQA = [(8, 8, 64), (8, 2, 64), (8, 1, 64), (8, 8, 128), (8, 2, 128),
+       (8, 1, 128)]
+# (B, Sq, Skv, kv_len, q_offset, window): Sq and Skv off the kernels'
+# tile grids, kv_len below one tile, per-row q_offset with kv_len across
+# a tile boundary, a sliding window
+EDGES = {
+    "ragged Sq Skv": (1, 100, 137, None, 37, 0),
+    "kv_len below one tile": (2, 40, 64, [5, 30], 0, 0),
+    "per-row q_offset across a tile": (2, 24, 160, [70, 130], [40, 100],
+                                       0),
+    "window": (1, 100, 137, None, 37, 50),
+}
+
+
+@pytest.mark.parametrize("H,KV,D", GQA)
+@pytest.mark.parametrize("case", list(EDGES))
+def test_flash_reference_tile_edges_match_jax(H, KV, D, case):
+    """The plain version the card holds the kernels against, with its
+    chunks at the forward kernel's 128-row tiles (padding the ragged
+    edges), against the JAX oracle in one chunk."""
+    B, Sq, Skv, kv_len, q_off, window = EDGES[case]
+    qkv = _qkv(B, Sq, Skv, H, KV, D, seed=8)
+    kw_t, kw_j = dict(window=window), dict(window=window)
+    if kv_len is not None:
+        kw_t["kv_len"] = torch.tensor(kv_len)
+        kw_j["kv_len"] = jnp.asarray(kv_len, jnp.int32)
+    if isinstance(q_off, list):
+        kw_t["q_offset"] = torch.tensor(q_off)
+        kw_j["q_offset"] = jnp.asarray(q_off, jnp.int32)
+    else:
+        kw_t["q_offset"] = kw_j["q_offset"] = q_off
+    out = tref.flash_attention_reference(*_t(*qkv), causal=True,
+                                         q_chunk=128, kv_chunk=128, **kw_t)
+    _close(out, jref.flash_attention_reference(
+        *_j(*qkv), causal=True, q_chunk=Sq, kv_chunk=Skv, **kw_j))
+
+
+@pytest.mark.parametrize("H,KV,D", GQA)
+@pytest.mark.parametrize("window", [0, 50])
+def test_flash_reference_gqa_matches_pallas(H, KV, D, window):
+    """The same head layouts through the Pallas kernel (interpret mode),
+    which takes whole 64-row blocks and no kv_len."""
+    qkv = _qkv(1, 128, 128, H, KV, D, seed=9)
+    out = tref.flash_attention_reference(*_t(*qkv), causal=True,
+                                         window=window)
+    _close(out, flash_attention_pallas(*_j(*qkv), causal=True,
+                                       window=window, block_q=64,
+                                       block_k=64))
+
+
+@pytest.mark.parametrize("H,KV,D", GQA)
+@pytest.mark.parametrize("case", ["ragged Sq Skv", "window"])
+def test_flash_reference_grad_tile_edges_match_jax(H, KV, D, case):
+    """What the backward kernels are held against on the card -- autograd
+    through the plain version -- against jax.vjp of the JAX oracle, at
+    the backward's edge shapes (a chunk at q_offset 37 off the 64-row
+    grid, with and without a window; every key valid)."""
+    B, Sq, Skv, _, q_off, window = EDGES[case]
+    q, k, v = _qkv(B, Sq, Skv, H, KV, D, seed=10)
+    do = np.random.RandomState(11).randn(*q.shape).astype(np.float32)
+
+    def jf(q, k, v):
+        return jref.flash_attention_reference(
+            q, k, v, causal=True, window=window, q_offset=q_off,
+            q_chunk=Sq, kv_chunk=Skv)
+    _, vjp = jax.vjp(jf, *_j(q, k, v))
+    want = vjp(jnp.asarray(do))
+    leaves = [t.requires_grad_() for t in _t(q, k, v)]
+    tref.flash_attention_reference(
+        *leaves, causal=True, window=window, q_offset=q_off, q_chunk=64,
+        kv_chunk=64).backward(torch.from_numpy(do))
+    for t, w in zip(leaves, want):
+        _close(t.grad, w)
