@@ -54,7 +54,20 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            port never calls), and its bound: the larger of bytes /
            3.35 TB/s and operations / the peak for their type (989 TFLOP/s
            bf16 dense for attention, 67 TFLOP/s f32 for the norm's
-           elementwise math; H100 SXM data sheet).
+           elementwise math; H100 SXM data sheet). The RMSNorm forward is
+           also timed at llama2-7b's serve shapes (1024 x 4096 prefill,
+           8 x 4096 decode), where the serve path's launches run.
+  d32      every attention kernel (flash forward and backward, paged
+           decode, paged prefill over one pool and two) against its plain
+           version at head dim 32, the smoke configs' (granite-3-2b H 8
+           KV 2, deepseek-moe-16b H 4 KV 4), in bf16 (the CUDA-core
+           kernels, picked by shape) and f32, on the kernels phase's
+           cases; the worst errors fold into the kernels' rows.
+  smoke    the smoke configs (D = 32) through the engine on the card:
+           granite-3-2b exclusive (serve-smoke) and fused (fused-smoke),
+           deepseek-moe-16b fused (moe-smoke), each as `_serve_pair`
+           drives the main paths below (launch counts zeroed before the
+           layerkv run and read after it, first tokens equal vllm's).
   serve    llama2-7b at full width and depth, bf16, random weights from a
            seeded generator on the card, served by the port's
            LayerKVEngine (exclusive prefill, policy 'layerkv',
@@ -119,6 +132,9 @@ FLASH_SHAPES = {"llama2-7b": (32, 32, 128), "granite-3-2b": (32, 8, 64)}
 # (H, KV, D) that complete G = H / KV in {1, 4, 8} at D = 64 and 128 for
 # the flash checks
 FLASH_GQA_SHAPES = [(32, 32, 64), (32, 4, 64), (32, 8, 128), (32, 4, 128)]
+# the smoke configs' attention (D = 32: bf16 takes the CUDA-core kernels)
+SMOKE_SHAPES = {"granite-3-2b smoke": (8, 2, 32),
+                "deepseek-moe-16b smoke": (4, 4, 32)}
 # the train path: model, steps, batch x sequence (tokens per step)
 TRAIN = dict(arch="granite-3-2b", steps=5, batch=4, seq=1024)
 # RMSNorm shapes: the train path's activations, llama2-7b prefill / decode
@@ -232,13 +248,14 @@ def _flash_case(gen, H, KV, D, dtype, B, Sq, Skv, kv_len, q_off):
     return q, k, v, lens, off
 
 
-def check_flash(gen):
+def check_flash(gen, sizes=None):
     """The flash forward against its plain version: the engine's cases
     (bucket padding, ragged kv_len, chunk q_offset, scalar and per row)
     at both serving shapes, and the edges of the kernel's tiling (128
     query rows x 128 keys) at G = H / KV in {1, 4, 8} and D in {64, 128}:
     Sq and Skv off the tile grid, kv_len below one tile, per-row q_offset
-    with kv_len across a tile boundary, and a sliding window."""
+    with kv_len across a tile boundary, and a sliding window. With
+    `sizes` ({name: (H, KV, D)}), every case at those shapes only."""
     import torch
     from repro_torch.kernels import flash_prefill as fp
     worst = {}
@@ -256,9 +273,10 @@ def check_flash(gen):
         ("window 200", 1, 1000, 1037, [1037], 37, 200),
     ]
     shapes = [(arch, hkd, engine_cases + edge_cases)
-              for arch, hkd in FLASH_SHAPES.items()]
-    shapes += [(f"G={H // KV} D={D}", (H, KV, D), edge_cases)
-               for H, KV, D in FLASH_GQA_SHAPES]
+              for arch, hkd in (sizes or FLASH_SHAPES).items()]
+    if sizes is None:
+        shapes += [(f"G={H // KV} D={D}", (H, KV, D), edge_cases)
+                   for H, KV, D in FLASH_GQA_SHAPES]
     for arch, (H, KV, D), cases in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
@@ -305,11 +323,11 @@ def _paged_case(gen, H, KV, D, dtype, B, n_real, BS=16, max_ctx=4096):
     return q, pool, tab, lens
 
 
-def check_paged(gen):
+def check_paged(gen, sizes=FLASH_SHAPES):
     import torch
     from repro_torch.kernels import paged_attention as pa
     worst = {}
-    for arch, (H, KV, D) in FLASH_SHAPES.items():
+    for arch, (H, KV, D) in sizes.items():
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
             for B, n_real in ((1, 1), (8, 5), (32, 20)):
@@ -439,19 +457,20 @@ def _pp_batch(gen, H, KV, D, dtype, specs, tq=32, BS=16, tail=0):
     return q, seg, pos, klen, live, maxb
 
 
-def check_paged_prefill(gen):
+def check_paged_prefill(gen, sizes=FLASH_SHAPES):
     """The cases of tests/test_fused.py at the fused step's tile (tq =
     MIXED_TQ = 32) and block size (16): chunk edges one segment at a
     time, a chunk + decode tokens + a kv_len = 0 dummy in one call (live
     rows compared, every row finite), and the two-pool variant with the
     host pool pinned on the CPU and host ids above the device pool's
-    size. Returns the worst error per dtype for each variant."""
+    size, at each of `sizes` ({name: (H, KV, D)}). Returns the worst
+    error per dtype for each variant."""
     import torch
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.serving.executor import MIXED_TQ as TQ
     BS = 16
     worst = {"paged_prefill": {}, "paged_prefill_tiered": {}}
-    for arch, (H, KV, D) in FLASH_SHAPES.items():
+    for arch, (H, KV, D) in sizes.items():
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
             key = str(dtype)[6:]
@@ -620,13 +639,15 @@ def _flash_grads(fn, q, k, v, do, **kw):
     return [t.grad for t in leaves]
 
 
-def check_flash_bwd(gen):
+def check_flash_bwd(gen, sizes=None):
     """The flash backward (dq, dk, dv) against autograd through the plain
     flash attention, causal: at the train path's shape (B 4, S 1024,
     granite-3-2b heads, GQA 4:1) and llama2-7b's (B 1, S 1024), and at
     the edges of the kernels' tiling: Sq and Skv off the 64-row grid (a
     chunk at q_offset 37), a sliding window, and G in {1, 4, 8} at D in
-    {64, 128}; bf16 and f32. Returns the worst error per dtype."""
+    {64, 128}; bf16 and f32. With `sizes` ({name: (H, KV, D)}), B 1 S
+    512 and the two edge cases at those shapes only. Returns the worst
+    error per dtype."""
     import torch
     from repro_torch.kernels import flash_prefill as fp
     worst = {}
@@ -638,6 +659,12 @@ def check_flash_bwd(gen):
              ("window 200", 1, llama, 1000, 1037, 37, 200)]
     cases += [(f"G={H // KV} D={D}", 1, (H, KV, D), 512, 512, 0, 0)
               for H, KV, D in [gran, llama] + FLASH_GQA_SHAPES]
+    if sizes is not None:
+        cases = [c for name, hkd in sizes.items() for c in (
+            (name, 1, hkd, 512, 512, 0, 0),
+            (f"{name} Sq 1000 Skv 1037 q_offset 37", 1, hkd, 1000, 1037,
+             37, 0),
+            (f"{name} window 200", 1, hkd, 1000, 1037, 37, 200))]
     for name, B, (H, KV, D), Sq, Skv, q_off, window in cases:
         for dtype in (torch.bfloat16, torch.float32):
             key = str(dtype)[6:]
@@ -664,26 +691,49 @@ def check_flash_bwd(gen):
     return worst
 
 
-def time_rmsnorm(gen):
-    """RMSNorm at the train path's activations (4096 rows of 2048, bf16):
-    the forward and the backward, each beside its plain version and
-    F.rms_norm (forward; its autograd backward)."""
+def _norm_inputs(gen, shape):
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import rmsnorm as rn
-    shape = NORM_SHAPES["train"]
     d = shape[-1]
-    n = shape[0] * shape[1] * d
     x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")) \
         .to(torch.bfloat16)
-    dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    desc = f"{shape[0] * shape[1]} rows x d={d} bf16"
-    fwd = _bound(
+    return x, w, x.numel() // d, d
+
+
+def time_rmsnorm_fwd(gen, shape):
+    """The RMSNorm forward at `shape` (bf16) beside its plain version and
+    F.rms_norm."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    x, w, rows, d = _norm_inputs(gen, shape)
+    n = rows * d
+    return _bound(
         _time_ms(lambda: rn.rmsnorm(x, w)),
         _time_ms(lambda: rn.rmsnorm_plain(x, w), reps=5),
         _time_ms(lambda: F.rms_norm(x, (d,), w, eps=1e-6)),
-        2 * n * 2 + d * 2, 4 * n, F32_FLOPS_PER_S, desc)
+        2 * n * 2 + d * 2, 4 * n, F32_FLOPS_PER_S,
+        f"{rows} rows x d={d} bf16")
+
+
+def time_rmsnorm(gen):
+    """RMSNorm at the train path's activations (4096 rows of 2048, bf16):
+    the forward and the backward, each beside its plain version and
+    F.rms_norm (forward; its autograd backward). The forward's row also
+    holds its times at llama2-7b's serve shapes ("at_serve_shapes": a
+    1024-token prefill and an 8-row decode step, 4096 wide), where the
+    serve path's launches run."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    fwd = time_rmsnorm_fwd(gen, NORM_SHAPES["train"])
+    fwd["at_serve_shapes"] = [
+        time_rmsnorm_fwd(gen, NORM_SHAPES[k])
+        for k in ("llama2-7b prefill", "llama2-7b decode")]
+    shape = NORM_SHAPES["train"]
+    x, w, rows, d = _norm_inputs(gen, shape)
+    n = rows * d
+    dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    desc = f"{rows} rows x d={d} bf16"
     _, rstd = rn._forward(x, w, 1e-6, keep_rstd=True)
 
     def grad_ms(fn, reps):
@@ -780,8 +830,8 @@ def phase_kernels():
              f"kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} "
              f"library_ms {lib} bound_ms {t['bound_ms']:.4f} "
              f"({t['bound_by']})")
-        also = t.get("at_train_shape")
-        if also:
+        for also in ([t["at_train_shape"]] if "at_train_shape" in t
+                     else []) + t.get("at_serve_shapes", []):
             _say(f"[kernels] {name} [{also['shape']}]: kernel_ms "
                  f"{also['ms']:.4f} plain_ms {also['plain_ms']:.4f} "
                  f"library_ms {also['library_ms']:.4f} bound_ms "
@@ -951,12 +1001,16 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
             "tokens": lk_tokens, "params": params}
 
 
-# The three main paths: model, prompts (count, seed), output tokens, the
-# device blocks of the layerkv run (tight: forces layer-wise offload and
-# reload, and in fused mode chunks with host-resident layers) and of its
-# vllm reference (fits everything), the engine mode, and the kernels the
-# path must launch. tests/test_torch_chip_smoke.py dry-runs the scheduler
-# on these settings at the full configs.
+# device blocks of the smoke paths' layerkv runs (2 layers, 16-token blocks)
+SMOKE_NDB = 24
+# The serving paths: model (its full config, or with `smoke` its smoke
+# config), prompts (count, seed, and lengths when not 256-1024), output
+# tokens, the device blocks of the layerkv run (tight: forces layer-wise
+# offload and reload, and in fused mode chunks with host-resident layers)
+# and of its vllm reference (fits everything), the engine mode, and the
+# kernels the path must launch. serve / fused / moe are the main paths at
+# full size; the *-smoke paths run the smoke configs, whose head dim is 32.
+# tests/test_torch_chip_smoke.py dry-runs the scheduler on these settings.
 PATHS = {
     "serve": dict(arch="llama2-7b", n=8, seed=0, out_len=32, ndb=4096,
                   ndb_ref=20000, nhb=16384, mode={},
@@ -972,30 +1026,104 @@ PATHS = {
                 mode=dict(chunked=True, fused=True, max_prefill_tokens=512),
                 kernels=("paged_prefill", "paged_prefill_tiered",
                          "paged_attention", "rmsnorm")),
+    "serve-smoke": dict(arch="granite-3-2b", smoke=True, n=6, seed=2,
+                        prompt_lens=(40, 160), out_len=8, ndb=SMOKE_NDB,
+                        ndb_ref=1024, nhb=1024, mode={},
+                        kernels=("flash_attention", "paged_attention",
+                                 "rmsnorm")),
+    "fused-smoke": dict(arch="granite-3-2b", smoke=True, n=6, seed=2,
+                        prompt_lens=(40, 160), out_len=8, ndb=SMOKE_NDB,
+                        ndb_ref=1024, nhb=1024,
+                        mode=dict(chunked=True, fused=True,
+                                  max_prefill_tokens=64),
+                        kernels=("paged_prefill", "paged_prefill_tiered",
+                                 "paged_attention", "rmsnorm")),
+    # Eq. 4 keeps both layers of this 2-layer model on the device at these
+    # prompts, so no chunk reads the host pool (fused-smoke's do)
+    "moe-smoke": dict(arch="deepseek-moe-16b", smoke=True, n=6, seed=2,
+                      prompt_lens=(40, 160), out_len=8, ndb=SMOKE_NDB,
+                      ndb_ref=1024, nhb=1024,
+                      mode=dict(chunked=True, fused=True,
+                                max_prefill_tokens=64),
+                      kernels=("paged_prefill", "paged_attention",
+                               "rmsnorm")),
 }
+
+
+def path_config(tag):
+    """The model config of serving path `tag`: full width and depth, or
+    the smoke config for the *-smoke paths."""
+    from repro_torch.configs import get_config, get_smoke_config
+    pc = PATHS[tag]
+    return (get_smoke_config if pc.get("smoke") else get_config)(pc["arch"])
+
+
+def _path_prompts(tag, cfg):
+    pc = PATHS[tag]
+    lo, hi = pc.get("prompt_lens", (256, 1024))
+    return _prompts(cfg.vocab_size, n=pc["n"], lo=lo, hi=hi, seed=pc["seed"])
 
 
 def _run_path(tag, cfg, params, device):
     """Drive path `tag` (settings from PATHS) through `_serve_pair`.
     Returns (result, prompts, out_len)."""
     pc = PATHS[tag]
-    prompts = _prompts(cfg.vocab_size, n=pc["n"], seed=pc["seed"])
+    prompts = _path_prompts(tag, cfg)
     res = _serve_pair(tag, cfg, params, prompts, pc["out_len"],
                       pc["kernels"], pc["ndb"], pc["nhb"], pc["ndb_ref"],
                       device=device, **pc["mode"])
-    if pc["mode"].get("fused") and not res["host_tier_signatures"]:
+    if "paged_prefill_tiered" in pc["kernels"] \
+            and not res["host_tier_signatures"]:
         raise AssertionError("no fused step ran with a host-tier chunk")
     return res, prompts, pc["out_len"]
 
 
 def _describe(tag, cfg):
     pc = PATHS[tag]
-    lens = sorted(len(p) for p in _prompts(cfg.vocab_size, n=pc["n"],
-                                           seed=pc["seed"]))
+    lens = sorted(len(p) for p in _path_prompts(tag, cfg))
     _say(f"[{tag}] {cfg.arch_id} L={cfg.n_layers} d={cfg.d_model} "
          f"H={cfg.n_heads} KV={cfg.n_kv_heads} {cfg.dtype}, {pc['n']} "
          f"requests, prompts {lens}, {pc['out_len']} output tokens each, "
          f"mode {pc['mode'] or 'exclusive prefill'}")
+
+
+def phase_head_dim_32():
+    """Every attention kernel against its plain version at D = 32, the
+    smoke configs' head dim (granite-3-2b H 8 KV 2, deepseek-moe-16b H 4
+    KV 4), in bf16 (the CUDA-core kernels, which the dispatch picks by
+    shape) and f32, on the kernels phase's cases. Returns the worst
+    error per kernel and dtype."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    t0 = time.perf_counter()
+    pp = check_paged_prefill(gen, SMOKE_SHAPES)
+    worst = {"flash_attention": check_flash(gen, SMOKE_SHAPES),
+             "paged_attention": check_paged(gen, SMOKE_SHAPES),
+             "paged_prefill": pp["paged_prefill"],
+             "paged_prefill_tiered": pp["paged_prefill_tiered"],
+             "flash_attention_bwd": check_flash_bwd(gen, SMOKE_SHAPES)}
+    for name, err in worst.items():
+        _say(f"[d32] {name}: max_abs_err bf16 {err['bfloat16']:.3g} f32 "
+             f"{err['float32']:.3g}")
+    _say(f"[d32] phase {time.perf_counter() - t0:.1f}s")
+    return worst
+
+
+def phase_smoke():
+    """The smoke configs (head dim 32) through the engine on the card:
+    granite-3-2b exclusive and fused, deepseek-moe-16b fused, each a
+    layerkv run on a tight pool against vllm, random weights from a
+    seed. Every path kernel must launch and first tokens must equal
+    vllm's (`_serve_pair`)."""
+    out = {}
+    for tag in ("serve-smoke", "fused-smoke", "moe-smoke"):
+        cfg = path_config(tag)
+        _describe(tag, cfg)
+        res, _, _ = _run_path(tag, cfg, None, "cuda")
+        res.pop("params")
+        out[tag] = res
+    return out
 
 
 def phase_serve(profile=False):
@@ -1272,7 +1400,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     smi = phase_build()
     kern = phase_kernels()
-    paths = {"serve": phase_serve(profile=args.profile)}
+    for name, err in phase_head_dim_32().items():   # rows hold the worst
+        for key, e in err.items():
+            kern[name][0][key] = max(kern[name][0][key], e)
+    paths = phase_smoke()
+    paths["serve"] = phase_serve(profile=args.profile)
     params = paths["serve"].pop("params")
     paths["fused"] = phase_fused(params, paths["serve"]["tokens"])
     del params
@@ -1300,8 +1432,9 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
-        if "at_train_shape" in t:
-            rows[-1]["at_train_shape"] = t["at_train_shape"]
+        for extra in ("at_train_shape", "at_serve_shapes"):
+            if extra in t:
+                rows[-1][extra] = t[extra]
         if call:
             rows[-1]["pallas_call"] = call
         if note:

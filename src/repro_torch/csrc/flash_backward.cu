@@ -51,8 +51,13 @@
 // the plain f32 version within atol = 2e-2 * max|grad|, rtol = 2e-2.
 //
 // f32 (the exact reference path of the card checks; no main path runs
-// it): the CUDA-core kernels, 64 x 64 tiles, f32 FMAs throughout, bound
-// by FMA issue and shared-memory reads.
+// it), and bf16 at D = 32 (the smoke configs): the CUDA-core kernels,
+// 64 x 64 tiles, f32 FMAs throughout, bound by FMA issue and
+// shared-memory reads. The mma.sync kernels' swizzle XORs a row's
+// 16-byte chunk index with row % 8, so a row needs at least 8 chunks
+// (D % 64 == 0); a bf16 tensor with D = 32 always takes the CUDA-core
+// pair. That is a dispatch by shape, not a fallback: nothing retries
+// another kernel when a launch fails.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -508,6 +513,7 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H,
                  int KV, int q_offset, int causal, int window,
                  float scale) {
+  static_assert(D % 64 == 0, "swz<D> needs 8 chunks per row");
   using L = DqSmem<D>;
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t s0 = smem_u32(smem);
@@ -670,6 +676,7 @@ flash_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
                    __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
                    int KV, int q_offset, int causal, int window,
                    float scale) {
+  static_assert(D % 64 == 0, "swz<D> needs 8 chunks per row");
   using L = KvSmem<D>;
   constexpr int BQ2 = L::BQ2;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -875,8 +882,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 #define REPRO_FLASH_BWD_CASE(T, DD)                                          \
   return (int)launch<T, DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, \
                             Skv, H, KV, q_offset, causal, window, scale, s)
+  if (dtype == 0 && D == 32) REPRO_FLASH_BWD_CASE(float, 32);
   if (dtype == 0 && D == 64) REPRO_FLASH_BWD_CASE(float, 64);
   if (dtype == 0 && D == 128) REPRO_FLASH_BWD_CASE(float, 128);
+  // bf16 at D = 32: the CUDA-core pair, by shape (swz<D> needs D % 64 == 0)
+  if (dtype == 1 && D == 32) REPRO_FLASH_BWD_CASE(__nv_bfloat16, 32);
 #undef REPRO_FLASH_BWD_CASE
 #define REPRO_FLASH_BWD_TC_CASE(DD)                                         \
   return (int)tc::launch<DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,   \

@@ -48,9 +48,14 @@
 // the long tiles do not land in the last wave.
 //
 // f32 (the exact reference path of the card checks; no main path runs
-// it): the CUDA-core kernel, bound by f32 FMA issue. One block per
-// (q-tile of 64 rows, head, batch), a loop over 64-key tiles, f32 tiles
-// in padded shared memory, online softmax in registers.
+// it), and bf16 at D = 32 (the smoke configs): the CUDA-core kernel,
+// bound by f32 FMA issue. One block per (q-tile of 64 rows, head,
+// batch), a loop over 64-key tiles, f32 tiles in padded shared memory,
+// online softmax in registers. The tensor-core kernel stores a tile as
+// 64-column blocks with 128-byte rows (TMA's 128-byte swizzle), so D = 32
+// would need a 64-byte swizzle variant; a bf16 tensor with D = 32 always
+// takes the CUDA-core kernel instead. That is a dispatch by shape, not a
+// fallback: nothing retries another kernel when a launch fails.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -320,6 +325,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const int* __restrict__ q_offset, int q_offset_scalar,
                 int Sq, int Skv, int H, int KV, int causal, int window,
                 float scale_log2) {
+  static_assert(D % 64 == 0, "tiles are 64-column swizzled blocks");
   using L = Smem<D>;
   constexpr int STAGES = L::STAGES;
   constexpr int HALVES = D / 64;
@@ -616,8 +622,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   return (int)launch<T, DD>(q, k, v, out, lse, kv_len, q_offset,            \
                             q_offset_scalar, B, Sq, Skv, H, KV, causal,     \
                             window, scale, s)
+  if (dtype == 0 && D == 32) REPRO_FLASH_CASE(float, 32);
   if (dtype == 0 && D == 64) REPRO_FLASH_CASE(float, 64);
   if (dtype == 0 && D == 128) REPRO_FLASH_CASE(float, 128);
+  // bf16 at D = 32 is too narrow for the tensor-core kernel's 64-column
+  // swizzled blocks: it always takes the CUDA-core kernel (by shape)
+  if (dtype == 1 && D == 32) REPRO_FLASH_CASE(__nv_bfloat16, 32);
 #undef REPRO_FLASH_CASE
 #define REPRO_FLASH_TC_CASE(DD)                                             \
   return (int)tc::launch<DD>(q, k, v, out, lse, kv_len, q_offset,           \

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) primitives of the flash kernels, as inline PTX: shared
-// memory addresses, mbarriers, TMA tile loads, warpgroup MMA (wgmma) with
-// its shared-memory descriptors, and the warp-level tensor-core path
-// (ldmatrix, mma.sync m16n8k16, cp.async) of the backward.
+// Hopper (sm_90a) primitives of the port's kernels, as inline PTX: shared
+// memory addresses, mbarriers, TMA tile loads and 1-d bulk copies, named
+// barriers, warpgroup MMA (wgmma) with its shared-memory descriptors, and
+// the warp-level tensor-core path (ldmatrix, mma.sync m16n8k16, cp.async)
+// of the flash backward.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -85,6 +86,24 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar) : "memory");
+}
+
+// Copy `bytes` (a multiple of 16) of contiguous global memory at `src`
+// into shared memory at `dst`, both 16-byte aligned, with TMA's 1-d bulk
+// copy; completion is reported to mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads') over `threads` threads, a
+// multiple of 32: a subset of the block's warps waits for each other.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // --------------------------------------------------------------- wgmma --

@@ -191,7 +191,7 @@ cudaError_t launch(const void* q, const void* pool, const int* table,
 }  // namespace repro_torch
 
 // C entry bound with ctypes. dtype: 0 = float32, 1 = bfloat16. Needs
-// G = H / KV <= 16 and D in {64, 128}. Returns a cudaError_t; 0 on a
+// G = H / KV <= 16 and D in {32, 64, 128}. Returns a cudaError_t; 0 on a
 // successful launch.
 extern "C" int paged_attention_fwd(const void* q, const void* pool,
                                    const int* table, const int* kv_len,
@@ -206,8 +206,10 @@ extern "C" int paged_attention_fwd(const void* q, const void* pool,
 #define REPRO_PAGED_CASE(T, DD)                                       \
   return (int)launch<T, DD>(q, pool, table, kv_len, out, B, H, KV, BS, \
                             MAXB, scale, s)
+  if (dtype == 0 && D == 32) REPRO_PAGED_CASE(float, 32);
   if (dtype == 0 && D == 64) REPRO_PAGED_CASE(float, 64);
   if (dtype == 0 && D == 128) REPRO_PAGED_CASE(float, 128);
+  if (dtype == 1 && D == 32) REPRO_PAGED_CASE(__nv_bfloat16, 32);
   if (dtype == 1 && D == 64) REPRO_PAGED_CASE(__nv_bfloat16, 64);
   if (dtype == 1 && D == 128) REPRO_PAGED_CASE(__nv_bfloat16, 128);
 #undef REPRO_PAGED_CASE

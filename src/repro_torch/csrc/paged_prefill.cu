@@ -270,7 +270,7 @@ cudaError_t launch(const void* q, const void* dpool, const void* hpool,
 }  // namespace repro_torch
 
 // C entry bound with ctypes. dtype: 0 = float32, 1 = bfloat16. Needs
-// T % tq == 0, G = H / KV <= 16 and D in {64, 128}. `tier` null selects
+// T % tq == 0, G = H / KV <= 16 and D in {32, 64, 128}. `tier` null selects
 // the single-pool kernel; otherwise `host_pool` is pinned host memory
 // (PyTorch's pinned allocator) whose device-mapped address is looked up
 // here -- the call fails, and launches nothing, if it has none. Returns a
@@ -302,8 +302,10 @@ extern "C" int paged_prefill_fwd(const void* q, const void* dpool,
   return (int)launch<TT, DD>(q, dpool, hdev, table, seg_ids, q_pos, kv_len, \
                              tier, out, T_, H, KV, BS, S, MAXB, tq, nb_dev, \
                              nb_host, scale, s)
+  if (dtype == 0 && D == 32) REPRO_PP_CASE(float, 32);
   if (dtype == 0 && D == 64) REPRO_PP_CASE(float, 64);
   if (dtype == 0 && D == 128) REPRO_PP_CASE(float, 128);
+  if (dtype == 1 && D == 32) REPRO_PP_CASE(__nv_bfloat16, 32);
   if (dtype == 1 && D == 64) REPRO_PP_CASE(__nv_bfloat16, 64);
   if (dtype == 1 && D == 128) REPRO_PP_CASE(__nv_bfloat16, 128);
 #undef REPRO_PP_CASE

@@ -44,7 +44,7 @@ def paged_attention(q, kv_pool, block_table, kv_len, *, softmax_scale=None):
     entry below ceil(kv_len / BS) must be a block id < NB (the caller's
     contract; the kernel does not read the rest). CPU tensors run the
     plain version; CUDA tensors launch the kernel, which takes bf16 or
-    f32, D in {64, 128}, H / KV <= 16 and contiguous inputs, and raises on
+    f32, D in {32, 64, 128}, H / KV <= 16 and contiguous inputs, and raises on
     anything else."""
     global launches
     if q.device.type == "cpu":

@@ -49,7 +49,7 @@ def paged_prefill(q, kv_pool, block_table, seg_ids, q_pos, kv_len, *,
     pool.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel,
-    which takes bf16 or f32, D in {64, 128}, H / KV <= 16 and contiguous
+    which takes bf16 or f32, D in {32, 64, 128}, H / KV <= 16 and contiguous
     inputs, with `host_pool` in pinned CPU memory (read in place through
     its device-mapped address, never copied), and raises on anything
     else."""

@@ -21,8 +21,7 @@ launches = 0
 launches_bwd = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# dw partial rows per SM in the backward (each block sums a run of rows)
-_BWD_BLOCKS_PER_SM = 4
+_MAX_D = 8192   # csrc MAX_D: 8 warps x 32 threads x 32 columns a row
 
 
 def rmsnorm_plain(x, w, eps=1e-6):
@@ -38,7 +37,7 @@ def _lib():
     if lib.rmsnorm_fwd.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rmsnorm_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ctypes.c_float,
-                                    ci, vp]
+                                    ci, ci, vp]
         lib.rmsnorm_fwd.restype = ci
         lib.rmsnorm_bwd.argtypes = [vp] * 7 + [ci] * 4 + [vp]
         lib.rmsnorm_bwd.restype = ci
@@ -56,6 +55,8 @@ def _check(x, w):
                          f"{w.device}")
     if d == 0 or d % 8:
         raise ValueError(f"rmsnorm: last dim {d} is not a multiple of 8")
+    if d > _MAX_D:
+        raise ValueError(f"rmsnorm: last dim {d} is above {_MAX_D}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm: x and w must be contiguous")
     if x.data_ptr() % 16 or w.data_ptr() % 16:
@@ -64,6 +65,11 @@ def _check(x, w):
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _sms(t):
+    """The card's SM count: the kernels' persistent blocks, one per SM."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def _forward(x, w, eps, keep_rstd):
@@ -79,7 +85,7 @@ def _forward(x, w, eps, keep_rstd):
         err = _lib().rmsnorm_fwd(
             x.data_ptr(), w.data_ptr(), y.data_ptr(),
             None if rstd is None else rstd.data_ptr(), rows, d, float(eps),
-            _DTYPES[x.dtype], _stream(x))
+            _sms(x), _DTYPES[x.dtype], _stream(x))
         if err != 0:
             raise RuntimeError(f"rmsnorm kernel launch failed: cudaError_t "
                                f"{err}")
@@ -94,6 +100,8 @@ def rmsnorm_bwd(dy, x, w, rstd):
     global launches_bwd
     _check(x, w)
     dy = dy.contiguous()
+    if dy.data_ptr() % 16:   # the kernel's bulk copies read 16-byte units
+        dy = dy.clone()
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
                          f"does not match x {tuple(x.shape)} {x.dtype}")
@@ -105,8 +113,7 @@ def rmsnorm_bwd(dy, x, w, rstd):
     if rows == 0:
         return dx, torch.zeros_like(w)
     dw = torch.empty_like(w)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = min(rows, _BWD_BLOCKS_PER_SM * sms)
+    blocks = min(rows, _sms(x))   # at most one dw partial per block
     part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     err = _lib().rmsnorm_bwd(
         x.data_ptr(), w.data_ptr(), dy.data_ptr(), rstd.data_ptr(),
@@ -137,9 +144,10 @@ def rmsnorm(x, w, eps=1e-6):
     """x: (..., d); w: (d,). Returns rmsnorm(x) * w in x.dtype.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel,
-    which takes bf16 or f32 (w in x's dtype), d a multiple of 8 and
-    contiguous inputs, and raises on anything else; when x or w requires
-    grad (and grad mode is on) the backward kernel gives the gradient."""
+    which takes bf16 or f32 (w in x's dtype), d a multiple of 8 up to
+    8192 and contiguous inputs, and raises on anything else; when x or w
+    requires grad (and grad mode is on) the backward kernel gives the
+    gradient."""
     if x.device.type == "cpu":
         return rmsnorm_plain(x, w, eps)
     if x.device.type != "cuda":

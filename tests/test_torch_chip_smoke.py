@@ -1,18 +1,19 @@
-"""`chip_smoke.py`'s main paths, dry-run on the CPU at the FULL model
-configs: the port's real `LayerKVEngine` and scheduler drive a stub
-executor (no weights, no pools, every sampled token 1), so the script's
-pool sizes can be checked without a card. On each path the layerkv run
-must force layer-wise offload and reload, and the fused paths must run
-steps whose chunks have host-resident layers — the preconditions
-`chip_smoke.py` asserts on the H100. The stub also counts the fused
-steps that read the host tier, which, times the layer count, is the
-number of two-pool kernel launches the card run should show."""
+"""`chip_smoke.py`'s serving paths, dry-run on the CPU at their model
+configs (full width and depth for the main paths, the smoke configs for
+the *-smoke paths): the port's real `LayerKVEngine` and scheduler drive
+a stub executor (no weights, no pools, every sampled token 1), so the
+script's pool sizes can be checked without a card. On each path the
+layerkv run must force layer-wise offload and reload, and the paths
+that list the two-pool kernel must run fused steps whose chunks have
+host-resident layers — the preconditions `chip_smoke.py` asserts on the
+H100. The stub also counts the fused steps that read the host tier,
+which, times the layer count, is the number of two-pool kernel launches
+the card run should show."""
 import sys
 from pathlib import Path
 
 import pytest
 
-from repro_torch.configs import get_config
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.serving import engine as engine_mod
 
@@ -58,12 +59,12 @@ class _StubExecutor:
 def test_chip_smoke_path_forces_offload_at_full_config(tag, monkeypatch):
     monkeypatch.setattr(engine_mod, "PagedExecutor", _StubExecutor)
     pc = chip_smoke.PATHS[tag]
-    cfg = get_config(pc["arch"])
+    cfg = chip_smoke.path_config(tag)
     # the script's own driver and assertions: every request finishes,
-    # offload and reload happen, fused paths read the host tier, first
+    # offload and reload happen, two-pool paths read the host tier, first
     # tokens equal the vllm reference's
     res, prompts, out_len = chip_smoke._run_path(tag, cfg, None, "cpu")
     assert len(res["tokens"]) == len(prompts) == pc["n"]
     assert res["offloads"] > 0 and res["reloads"] > 0
-    if pc["mode"].get("fused"):
+    if "paged_prefill_tiered" in pc["kernels"]:
         assert res["host_tier_signatures"] > 0

@@ -23,7 +23,9 @@ from repro_torch.kernels import flash_prefill, paged_attention, \
 
 pytestmark = pytest.mark.cuda
 DTYPES = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
-SHAPES = [(32, 32, 128), (32, 8, 64)]     # llama2-7b, granite-3-2b
+# llama2-7b, granite-3-2b, and the granite-3-2b and deepseek-moe-16b
+# smoke configs (D = 32: bf16 on the CUDA-core kernels)
+SHAPES = [(32, 32, 128), (32, 8, 64), (8, 2, 32), (4, 4, 32)]
 
 
 def _need_cuda():
@@ -66,9 +68,9 @@ def test_flash_kernel_window(window):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
-# G = H / KV in {1, 4, 8} at D = 64 and 128
+# G = H / KV in {1, 4, 8} at D = 64 and 128, and the smoke configs' D = 32
 GQA_SHAPES = [(8, 8, 64), (8, 2, 64), (8, 1, 64), (8, 8, 128), (8, 2, 128),
-              (8, 1, 128)]
+              (8, 1, 128), (8, 2, 32), (4, 4, 32)]
 # the forward's tile edges (128 query rows x 128 keys): (B, Sq, Skv,
 # kv_len, q_offset, window)
 FWD_EDGES = {
@@ -225,9 +227,14 @@ def _close_grad(got, want, tol):
                                rtol=tol)
 
 
+# RMSNorm rows x d: the smoke widths, a row count below the SM count,
+# one row of the narrowest d, llama4-scout's d 5120, the train shape
+NORM_SHAPES = [(4, 128), (3, 33, 512), (300, 2048), (8, 4096), (1, 8),
+               (5, 5120), (4096, 2048), (100, 4096)]
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("shape", [(4, 128), (3, 33, 512), (300, 2048),
-                                   (8, 4096)])
+@pytest.mark.parametrize("shape", NORM_SHAPES)
 def test_rmsnorm_kernel_matches_plain(dtype, tol, shape):
     _need_cuda()
     x = _randn(shape, dtype, 10)
@@ -240,7 +247,9 @@ def test_rmsnorm_kernel_matches_plain(dtype, tol, shape):
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("shape", [(4, 128), (3, 33, 512), (1000, 2048)])
+@pytest.mark.parametrize("shape", [(4, 128), (3, 33, 512), (1000, 2048),
+                                   (1, 8), (5, 5120), (4096, 2048),
+                                   (100, 4096)])
 def test_rmsnorm_backward_matches_autograd(dtype, tol, shape):
     _need_cuda()
     x = _randn(shape, dtype, 12)
@@ -257,6 +266,21 @@ def test_rmsnorm_backward_matches_autograd(dtype, tol, shape):
     assert gx.dtype == gw.dtype == dtype
     _close_grad(gx, px, tol)
     _close_grad(gw, pw, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 2048), (1000, 5120), (7, 256)])
+def test_rmsnorm_backward_dw_is_bit_identical_across_calls(dtype, shape):
+    """dw is summed in a fixed order (no atomics): two calls on the same
+    inputs give the same bits, dx too."""
+    _need_cuda()
+    x = _randn(shape, dtype, 15)
+    w = (_randn(shape[-1:], torch.float32, 16) * 0.1 + 1).to(dtype)
+    dy = _randn(shape, dtype, 17)
+    _, rstd = rmsnorm._forward(x, w, 1e-6, keep_rstd=True)
+    dx1, dw1 = rmsnorm.rmsnorm_bwd(dy, x, w, rstd)
+    dx2, dw2 = rmsnorm.rmsnorm_bwd(dy, x, w, rstd)
+    assert torch.equal(dw1, dw2) and torch.equal(dx1, dx2)
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
@@ -297,7 +321,7 @@ def test_flash_backward_matches_autograd(dtype, tol, H, KV, D, case):
 @pytest.mark.parametrize("case", ["ragged", "window"])
 def test_flash_backward_tile_edges(dtype, tol, H, KV, D, case):
     """Sq and Skv off the 64-row grid (a chunk at q_offset 37), with and
-    without a window, at G in {1, 4, 8} and D in {64, 128}."""
+    without a window, at G in {1, 4, 8} and D in {32, 64, 128}."""
     _need_cuda()
     B, Sq, Skv = 1, 300, 337
     kw = {"causal": True, "q_offset": 37,
@@ -338,6 +362,9 @@ def test_backward_wrappers_reject_bad_inputs():
     w = torch.ones(12, device="cuda")
     with pytest.raises(ValueError, match="multiple of 8"):
         rmsnorm.rmsnorm(torch.zeros(4, 12, device="cuda"), w)
+    with pytest.raises(ValueError, match="above 8192"):
+        rmsnorm.rmsnorm(torch.zeros(2, 8200, device="cuda"),
+                        torch.ones(8200, device="cuda"))
     with pytest.raises(ValueError, match="dtype"):
         rmsnorm.rmsnorm(torch.zeros(4, 16, device="cuda",
                                     dtype=torch.float16),
