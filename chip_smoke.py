@@ -22,16 +22,23 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            bf16 kernel's 128 x 128 tiles with G = H / KV in {1, 4, 8} at
            D = 64 and 128 (Sq 1000 / Skv 1037, kv_len below one tile,
            per-row q_offset with kv_len across a tile, a window of 200);
-           paged decode at B = 1, 8,
+           paged decode (the split kernel and its combine) at B = 1, 8,
            32 with power-of-two pad rows (kv_len = 0 on a trash block),
-           BS = 16, MAXB a multiple of 8, contexts up to 4096; paged
+           BS = 16, MAXB a multiple of 8, contexts up to 4096, and at the
+           split's edges, against the plain version and the plain split
+           algorithm, batch-invariant bit for bit (each row of a batch of
+           8 alone), and the combine kernel against its plain version on
+           the split kernel's partials; paged
            prefill at the same two shapes, tq = 32, BS = 16, on the cases
            of tests/test_fused.py (chunk edges, a chunk + decode tokens + a
            kv_len = 0 dummy, and the two-pool variant with the host pool
            pinned on the CPU and host ids above the device pool's size),
            and at the fused step's own layout and size (a 512-token chunk
            at offset 512 among one-token segments, a dummy slot and tail
-           tiles, T = 1024, MAXB 64), one pool and two; RMSNorm forward
+           tiles, T = 1024, MAXB 64), one pool and two; for every two-pool
+           case the staging kernel writes exactly the live host blocks,
+           each equal to its plain version, and the two-pool output equals
+           the one-pool output on the same blocks bit for bit; RMSNorm forward
            against its plain version and its backward (dx, dw) against
            autograd through the plain version, and the flash backward
            (dq, dk, dv) against autograd through the plain flash
@@ -43,9 +50,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            over rows or keys taken in another order, so their atol is
            the tolerance times the largest |gradient|.
            Then time each kernel at its main-path shape (the flash
-           forward also at the train path's; paged prefill, both
-           variants, held once more against its plain version on the
-           timed inputs) with CUDA events around back-to-back calls that
+           forward also at the train path's, paged decode also at B 1,
+           ctx 4096; paged prefill, both variants, held once more against
+           its plain version on the timed inputs, the two-pool call split
+           by kernel with torch.profiler, the staging kernel alone beside
+           the copy engine on the same bytes) with CUDA events around
+           back-to-back calls that
            a spin kernel let the host enqueue first (device time, not the
            host's launch rate), beside its plain version, one PyTorch
            library call where one computes the same
@@ -102,9 +112,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            and peak device memory. The serve, fused and moe paths also
            assert RMSNorm launches (every norm of the model runs it).
   profile  (only with --profile) torch.profiler over a few decode-only
-           steps of an exclusive vllm llama2-7b run at B = 8, and over one
-           train step after the train phase: wall and device-busy time per
-           step, device ops per step, top device ops.
+           steps of an exclusive vllm llama2-7b run at B = 8, over one
+           more layerkv run of the fused path (the paged kernels' device
+           time and launches, the two-pool calls apart), and over one
+           train step after the train phase: wall and device-busy time,
+           device ops, top device ops.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -299,55 +311,107 @@ def check_flash(gen, sizes=None):
     return worst
 
 
-def _paged_case(gen, H, KV, D, dtype, B, n_real, BS=16, max_ctx=4096):
+def _paged_case(gen, H, KV, D, dtype, B, n_real, max_ctx=4096):
     """B rows, the first n_real with random contexts (one at max_ctx), the
-    rest pow2 pad rows at kv_len 0 whose tables all point at the trash
-    block (id NB - 1)."""
+    rest pow2 pad rows (`_paged_rows`)."""
+    import torch
+    ctx = torch.randint(1, max_ctx + 1, (n_real,), generator=gen,
+                        device="cuda").tolist()
+    ctx[0] = max_ctx
+    return _paged_rows(gen, H, KV, D, dtype, ctx + [0] * (B - n_real))
+
+
+def _paged_rows(gen, H, KV, D, dtype, lens, BS=16):
+    """Decode inputs for rows at `lens` (kv_len 0 rows are pad rows on the
+    trash block, id NB - 1), MAXB a multiple of 8."""
     import torch
     dev = "cuda"
-    ctx = torch.randint(1, max_ctx + 1, (n_real,), generator=gen,
-                        device=dev)
-    ctx[0] = max_ctx
-    maxb = -(-max_ctx // BS)
+    maxb = max(-(-max(lens) // BS), 1)
     MAXB = -(-maxb // 8) * 8
-    NB = n_real * maxb + 1
-    trash = NB - 1
+    B = len(lens)
+    NB = B * maxb + 1
     pool = torch.randn(NB, BS, 2, KV, D, generator=gen,
                        device=dev).to(dtype)
     perm = torch.randperm(NB - 1, generator=gen, device=dev)
-    tab = torch.full((B, MAXB), trash, dtype=torch.int32, device=dev)
-    tab[:n_real, :maxb] = perm[:n_real * maxb].reshape(n_real, maxb).int()
-    lens = torch.zeros(B, dtype=torch.int32, device=dev)
-    lens[:n_real] = ctx.int()
+    tab = torch.full((B, MAXB), NB - 1, dtype=torch.int32, device=dev)
+    tab[:, :maxb] = perm[:B * maxb].reshape(B, maxb).int()
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tab[lens_t == 0] = NB - 1
     q = torch.randn(B, H, D, generator=gen, device=dev).to(dtype)
-    return q, pool, tab, lens
+    return q, pool, tab, lens_t
 
 
 def check_paged(gen, sizes=FLASH_SHAPES):
+    """Paged decode (split kernel + combine) against its plain version
+    and the plain split algorithm: B = 1, 8, 32 with pow2 pad rows
+    (kv_len 0 on a trash block) and contexts up to 4096, and rows at the
+    split's edges; every row finite, pad rows 0. Batch invariance: each
+    row of a batch of 8 has the same bits alone. The combine kernel
+    against its plain version on the split kernel's own partials. Returns
+    the worst error per dtype of the decode and of the combine."""
     import torch
     from repro_torch.kernels import paged_attention as pa
-    worst = {}
+    SP = pa.SPLIT
+    edges = [1, SP - 1, SP, SP + 1, 2 * SP - 1, 2 * SP, 2 * SP + 1, 4096, 0]
+    worst = {"paged_attention": {}, "paged_attention_combine": {}}
     for arch, (H, KV, D) in sizes.items():
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
-            for B, n_real in ((1, 1), (8, 5), (32, 20)):
-                q, pool, tab, lens = _paged_case(gen, H, KV, D, dtype, B,
-                                                 n_real)
+            key = str(dtype)[6:]
+            cases = [(f"B={B} ({B - n} pad rows)",
+                      _paged_case(gen, H, KV, D, dtype, B, n))
+                     for B, n in ((1, 1), (8, 5), (32, 20))]
+            cases.append(("split edges", _paged_rows(gen, H, KV, D, dtype,
+                                                     edges)))
+            for name, (q, pool, tab, lens) in cases:
                 got = pa.paged_attention(q, pool, tab, lens)
                 want = pa.paged_attention_plain(q, pool, tab, lens)
+                split = pa.paged_attention_split_plain(q, pool, tab, lens)
                 torch.cuda.synchronize()
-                if not torch.isfinite(got).all():
-                    raise AssertionError("paged kernel: non-finite output")
-                err, ok = _max_err(got[:n_real], want[:n_real], tol)
-                _say(f"[kernels] paged {arch} {str(dtype)[6:]} B={B} "
-                     f"({B - n_real} pad rows): max_abs_err {err:.3g} "
-                     f"(tol {tol})")
-                if not ok:
+                live = lens > 0
+                if not torch.isfinite(got).all() or (got[~live] != 0).any():
+                    raise AssertionError("paged kernel: non-finite output or "
+                                         "a pad row not 0")
+                err, ok = _max_err(got[live], want[live], tol)
+                err2, ok2 = _max_err(got, split, tol)
+                _say(f"[kernels] paged {arch} {key} {name}: max_abs_err "
+                     f"{err:.3g}, against the plain split algorithm "
+                     f"{err2:.3g} (tol {tol})")
+                if not (ok and ok2):
                     raise AssertionError(f"paged kernel disagrees: {arch} "
-                                         f"{dtype} B={B} err {err}")
-                key = str(dtype)[6:]
-                worst[key] = max(worst.get(key, 0.0), err)
-                del q, pool, tab, lens, got, want
+                                         f"{dtype} {name} err {err} / {err2}")
+                worst["paged_attention"][key] = max(
+                    worst["paged_attention"].get(key, 0.0), err, err2)
+                del q, pool, tab, lens, got, want, split
+            # batch invariance, and the combine on the kernel's partials
+            q, pool, tab, lens = _paged_rows(gen, H, KV, D, dtype,
+                                             [1040, 281, 700, 4096, 513, 256,
+                                              0, 17])
+            full = pa.paged_attention(q, pool, tab, lens)
+            for i in range(q.shape[0]):
+                alone = pa.paged_attention(q[i:i + 1].contiguous(), pool,
+                                           tab[i:i + 1].contiguous(),
+                                           lens[i:i + 1].contiguous())
+                if not torch.equal(alone[0], full[i]):
+                    raise AssertionError(f"paged kernel is not batch "
+                                         f"invariant: {arch} {dtype} row {i}")
+            ctx = tab.shape[1] * 16
+            out, part_o, part_ml = pa.split_pass(q, pool, tab, lens,
+                                                 D ** -0.5)
+            rows = pa.n_splits(lens, ctx) > 1
+            got = pa.combine_pass(part_o, part_ml, lens, out.clone(), ctx)
+            want = pa.combine_plain(part_o, part_ml,
+                                    pa.n_splits(lens, ctx)).to(dtype)
+            torch.cuda.synchronize()
+            err, ok = _max_err(got[rows], want[rows], tol)
+            _say(f"[kernels] paged {arch} {key}: batch-invariant (8 rows "
+                 f"alone = in the batch, bit for bit); combine "
+                 f"max_abs_err {err:.3g} (tol {tol})")
+            if not ok or not torch.equal(got[~rows], out[~rows]):
+                raise AssertionError(f"paged combine disagrees: {arch} "
+                                     f"{dtype} err {err}")
+            worst["paged_attention_combine"][key] = max(
+                worst["paged_attention_combine"].get(key, 0.0), err)
     return worst
 
 
@@ -396,36 +460,58 @@ def time_flash(gen):
     return rows[0]
 
 
+def _decode_bound(ctx, H, KV, D, BS, B):
+    """Bytes and operations of one decode call over contexts `ctx`, bf16:
+    each live K/V row, q and out once, the live table entries and
+    kv_len."""
+    nbytes = sum(ctx) * 2 * KV * D * 2 + 2 * B * H * D * 2 \
+        + sum(-(-c // BS) for c in ctx) * 4 + B * 4
+    return nbytes, 4 * H * D * sum(ctx)
+
+
 def time_paged(gen):
-    """llama2-7b decode attention of one layer at the serve phase's batch:
-    8 sequences at their prompt lengths + 16, bf16, BS 16."""
+    """llama2-7b decode attention of one layer at the serve phase's batch
+    (8 sequences at their prompt lengths + 16) and at B 1, ctx 4096, bf16,
+    BS 16: the split kernel with its combine (one wrapper call) beside the
+    plain version. The combine kernel alone at the serve batch, on the
+    split kernel's own partials, beside its plain version, is returned as
+    a row of its own. Returns (decode row with "at_b1_ctx4096", combine
+    row)."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     H, KV, D = FLASH_SHAPES["llama2-7b"]
     BS = 16
-    ctx = [len(p) + 16 for p in _prompts()]
-    B = len(ctx)
-    maxb = max(-(-c // BS) for c in ctx)
-    MAXB = -(-maxb // 8) * 8
-    NB = B * maxb + 1
-    pool = torch.randn(NB, BS, 2, KV, D, generator=gen,
-                       device="cuda").to(torch.bfloat16)
-    perm = torch.randperm(NB - 1, generator=gen, device="cuda")
-    tab = torch.full((B, MAXB), NB - 1, dtype=torch.int32, device="cuda")
-    tab[:, :maxb] = perm[:B * maxb].reshape(B, maxb).int()
-    lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
-    q = torch.randn(B, H, D, generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    ms = _time_ms(lambda: pa.paged_attention(q, pool, tab, lens))
-    plain = _time_ms(lambda: pa.paged_attention_plain(q, pool, tab, lens),
-                     reps=5)
-    kv_bytes = sum(ctx) * 2 * KV * D * 2
-    nbytes = kv_bytes + 2 * q.numel() * 2 + sum(
-        -(-c // BS) for c in ctx) * 4 + B * 4
-    flops = 4 * H * D * sum(ctx)
-    return _bound(ms, plain, None, nbytes, flops, BF16_FLOPS_PER_S,
-                  f"B={B} ctx {min(ctx)}-{max(ctx)} H=KV={H} D={D} bf16 "
-                  f"BS={BS}")
+    rows = []
+    for ctx in ([len(p) + 16 for p in _prompts()], [4096]):
+        q, pool, tab, lens = _paged_rows(gen, H, KV, D, torch.bfloat16, ctx)
+        B = len(ctx)
+        ms = _time_ms(lambda: pa.paged_attention(q, pool, tab, lens))
+        plain = _time_ms(lambda: pa.paged_attention_plain(q, pool, tab,
+                                                          lens), reps=5)
+        nbytes, flops = _decode_bound(ctx, H, KV, D, BS, B)
+        rows.append(_bound(ms, plain, None, nbytes, flops, BF16_FLOPS_PER_S,
+                           f"B={B} ctx {min(ctx)}-{max(ctx)} H=KV={H} D={D} "
+                           f"bf16 BS={BS}"))
+        if B > 1:    # the combine alone, on this batch's partials
+            out, part_o, part_ml = pa.split_pass(q, pool, tab, lens,
+                                                 D ** -0.5)
+            used = pa.n_splits(lens, tab.shape[1] * BS)
+            ctx_t = tab.shape[1] * BS
+            c_ms = _time_ms(lambda: pa.combine_pass(part_o, part_ml, lens,
+                                                    out, ctx_t))
+            c_plain = _time_ms(lambda: pa.combine_plain(part_o, part_ml,
+                                                        used), reps=5)
+            n_used = int(used[used > 1].sum())
+            n_rows = int((used > 1).sum())
+            c_bytes = H * (n_used * (D + 2) * 4 + n_rows * D * 2) + B * 4
+            combine = _bound(c_ms, c_plain, None, c_bytes,
+                             3 * H * D * n_used, F32_FLOPS_PER_S,
+                             f"B={B} ctx {min(ctx)}-{max(ctx)} H={H} D={D} "
+                             f"bf16 out, {n_used} f32 partials per head "
+                             f"(SPLIT {pa.SPLIT})")
+        del q, pool, tab, lens
+    rows[0]["at_b1_ctx4096"] = rows[1]
+    return rows[0], combine
 
 
 def _pp_batch(gen, H, KV, D, dtype, specs, tq=32, BS=16, tail=0):
@@ -463,13 +549,17 @@ def check_paged_prefill(gen, sizes=FLASH_SHAPES):
     time, a chunk + decode tokens + a kv_len = 0 dummy in one call (live
     rows compared, every row finite), and the two-pool variant with the
     host pool pinned on the CPU and host ids above the device pool's
-    size, at each of `sizes` ({name: (H, KV, D)}). Returns the worst
-    error per dtype for each variant."""
+    size, at each of `sizes` ({name: (H, KV, D)}). For every two-pool
+    case also: the staging kernel writes exactly the live host slots, each
+    equal to its plain version (`_check_staging`), and the two-pool output
+    equals the one-pool output over the same blocks bit for bit. Returns
+    the worst error per dtype for each variant and for the staging."""
     import torch
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.serving.executor import MIXED_TQ as TQ
     BS = 16
-    worst = {"paged_prefill": {}, "paged_prefill_tiered": {}}
+    worst = {"paged_prefill": {}, "paged_prefill_tiered": {},
+             "stage_host_blocks": {}}
     for arch, (H, KV, D) in sizes.items():
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
@@ -532,14 +622,66 @@ def check_paged_prefill(gen, sizes=FLASH_SHAPES):
                     raise AssertionError(f"{variant} kernel disagrees: "
                                          f"{arch} {dtype} {name} err {err}")
                 worst[variant][key] = max(worst[variant].get(key, 0.0), err)
+                if tiers:
+                    n = _check_staging(hpool, tab, klen, tier)
+                    same = torch.cat([dpool, hpool[nb_dev:].to("cuda")])
+                    one = pp.paged_prefill(q, same, tab, seg, pos, klen,
+                                           tq=TQ)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, one):
+                        raise AssertionError(f"two pools differ from one "
+                                             f"pool on the same blocks: "
+                                             f"{arch} {dtype} {name}")
+                    _say(f"[kernels] {variant} {arch} {key} {name}: staged "
+                         f"{n} live host blocks (= the plain version); "
+                         f"bit-identical to one pool on the same blocks")
+                    worst["stage_host_blocks"][key] = 0.0
     return worst
+
+
+def _check_staging(hpool, tab, klen, tier, BS=16):
+    """Stage into a NaN-filled buffer: the written slots must be exactly
+    the live host slots, each equal to the plain version (torch.equal).
+    Returns the number of blocks staged."""
+    import torch
+    from repro_torch.kernels import paged_prefill as pp
+    S, MAXB = tab.shape
+    buf = torch.full((S * MAXB, *hpool.shape[1:]), float("nan"),
+                     dtype=hpool.dtype, device="cuda")
+    got = pp.stage_host_blocks(hpool, tab, klen, tier, out=buf)
+    want = pp.stage_host_blocks_plain(hpool, tab, klen, tier)
+    live = pp.live_host_slots(tab, klen, tier, BS).reshape(-1)
+    torch.cuda.synchronize()
+    written = ~got.reshape(S * MAXB, -1).isnan().all(dim=1)
+    if not torch.equal(written, live):
+        raise AssertionError(f"staging wrote {int(written.sum())} slots, "
+                             f"{int(live.sum())} are live host blocks")
+    if not torch.equal(got[live], want[live]):
+        raise AssertionError("staged blocks differ from the plain version")
+    return int(live.sum())
+
+
+def _kernel_ms(fn, n=10):
+    """Device milliseconds per call of each kernel `fn` launches, from
+    torch.profiler over `n` calls after one more (`_trace`)."""
+    fn()
+    return {name[:80]: ms for name, ms, _ in _trace(fn, n, top=None)["top"]
+            if ms}
 
 
 def time_paged_prefill(gen):
     """llama2-7b chunk attention of one layer at the fused path's shape:
     one 512-token chunk at offset 512 (kv_len 1024), bf16, BS 16, tq 32,
     over the device pool and, for the two-pool variant, over the same
-    blocks in the pinned host pool (read across PCIe)."""
+    blocks in the pinned host pool. The two-pool call is timed whole and
+    split by kernel (staging, body) with torch.profiler; the staging
+    kernel is also timed alone, and beside it the copy engine on the same
+    live bytes (a non-blocking copy_ of one contiguous pinned buffer of
+    that size to the device: a yardstick the port never calls). Each
+    variant is held against its plain version, the two-pool output
+    against the one-pool output bit for bit, and the staged blocks
+    against the plain staging (`_check_staging`). Returns the rows of
+    paged_prefill, paged_prefill_tiered and stage_host_blocks."""
     import torch
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.serving.executor import MIXED_TQ as TQ
@@ -557,11 +699,11 @@ def time_paged_prefill(gen):
     kvl = off + C
     pairs = _flash_pairs(C, [off], [kvl])
     flops = 4 * D * H * pairs
-    nbytes = (2 * q.numel() * 2 + kvl * 2 * KV * D * 2 + maxb * 4
-              + 2 * C * 4 + 4)
+    kv_bytes = kvl * 2 * KV * D * 2     # the live K/V: 64 whole blocks
+    nbytes = 2 * q.numel() * 2 + kv_bytes + maxb * 4 + 2 * C * 4 + 4
     shape = (f"T={C} at offset {off} (kv_len {kvl}) H=KV={H} D={D} bf16 "
              f"BS={BS} tq={TQ}")
-    out = {}
+    out, one = {}, None
     for name, kw in (("paged_prefill", {}),
                      ("paged_prefill_tiered",
                       {"host_pool": hpool, "tier": tier})):
@@ -576,7 +718,12 @@ def time_paged_prefill(gen):
         if not ok or not torch.isfinite(got).all():
             raise AssertionError(f"{name} kernel disagrees at the timed "
                                  f"shape: err {err}")
-        del got, want
+        if one is None:
+            one = got
+        elif not torch.equal(got, one):
+            raise AssertionError("two pools differ from one pool on the "
+                                 "same blocks at the timed shape")
+        del want
         ms = _time_ms(lambda: pp.paged_prefill(q, pool, tab, seg, pos, klen,
                                                tq=TQ, **kw))
         plain = _time_ms(lambda: pp.paged_prefill_plain(
@@ -586,9 +733,33 @@ def time_paged_prefill(gen):
                             if kw else ""))
         t["max_abs_err"] = err
         if kw:   # the same K/V bytes over PCIe Gen5 x16 (spec, one way)
-            t["bound_ms_pcie"] = kvl * 2 * KV * D * 2 / PCIE_BYTES_PER_S \
-                * 1e3
+            t["bound_ms_pcie"] = kv_bytes / PCIE_BYTES_PER_S * 1e3
+            t["staged_blocks"] = _check_staging(hpool, tab, klen, tier)
+            t["staged_bytes"] = t["staged_blocks"] * BS * 2 * KV * D * 2
+            t["by_kernel_ms"] = _kernel_ms(lambda: pp.paged_prefill(
+                q, pool, tab, seg, pos, klen, tq=TQ, **kw))
         out[name] = t
+    _say(f"[kernels] paged_prefill_tiered at the timed shape: bit-identical "
+         f"to one pool; staged {out['paged_prefill_tiered']['staged_blocks']}"
+         f" blocks = {out['paged_prefill_tiered']['staged_bytes']} bytes "
+         f"(the live K/V: {kv_bytes}); by kernel (profiler, ms/call): "
+         f"{out['paged_prefill_tiered']['by_kernel_ms']}")
+    # the staging kernel alone, and the copy engine on the same bytes
+    src = torch.empty(kv_bytes // 2, dtype=torch.bfloat16).pin_memory()
+    dst = torch.empty(kv_bytes // 2, dtype=torch.bfloat16, device="cuda")
+    ce_ms = _time_ms(lambda: dst.copy_(src, non_blocking=True))
+    st = _bound(_time_ms(lambda: pp.stage_host_blocks(hpool, tab, klen,
+                                                      tier)),
+                _time_ms(lambda: pp.stage_host_blocks_plain(
+                    hpool, tab, klen, tier), reps=5),
+                ce_ms, 2 * kv_bytes + maxb * 4 + 8, 0, BF16_FLOPS_PER_S,
+                f"{kvl // BS} live host blocks of {BS * 2 * KV * D * 2} "
+                f"bytes (llama2-7b, bf16) to the device")
+    st["bound_ms_pcie"] = kv_bytes / PCIE_BYTES_PER_S * 1e3
+    st["library_note"] = ("library_ms: copy_ of the same live bytes from "
+                          "one contiguous pinned buffer (the copy engine)")
+    out["stage_host_blocks"] = st
+    out["paged_prefill_tiered"]["copy_engine_ms"] = ce_ms
     return out
 
 
@@ -805,20 +976,25 @@ def phase_kernels():
     fbwd_err = check_flash_bwd(gen)
     torch.cuda.empty_cache()
     flash_t = time_flash(gen)
-    paged_t = time_paged(gen)
+    paged_t, combine_t = time_paged(gen)
     pp_t = time_paged_prefill(gen)
     norm_t, norm_bwd_t = time_rmsnorm(gen)
     fbwd_t = time_flash_bwd(gen)
     torch.cuda.empty_cache()
-    for name, t in pp_t.items():     # the timed shape's check counts too
+    for name in ("paged_prefill", "paged_prefill_tiered"):
+        # the timed shape's check counts too
         pp_err[name]["bfloat16"] = max(pp_err[name]["bfloat16"],
-                                       t["max_abs_err"])
+                                       pp_t[name]["max_abs_err"])
     res = {"flash_attention": (flash_err, flash_t),
-           "paged_attention": (paged_err, paged_t),
+           "paged_attention": (paged_err["paged_attention"], paged_t),
+           "paged_attention_combine": (paged_err["paged_attention_combine"],
+                                       combine_t),
            "paged_prefill": (pp_err["paged_prefill"],
                              pp_t["paged_prefill"]),
            "paged_prefill_tiered": (pp_err["paged_prefill_tiered"],
                                     pp_t["paged_prefill_tiered"]),
+           "stage_host_blocks": (pp_err["stage_host_blocks"],
+                                 pp_t["stage_host_blocks"]),
            "rmsnorm": (norm_err["rmsnorm"], norm_t),
            "rmsnorm_bwd": (norm_err["rmsnorm_bwd"], norm_bwd_t),
            "flash_attention_bwd": (fbwd_err, fbwd_t)}
@@ -836,9 +1012,15 @@ def phase_kernels():
                  f"{also['ms']:.4f} plain_ms {also['plain_ms']:.4f} "
                  f"library_ms {also['library_ms']:.4f} bound_ms "
                  f"{also['bound_ms']:.4f} ({also['bound_by']})")
-    _say(f"[kernels] paged_prefill_tiered bound over PCIe (K/V bytes at "
-         f"64 GB/s): {pp_t['paged_prefill_tiered']['bound_ms_pcie']:.4f} "
-         f"ms")
+    b1 = paged_t["at_b1_ctx4096"]
+    _say(f"[kernels] paged_attention [{b1['shape']}]: kernel_ms "
+         f"{b1['ms']:.4f} plain_ms {b1['plain_ms']:.4f} bound_ms "
+         f"{b1['bound_ms']:.4f} ({b1['bound_by']})")
+    tiered = pp_t["paged_prefill_tiered"]
+    _say(f"[kernels] paged_prefill_tiered and stage_host_blocks bound over "
+         f"PCIe (live K/V bytes at 64 GB/s): {tiered['bound_ms_pcie']:.4f} "
+         f"ms; copy engine on the same bytes (pinned copy_): "
+         f"{tiered['copy_engine_ms']:.4f} ms")
     _say(f"[kernels] phase {time.perf_counter() - t0:.1f}s")
     return res
 
@@ -906,6 +1088,7 @@ def _zero_launches():
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import rmsnorm as rn
     fp.launches = pa.launches = pp.launches = pp.launches_tiered = 0
+    pa.launches_combine = pp.launches_stage = pp.staging_bytes_peak = 0
     fp.launches_bwd = rn.launches = rn.launches_bwd = 0
 
 
@@ -915,10 +1098,17 @@ def _launches():
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import rmsnorm as rn
     return {"flash_attention": fp.launches, "paged_attention": pa.launches,
+            "paged_attention_combine": pa.launches_combine,
             "paged_prefill": pp.launches,
             "paged_prefill_tiered": pp.launches_tiered,
+            "stage_host_blocks": pp.launches_stage,
             "rmsnorm": rn.launches, "rmsnorm_bwd": rn.launches_bwd,
             "flash_attention_bwd": fp.launches_bwd}
+
+
+def _staging_peak():
+    from repro_torch.kernels import paged_prefill as pp
+    return pp.staging_bytes_peak
 
 
 def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
@@ -941,9 +1131,11 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
     eng, done, st = _serve(cfg, params, "layerkv", ndb, nhb, prompts,
                            out_len, seed=0, device=device, **ec_kw)
     launches = _launches()
+    staging_peak = _staging_peak()
     _say(f"[{tag}] layerkv: {len(done)} done in {st['wall_s']:.2f}s wall "
          f"({st['steps']} steps; setup+run {time.perf_counter() - t0:.1f}s)"
-         f", launches {launches}")
+         f", launches {launches}, largest staging buffer {staging_peak} "
+         f"bytes")
     kinds = [x.kind for x in eng.off.ledger.log]
     n_off, n_rel = kinds.count("offload"), kinds.count("reload")
     mem = (f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB"
@@ -960,6 +1152,9 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
         raise AssertionError("the pool did not force offload and reload")
     if on_cuda and not all(launches[k] > 0 for k in kernels):
         raise AssertionError(f"a kernel was never launched: {launches}")
+    if launches["stage_host_blocks"] != launches["paged_prefill_tiered"]:
+        raise AssertionError(f"one staging launch per two-pool call: "
+                             f"{launches}")
     if eng.ex.nonfinite_logits():
         raise AssertionError("non-finite logits on the layerkv run")
     host_steps = sum(1 for fn, sig in eng.ex._jit_sigs
@@ -997,7 +1192,8 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
              f"decode-only steps = {tps:.1f} tok/s")
     return {"layerkv": st, "vllm": st_v, "offloads": n_off,
             "reloads": n_rel, "agreement": agree / total,
-            "launches": launches, "host_tier_signatures": host_steps,
+            "launches": launches, "staging_bytes_peak": staging_peak,
+            "host_tier_signatures": host_steps,
             "tokens": lk_tokens, "params": params}
 
 
@@ -1014,18 +1210,21 @@ SMOKE_NDB = 24
 PATHS = {
     "serve": dict(arch="llama2-7b", n=8, seed=0, out_len=32, ndb=4096,
                   ndb_ref=20000, nhb=16384, mode={},
-                  kernels=("flash_attention", "paged_attention", "rmsnorm")),
+                  kernels=("flash_attention", "paged_attention",
+                           "paged_attention_combine", "rmsnorm")),
     "fused": dict(arch="llama2-7b", n=8, seed=0, out_len=32, ndb=4096,
                   ndb_ref=20000, nhb=16384,
                   mode=dict(chunked=True, fused=True,
                             max_prefill_tokens=512),
                   kernels=("paged_prefill", "paged_prefill_tiered",
-                           "paged_attention", "rmsnorm")),
+                           "stage_host_blocks", "paged_attention",
+                           "paged_attention_combine", "rmsnorm")),
     "moe": dict(arch="deepseek-moe-16b", n=6, seed=1, out_len=16, ndb=2048,
                 ndb_ref=20000, nhb=16384,
                 mode=dict(chunked=True, fused=True, max_prefill_tokens=512),
                 kernels=("paged_prefill", "paged_prefill_tiered",
-                         "paged_attention", "rmsnorm")),
+                         "stage_host_blocks", "paged_attention",
+                         "paged_attention_combine", "rmsnorm")),
     "serve-smoke": dict(arch="granite-3-2b", smoke=True, n=6, seed=2,
                         prompt_lens=(40, 160), out_len=8, ndb=SMOKE_NDB,
                         ndb_ref=1024, nhb=1024, mode={},
@@ -1037,7 +1236,8 @@ PATHS = {
                         mode=dict(chunked=True, fused=True,
                                   max_prefill_tokens=64),
                         kernels=("paged_prefill", "paged_prefill_tiered",
-                                 "paged_attention", "rmsnorm")),
+                                 "stage_host_blocks", "paged_attention",
+                                 "rmsnorm")),
     # Eq. 4 keeps both layers of this 2-layer model on the device at these
     # prompts, so no chunk reads the host pool (fused-smoke's do)
     "moe-smoke": dict(arch="deepseek-moe-16b", smoke=True, n=6, seed=2,
@@ -1098,10 +1298,13 @@ def phase_head_dim_32():
     gen.manual_seed(1)
     t0 = time.perf_counter()
     pp = check_paged_prefill(gen, SMOKE_SHAPES)
+    paged = check_paged(gen, SMOKE_SHAPES)
     worst = {"flash_attention": check_flash(gen, SMOKE_SHAPES),
-             "paged_attention": check_paged(gen, SMOKE_SHAPES),
+             "paged_attention": paged["paged_attention"],
+             "paged_attention_combine": paged["paged_attention_combine"],
              "paged_prefill": pp["paged_prefill"],
              "paged_prefill_tiered": pp["paged_prefill_tiered"],
+             "stage_host_blocks": pp["stage_host_blocks"],
              "flash_attention_bwd": check_flash_bwd(gen, SMOKE_SHAPES)}
     for name, err in worst.items():
         _say(f"[d32] {name}: max_abs_err bf16 {err['bfloat16']:.3g} f32 "
@@ -1138,14 +1341,18 @@ def phase_serve(profile=False):
     return res
 
 
-def phase_fused(params, excl_tokens):
+def phase_fused(params, excl_tokens, profile=False):
     """llama2-7b through the fused mixed step with the serve phase's
     weights and prompts: paged prefill over one pool and over two (chunks
-    with host-resident layers), paged decode for the decode rows."""
+    with host-resident layers), paged decode for the decode rows. With
+    `profile`, one more layerkv run under torch.profiler
+    (`_profile_run`)."""
     from repro_torch.configs import get_config
     cfg = get_config(PATHS["fused"]["arch"])
     _describe("fused", cfg)
-    res, _, _ = _run_path("fused", cfg, params, "cuda")
+    res, prompts, _ = _run_path("fused", cfg, params, "cuda")
+    if profile:
+        res["profile"] = _profile_run(cfg, res["params"], "fused", prompts)
     agree = sum(a == b for rid, t in res["tokens"].items()
                 for a, b in zip(t, excl_tokens[rid]))
     total = sum(len(t) for t in res["tokens"].values())
@@ -1276,10 +1483,67 @@ def _profile_decode(cfg, params, prompts, out_len, steps=4):
     return out
 
 
-def _trace(step, steps, top=10):
+# the paged kernels of the serving paths, by the name the profiler shows
+PAGED_KERNELS = ("paged_prefill_kernel", "stage_host_blocks_kernel",
+                 "paged_decode_kernel", "paged_decode_combine")
+TWO_POOL_RANGE = "paged_prefill two pools"
+
+
+def _profile_run(cfg, params, tag, prompts):
+    """torch.profiler over one layerkv run of serving path `tag` (settings
+    from PATHS, weights `params`): wall time, device-busy time and share,
+    device ops, and per paged kernel (PAGED_KERNELS, matched by name) its
+    device time and launches. Every two-pool paged_prefill call runs
+    inside a record_function range (TWO_POOL_RANGE), so the two-pool
+    calls' device span shows apart from the one-pool calls' even where
+    both launch one kernel name. Uses only the port's public wrappers, so
+    it runs on any checkout's port."""
+    from torch.profiler import record_function
+    from repro_torch.kernels import paged_prefill as pp
+    pc = PATHS[tag]
+    inner, done = pp.paged_prefill, []
+
+    def two_pool_marked(*a, **kw):
+        if kw.get("tier") is None:
+            return inner(*a, **kw)
+        with record_function(TWO_POOL_RANGE):
+            return inner(*a, **kw)
+
+    def run():
+        done.extend(_serve(cfg, params, "layerkv", pc["ndb"], pc["nhb"],
+                           prompts, pc["out_len"], seed=0, device="cuda",
+                           **pc["mode"])[1])
+    pp.paged_prefill = two_pool_marked
+    try:
+        out = _trace(run, 1, top=12, kernels=PAGED_KERNELS,
+                     ranges=(TWO_POOL_RANGE,))
+    finally:
+        pp.paged_prefill = inner
+    out.update(tag=tag, requests=len(done))
+    two = out["ranges"][TWO_POOL_RANGE]
+    _say(f"[profile] {tag} layerkv run traced: {len(done)} requests, "
+         f"{out['wall_ms_per_step'] / 1e3:.2f} s wall under the profiler, "
+         f"device busy {out['device_busy_ms_per_step'] / 1e3:.3f} s "
+         f"({out['device_busy_share']:.3f}), "
+         f"{out['device_ops_per_step']:.0f} device ops")
+    for name, k in out["kernels"].items():
+        _say(f"[profile]   {name}: {k['ms']:.3f} ms device over "
+             f"{k['launches']} launches")
+    _say(f"[profile]   {TWO_POOL_RANGE}: {two['calls']} calls, "
+         f"{two['ms']:.3f} ms device")
+    for name, ms, n in out["top"]:
+        _say(f"[profile]   {ms:9.3f} ms  x{n:<6d} {name[:90]}")
+    return out
+
+
+def _trace(step, steps, top=10, kernels=(), ranges=()):
     """torch.profiler over `steps` calls of `step()`: wall per step,
-    device-busy time and share, device ops per step, and the `top`
-    device ops by time."""
+    device-busy time and share, device ops per step, and the `top` device
+    ops by time (all with None). With `kernels`, the summed device time
+    and launches of the device ops whose name holds each; with `ranges`,
+    the device-side span of each record_function range of that name
+    (from the first kernel launched inside to the end of the last) and
+    its calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
@@ -1292,6 +1556,10 @@ def _trace(step, steps, top=10):
         wall = time.perf_counter() - t0
     dev = [e for e in prof.key_averages()
            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    # a record_function range also shows as a device-side span of its
+    # name: it is no device op, so it counts in `ranges` only
+    spans = [e for e in dev if e.key in ranges]
+    dev = [e for e in dev if e.key not in ranges]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -1299,13 +1567,25 @@ def _trace(step, steps, top=10):
     busy_us = sum(dev_us(e) for e in dev)
     launches = sum(e.count for e in dev)
     best = sorted(dev, key=dev_us, reverse=True)[:top]
-    return {"steps": steps,
-            "wall_ms_per_step": wall / steps * 1e3,
-            "device_busy_ms_per_step": busy_us / steps / 1e3,
-            "device_busy_share": busy_us / (wall * 1e6),
-            "device_ops_per_step": launches / steps,
-            "top": [(e.key, dev_us(e) / steps / 1e3, e.count // steps)
-                    for e in best]}
+    out = {"steps": steps,
+           "wall_ms_per_step": wall / steps * 1e3,
+           "device_busy_ms_per_step": busy_us / steps / 1e3,
+           "device_busy_share": busy_us / (wall * 1e6),
+           "device_ops_per_step": launches / steps,
+           "top": [(e.key, dev_us(e) / steps / 1e3, e.count // steps)
+                   for e in best]}
+    if kernels:
+        out["kernels"] = {
+            name: {"ms": sum(dev_us(e) for e in dev if name in e.key) / 1e3,
+                   "launches": sum(e.count for e in dev if name in e.key)}
+            for name in kernels}
+    if ranges:
+        out["ranges"] = {
+            name: {"ms": sum(dev_us(e) for e in spans if e.key == name)
+                   / 1e3,
+                   "calls": sum(e.count for e in spans if e.key == name)}
+            for name in ranges}
+    return out
 
 
 def _profile_train(cfg, B, S):
@@ -1352,9 +1632,20 @@ REPLACES = {
     "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
                       "src/repro/kernels/paged_prefill.py:140",
                       "src/repro/kernels/paged_prefill.py:186", None),
+    "paged_attention_combine": (
+        "src/repro_torch/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:73", None,
+        "the second pass of the split decode: the Pallas kernel carries "
+        "its softmax state across its sequential block axis instead"),
     "paged_prefill_tiered": ("src/repro_torch/csrc/paged_prefill.cu",
                              "src/repro/kernels/paged_prefill.py:140",
                              "src/repro/kernels/paged_prefill.py:210", None),
+    "stage_host_blocks": (
+        "src/repro_torch/csrc/paged_prefill.cu",
+        "src/repro/kernels/paged_prefill.py:140",
+        "src/repro/kernels/paged_prefill.py:210",
+        "the first half of the two-pool call: the Pallas kernel fetched "
+        "the host-pool blocks by DMA inside its grid"),
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:29",
                 "src/repro/kernels/rmsnorm.py:44", None),
@@ -1368,7 +1659,9 @@ REPLACES = {
 }
 # the main path whose launch count each kernel's row reports
 MAIN_PATH = {"flash_attention": "serve", "paged_attention": "serve",
+             "paged_attention_combine": "serve",
              "paged_prefill": "fused", "paged_prefill_tiered": "fused",
+             "stage_host_blocks": "fused",
              "rmsnorm": "train", "rmsnorm_bwd": "train",
              "flash_attention_bwd": "train"}
 
@@ -1378,9 +1671,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every number of the run here (JSON)")
     ap.add_argument("--profile", action="store_true",
-                    help="trace a few decode steps of the serve phase and "
-                         "one step of the train phase with torch.profiler "
-                         "and print where they go")
+                    help="trace a few decode steps of the serve phase, "
+                         "one layerkv run of the fused phase and one step "
+                         "of the train phase with torch.profiler and print "
+                         "where they go")
     args = ap.parse_args(argv)
 
     import torch
@@ -1406,7 +1700,8 @@ def main(argv=None) -> int:
     paths = phase_smoke()
     paths["serve"] = phase_serve(profile=args.profile)
     params = paths["serve"].pop("params")
-    paths["fused"] = phase_fused(params, paths["serve"]["tokens"])
+    paths["fused"] = phase_fused(params, paths["serve"]["tokens"],
+                                 profile=args.profile)
     del params
     paths["fused"].pop("params")
     torch.cuda.empty_cache()         # llama2-7b's weights go before MoE's
@@ -1432,9 +1727,15 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
-        for extra in ("at_train_shape", "at_serve_shapes"):
+        for extra in ("at_train_shape", "at_serve_shapes", "at_b1_ctx4096",
+                      "bound_ms_pcie", "copy_engine_ms", "by_kernel_ms",
+                      "staged_bytes", "library_note"):
             if extra in t:
                 rows[-1][extra] = t[extra]
+        if name == "stage_host_blocks":
+            rows[-1]["staging_bytes_peak_by_path"] = {
+                k: v["staging_bytes_peak"] for k, v in paths.items()
+                if "staging_bytes_peak" in v}
         if call:
             rows[-1]["pallas_call"] = call
         if note:

@@ -1,4 +1,4 @@
-// Paged GQA decode attention for Hopper, sm_90a.
+// Paged GQA decode attention for Hopper, sm_90a, split over the context.
 //
 // Replaces the TPU kernel `paged_attention_pallas` (`_paged_kernel`,
 // src/repro/kernels/paged_attention.py). One query token per sequence
@@ -10,202 +10,371 @@
 //
 // Bound on the H100: bytes. Each (sequence, KV head) streams its
 // kv_len x D keys and values once and does 4 G flops per element, far
-// below the card's ~295 flops/byte ridge at G <= 16. The design makes the
-// one pass over the cache the only traffic: one block per (KV head,
-// sequence) so the G query heads of a group share every K/V row it
-// loads (the point of the TPU's (G, D) tile); the block reads its own
-// table row and chases it in the kernel (the TPU prefetched it as
-// scalars); rows are read as 16-byte vectors, 64 tokens per step, into
-// shared memory; the online-softmax state stays on chip; and only tokens
-// below kv_len are touched -- blocks at or past ceil(kv_len / BS) are
-// never read. A row with kv_len = 0 (the executor's power-of-two pad rows,
-// whose tables point at the trash block) reads nothing and writes 0, as
-// the Pallas kernel's max(l, 1e-30) clamp does. Splitting the KV axis
-// across blocks (flash-decoding) for small batches is later work.
+// below the card's ~295 flops/byte ridge at G <= 16. So the design is
+// about keeping enough bytes in flight:
+//
+// - The context is split: one block per (KV head, sequence, split of
+//   SPLIT tokens). Split boundaries depend only on the token position,
+//   never on B or on how full the grid is, so a row's result has the same
+//   bits alone as in any batch. A block whose split starts at or past
+//   kv_len exits at once; split 0 always runs, so a row with kv_len = 0
+//   (the executor's power-of-two pad rows on the trash block) writes 0, as
+//   the Pallas kernel's max(l, 1e-30) clamp does.
+// - Inside a block each of the NW warps owns every NW-th step of TW
+//   tokens and streams them through its own STAGES-deep cp.async ring of
+//   bf16 (or f32) K and V rows in shared memory: the next step's loads are
+//   issued before this step's math, and a warp waits only on its own
+//   copies (no block-wide barrier inside the loop).
+// - Four lanes share a token: each takes a quarter of the head dim, the
+//   dot product closes with two shuffles, and the online softmax runs over
+//   the warp's TW tokens with shuffles. The G query heads of a group share
+//   every K/V row loaded; K rows are XOR-swizzled by the token's parity so
+//   the four lanes of two neighbouring tokens hit distinct banks.
+// - The warps' (m, l, acc) merge in shared memory in warp order. A row
+//   that fits in one split writes its output directly; a longer row writes
+//   f32 partials (m, l, acc) and `paged_decode_combine` merges them in
+//   split order. Both orders are fixed, so the result is deterministic.
 //
 // Semantics follow `ref.paged_attention_reference`: q scaled before the
-// product, f32 accumulation, output in q's dtype.
+// product, masked scores -1e30 (never -inf), f32 accumulation, the final
+// normaliser clamped at 1e-30, output in q's dtype; kv_len is clamped to
+// the table's MAXB * BS tokens.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int TT = 64;        // tokens per step
-constexpr int THREADS = 128;  // 4 warps
-constexpr int MAX_G = 16;     // query heads per KV head held in registers
-
-template <int D>
-size_t smem_bytes(int G) {
-  // Qs[G][D], Ks[TT][D+1], Vs[TT][D], Ss[G][TT], m/l/corr[G], all f32
-  return sizeof(float) *
-         ((size_t)G * D + TT * (D + 1) + TT * D + (size_t)G * TT + 3 * G);
-}
+constexpr int SPLIT = 256;   // tokens per split (the wrapper passes it too)
+constexpr int NW = 4;        // warps per block
+constexpr int TW = 8;        // tokens per warp step: 4 lanes per token
+constexpr int STAGES = 3;    // cp.async ring depth of each warp
+constexpr int THREADS = NW * 32;
+constexpr int MAX_G = 16;    // query heads per KV head
+static_assert(SPLIT % (NW * TW) == 0, "a warp step never crosses a split");
 
 template <typename T, int D>
+struct Geo {
+  static constexpr int N = Vec16<T>::N;        // elements per 16 bytes
+  static constexpr int VPR = D / N;            // 16-byte chunks per row
+  static constexpr int CPL = VPR / 4;          // K chunks per lane
+  static constexpr int EPL = D / 32;           // V columns per lane
+  static constexpr int ROW = D * (int)sizeof(T);
+  static constexpr int STAGE = 2 * TW * ROW;   // TW K rows, then TW V rows
+  static constexpr int SWZ = VPR >= 8 ? 4 : 0; // chunk XOR for odd tokens
+};
+
+template <typename T, int D, int GMAX>
+constexpr size_t smem_bytes() {
+  // ring [NW][STAGES][STAGE] bytes; Qs [GMAX][D], Os [NW][GMAX][D],
+  // Ms / Ls [NW][GMAX] f32; Tb [SPLIT + 4] int
+  return (size_t)NW * STAGES * Geo<T, D>::STAGE +
+         sizeof(float) * ((size_t)GMAX * D + (size_t)NW * GMAX * D +
+                          2 * NW * GMAX) +
+         sizeof(int) * (SPLIT + 4);
+}
+
+// E consecutive elements at `src` (E * sizeof(T) bytes, aligned to that)
+// widened to f32, in one load.
+template <typename T, int E>
+__device__ __forceinline__ void load_row_part(const T* src, float* dst) {
+  constexpr int BYTES = E * (int)sizeof(T);
+  if constexpr (BYTES == 16) {
+    load_vec16<T>(src, dst);
+  } else if constexpr (BYTES == 8) {
+    uint2 raw = *reinterpret_cast<const uint2*>(src);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < E; ++i) dst[i] = to_float(e[i]);
+  } else if constexpr (BYTES == 4) {
+    uint32_t raw = *reinterpret_cast<const uint32_t*>(src);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < E; ++i) dst[i] = to_float(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < E; ++i) dst[i] = to_float(src[i]);
+  }
+}
+
+template <typename T, int D, int GMAX>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
                     const int* __restrict__ table,
                     const int* __restrict__ kv_len, T* __restrict__ out,
-                    int H, int KV, int BS, int MAXB, float scale) {
-  constexpr int N = Vec16<T>::N;
-  constexpr int VPR = D / N;               // 16-byte vectors per row
-  constexpr int ACC = MAX_G * D / THREADS; // accumulators per thread
-  extern __shared__ float smem[];
+                    float* __restrict__ part_o, float* __restrict__ part_ml,
+                    int H, int KV, int BS, int MAXB, int nsplit,
+                    float scale) {
+  using Gm = Geo<T, D>;
+  constexpr int N = Gm::N;
+  const int kvh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int G = H / KV;
-  float* Qs = smem;                        // [G][D]
-  float* Ks = Qs + G * D;                  // [TT][D+1]
-  float* Vs = Ks + TT * (D + 1);           // [TT][D]
-  float* Ss = Vs + TT * D;                 // [G][TT]
-  float* Ms = Ss + G * TT;                 // [G] running max
-  float* Ls = Ms + G;                      // [G] running normaliser
-  float* Cs = Ls + G;                      // [G] this step's correction
+  const int kvl = min(kv_len[b], MAXB * BS);
+  const int s0 = sp * SPLIT;
+  if (sp > 0 && s0 >= kvl) return;        // no token of this row here
+  const int s1 = min(s0 + SPLIT, kvl);    // the split's tokens: [s0, s1)
+  const int row_splits = (kvl + SPLIT - 1) / SPLIT;
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int kvl = kv_len[b];
-  const int* trow = table + (size_t)b * MAXB;
-  // element offsets inside one pool block: token stride, K/V stride
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* Qs = reinterpret_cast<float*>(ring + (size_t)NW * STAGES * Gm::STAGE);
+  float* Os = Qs + GMAX * D;              // [NW][GMAX][D] warp accumulators
+  float* Ms = Os + NW * GMAX * D;         // [NW][GMAX] warp running max
+  float* Ls = Ms + NW * GMAX;             // [NW][GMAX] warp normaliser
+  int* Tb = reinterpret_cast<int*>(Ls + NW * GMAX);  // the split's block ids
+
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
+  const int tr = lane / 4, j = lane % 4;  // token of the step, its quarter
   const size_t tok_stride = (size_t)2 * KV * D;
   const size_t blk_stride = (size_t)BS * tok_stride;
 
-  // the G query heads of this group: heads kvh*G .. kvh*G + G - 1
+  // the G query heads of this group (heads kvh*G .. kvh*G + G - 1), scaled,
+  // and the block ids the split's tokens live in
   const T* qg = q + ((size_t)b * H + (size_t)kvh * G) * D;
-  for (int idx = tid; idx < G * VPR; idx += THREADS) {
+  for (int idx = tid; idx < G * (D / N); idx += THREADS) {
     float vals[N];
     load_vec16<T>(qg + (size_t)idx * N, vals);
 #pragma unroll
     for (int i = 0; i < N; ++i) Qs[idx * N + i] = vals[i] * scale;
   }
-  for (int g = tid; g < G; g += THREADS) {
-    Ms[g] = kNegInf;
-    Ls[g] = 0.f;
-  }
-  float acc[ACC];
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) acc[a] = 0.f;
-  __syncthreads();  // Qs / Ms / Ls visible (also when kv_len == 0)
+  const int jb0 = s0 / BS;
+  const int nblk = s1 > s0 ? (s1 - 1) / BS - jb0 + 1 : 0;
+  for (int i = tid; i < nblk; i += THREADS)
+    Tb[i] = table[(size_t)b * MAXB + jb0 + i];
+  __syncthreads();
 
-  for (int t0 = 0; t0 < kvl; t0 += TT) {
-    __syncthreads();  // previous step is done with Ks / Vs / Ss
-    // gather TT tokens' K and V rows of this KV head through the table
-    for (int idx = tid; idx < TT * VPR; idx += THREADS) {
-      const int r = idx / VPR, c = (idx % VPR) * N;
+  // this warp's steps: tokens s0 + (k * NW + w) * TW + [0, TW)
+  const int n = s1 - s0;
+  const int nsteps = n > w * TW ? (n - w * TW + NW * TW - 1) / (NW * TW) : 0;
+  unsigned char* wring = ring + (size_t)w * STAGES * Gm::STAGE;
+
+  auto load_step = [&](int k) {
+    const int t0 = s0 + (k * NW + w) * TW;
+    unsigned char* st = wring + (k % STAGES) * Gm::STAGE;
+#pragma unroll
+    for (int idx = lane; idx < 2 * TW * Gm::VPR; idx += 32) {
+      const int row = idx / Gm::VPR, c = idx % Gm::VPR;
+      const int kv = row / TW, r = row % TW;  // kv: 0 = K, 1 = V
       const int t = t0 + r;
-      float kv_[N], vv_[N];
-      if (t < kvl) {
-        const T* row = pool + (size_t)trow[t / BS] * blk_stride +
-                       (size_t)(t % BS) * tok_stride + (size_t)kvh * D + c;
-        load_vec16<T>(row, kv_);
-        load_vec16<T>(row + (size_t)KV * D, vv_);
-      } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i) kv_[i] = vv_[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        Ks[r * (D + 1) + c + i] = kv_[i];
-        Vs[r * D + c + i] = vv_[i];
-      }
+      const bool ok = t < s1;
+      const int tt = ok ? t : s0;             // a valid address when masked
+      const T* src = pool + (size_t)Tb[tt / BS - jb0] * blk_stride +
+                     (size_t)(tt % BS) * tok_stride + (size_t)kv * KV * D +
+                     (size_t)kvh * D + c * N;
+      const int pc = kv == 0 ? (c ^ ((r & 1) * Gm::SWZ)) : c;
+      cp_async16(smem_u32(st + row * Gm::ROW + pc * 16), src, ok);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
 
-    // scores for every (query head, token) pair of the step
-    for (int idx = tid; idx < G * TT; idx += THREADS) {
-      const int g = idx / TT, r = idx % TT;
+  float m[GMAX], l[GMAX], acc[GMAX][Gm::EPL];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < Gm::EPL; ++e) acc[g][e] = 0.f;
+  }
+
+#pragma unroll
+  for (int k = 0; k < STAGES - 1; ++k) {
+    if (k < nsteps) load_step(k);
+    else cp_async_commit();
+  }
+  for (int k = 0; k < nsteps; ++k) {
+    __syncwarp();   // every lane is done with the slot step k - 1 used
+    if (k + STAGES - 1 < nsteps) load_step(k + STAGES - 1);
+    else cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();   // step k's rows are in shared memory for the warp
+
+    const unsigned char* st = wring + (k % STAGES) * Gm::STAGE;
+    const T* Kr = reinterpret_cast<const T*>(st + tr * Gm::ROW);
+    const T* Vs = reinterpret_cast<const T*>(st + TW * Gm::ROW);
+    const bool live = s0 + (k * NW + w) * TW + tr < s1;
+
+    // this lane's quarter of its token's K row: chunks j, j + 4, ...
+    float kf[Gm::CPL][N];
+#pragma unroll
+    for (int i = 0; i < Gm::CPL; ++i) {
+      const int c = j + 4 * i;
+      load_vec16<T>(Kr + (c ^ ((tr & 1) * Gm::SWZ)) * N, kf[i]);
+    }
+    float p[GMAX];
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      if (g >= G) break;
       float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d)
-        s = fmaf(Qs[g * D + d], Ks[r * (D + 1) + d], s);
-      Ss[g * TT + r] = (t0 + r < kvl) ? s : kNegInf;
-    }
-    __syncthreads();
-
-    // online softmax, one warp per query head
-    for (int g = warp; g < G; g += THREADS / 32) {
-      const float s0 = Ss[g * TT + lane], s1 = Ss[g * TT + lane + 32];
-      float mx = fmaxf(s0, s1);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = Ms[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      Ss[g * TT + lane] = p0;
-      Ss[g * TT + lane + 32] = p1;
-      float sum = p0 + p1;
+      for (int i = 0; i < Gm::CPL; ++i) {
+        const float* qc = Qs + g * D + (j + 4 * i) * N;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        Cs[g] = corr;
-        Ls[g] = Ls[g] * corr + sum;
-        Ms[g] = m_new;
+        for (int e = 0; e < N; ++e) s = fmaf(qc[e], kf[i][e], s);
       }
-    }
-    __syncthreads();
-
-    // acc[g, d] = acc * corr[g] + sum_t p[g, t] V[t, d]
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (!live) s = kNegInf;
+      // online softmax over the step's TW tokens (lanes 4 apart)
+      float mx = s;
 #pragma unroll
-    for (int a = 0; a < ACC; ++a) {
-      const int idx = tid + a * THREADS;
-      if (idx < G * D) {
-        const int g = idx / D, d = idx % D;
-        float o = acc[a] * Cs[g];
-#pragma unroll 8
-        for (int r = 0; r < TT; ++r) o = fmaf(Ss[g * TT + r], Vs[r * D + d], o);
-        acc[a] = o;
+      for (int off = 4; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[g], mx);
+      const float pg = expf(s - m_new);
+      float sum = pg;
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const float corr = expf(m[g] - m_new);
+      l[g] = l[g] * corr + sum;
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < Gm::EPL; ++e) acc[g][e] *= corr;
+      p[g] = pg;
+    }
+    // acc[g, lane's columns] += p[g, r] V[r, lane's columns]
+#pragma unroll
+    for (int r = 0; r < TW; ++r) {
+      float v[Gm::EPL];
+      load_row_part<T, Gm::EPL>(Vs + r * D + lane * Gm::EPL, v);
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        if (g >= G) break;
+        const float pr = __shfl_sync(0xffffffffu, p[g], r * 4);
+#pragma unroll
+        for (int e = 0; e < Gm::EPL; ++e) acc[g][e] = fmaf(pr, v[e], acc[g][e]);
       }
     }
   }
+  cp_async_wait<0>();
 
-  T* og = out + ((size_t)b * H + (size_t)kvh * G) * D;
+  // merge the warps' states in warp order
 #pragma unroll
-  for (int a = 0; a < ACC; ++a) {
-    const int idx = tid + a * THREADS;
-    if (idx < G * D) {
-      const int g = idx / D;
-      og[idx] = from_float<T>(acc[a] / fmaxf(Ls[g], 1e-30f));
+  for (int g = 0; g < GMAX; ++g) {
+    if (g >= G) break;
+    if (lane == 0) {
+      Ms[w * GMAX + g] = m[g];
+      Ls[w * GMAX + g] = l[g];
+    }
+#pragma unroll
+    for (int e = 0; e < Gm::EPL; ++e)
+      Os[(w * GMAX + g) * D + lane * Gm::EPL + e] = acc[g][e];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < G * D; idx += THREADS) {
+    const int g = idx / D, d = idx % D;
+    float M = kNegInf;
+#pragma unroll
+    for (int ww = 0; ww < NW; ++ww) M = fmaxf(M, Ms[ww * GMAX + g]);
+    float L = 0.f, O = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < NW; ++ww) {
+      const float c = expf(Ms[ww * GMAX + g] - M);
+      L += Ls[ww * GMAX + g] * c;
+      O += Os[(ww * GMAX + g) * D + d] * c;
+    }
+    const size_t h = (size_t)b * H + (size_t)kvh * G + g;
+    if (row_splits <= 1) {
+      out[h * D + d] = from_float<T>(O / fmaxf(L, 1e-30f));
+    } else {
+      const size_t pi = h * nsplit + sp;
+      part_o[pi * D + d] = O;
+      if (d == 0) {
+        part_ml[pi * 2] = M;
+        part_ml[pi * 2 + 1] = L;
+      }
     }
   }
 }
 
-template <typename T, int D>
+// Rows of more than one split: out[b, h] = sum_s acc_s e^(m_s - M) /
+// max(sum_s l_s e^(m_s - M), 1e-30) over the row's splits, in split order.
+// One block per (head, row), one thread per column.
+template <typename T>
+__global__ void paged_decode_combine(const float* __restrict__ part_o,
+                                     const float* __restrict__ part_ml,
+                                     const int* __restrict__ kv_len,
+                                     T* __restrict__ out, int H, int D,
+                                     int ctx, int nsplit) {
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int kvl = min(kv_len[b], ctx);
+  const int ns = (kvl + SPLIT - 1) / SPLIT;
+  if (ns <= 1 || d >= D) return;
+  const size_t row = (size_t)b * H + h;
+  const float* ml = part_ml + row * nsplit * 2;
+  const float* po = part_o + row * nsplit * D;
+  float M = kNegInf;
+  for (int s = 0; s < ns; ++s) M = fmaxf(M, ml[2 * s]);
+  float L = 0.f, O = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    const float c = expf(ml[2 * s] - M);
+    L += ml[2 * s + 1] * c;
+    O += po[(size_t)s * D + d] * c;
+  }
+  out[row * D + d] = from_float<T>(O / fmaxf(L, 1e-30f));
+}
+
+template <typename T, int D, int GMAX>
 cudaError_t launch(const void* q, const void* pool, const int* table,
-                   const int* kv_len, void* out, int B, int H, int KV,
-                   int BS, int MAXB, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(H / KV);
-  auto kern = paged_decode_kernel<T, D>;
+                   const int* kv_len, void* out, float* part_o,
+                   float* part_ml, int B, int H, int KV, int BS, int MAXB,
+                   int nsplit, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, D, GMAX>();
+  auto kern = paged_decode_kernel<T, D, GMAX>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(KV, B);
+  dim3 grid(KV, B, nsplit);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pool), table, kv_len,
-      static_cast<T*>(out), H, KV, BS, MAXB, scale);
+      static_cast<T*>(out), part_o, part_ml, H, KV, BS, MAXB, nsplit, scale);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_g(const void* q, const void* pool, const int* table,
+                     const int* kv_len, void* out, float* part_o,
+                     float* part_ml, int B, int H, int KV, int BS, int MAXB,
+                     int nsplit, float scale, cudaStream_t stream) {
+  const int G = H / KV;
+  if (G == 1)
+    return launch<T, D, 1>(q, pool, table, kv_len, out, part_o, part_ml, B,
+                           H, KV, BS, MAXB, nsplit, scale, stream);
+  if (G <= 4)
+    return launch<T, D, 4>(q, pool, table, kv_len, out, part_o, part_ml, B,
+                           H, KV, BS, MAXB, nsplit, scale, stream);
+  return launch<T, D, MAX_G>(q, pool, table, kv_len, out, part_o, part_ml,
+                             B, H, KV, BS, MAXB, nsplit, scale, stream);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// C entry bound with ctypes. dtype: 0 = float32, 1 = bfloat16. Needs
-// G = H / KV <= 16 and D in {32, 64, 128}. Returns a cudaError_t; 0 on a
-// successful launch.
+// C entries bound with ctypes. dtype: 0 = float32, 1 = bfloat16. Each
+// returns a cudaError_t; 0 on a successful launch.
+//
+// paged_attention_fwd launches the split kernel: G = H / KV <= 16, D in
+// {32, 64, 128}, `split` must equal the compiled SPLIT, and nsplit =
+// ceil(MAXB * BS / split). With nsplit > 1, part_o (B, H, nsplit, D) and
+// part_ml (B, H, nsplit, 2) are f32 scratch that rows longer than one
+// split fill; paged_decode_combine_fwd (ctx = MAXB * BS) then writes
+// those rows' output.
 extern "C" int paged_attention_fwd(const void* q, const void* pool,
                                    const int* table, const int* kv_len,
-                                   void* out, int B, int H, int KV, int D,
-                                   int BS, int MAXB, float scale, int dtype,
-                                   void* stream) {
+                                   void* out, float* part_o, float* part_ml,
+                                   int B, int H, int KV, int D, int BS,
+                                   int MAXB, int split, int nsplit,
+                                   float scale, int dtype, void* stream) {
   using namespace repro_torch;
   if (B == 0) return 0;
-  if (KV <= 0 || H % KV != 0 || H / KV > MAX_G)
+  if (KV <= 0 || H % KV != 0 || H / KV > MAX_G || BS <= 0 || MAXB <= 0 ||
+      split != SPLIT || nsplit != (MAXB * BS + SPLIT - 1) / SPLIT ||
+      (nsplit > 1 && (part_o == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_PAGED_CASE(T, DD)                                       \
-  return (int)launch<T, DD>(q, pool, table, kv_len, out, B, H, KV, BS, \
-                            MAXB, scale, s)
+#define REPRO_PAGED_CASE(T, DD)                                             \
+  return (int)launch_g<T, DD>(q, pool, table, kv_len, out, part_o, part_ml, \
+                              B, H, KV, BS, MAXB, nsplit, scale, s)
   if (dtype == 0 && D == 32) REPRO_PAGED_CASE(float, 32);
   if (dtype == 0 && D == 64) REPRO_PAGED_CASE(float, 64);
   if (dtype == 0 && D == 128) REPRO_PAGED_CASE(float, 128);
@@ -214,4 +383,28 @@ extern "C" int paged_attention_fwd(const void* q, const void* pool,
   if (dtype == 1 && D == 128) REPRO_PAGED_CASE(__nv_bfloat16, 128);
 #undef REPRO_PAGED_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int paged_decode_combine_fwd(const float* part_o,
+                                        const float* part_ml,
+                                        const int* kv_len, void* out, int B,
+                                        int H, int D, int ctx, int nsplit,
+                                        int dtype, void* stream) {
+  using namespace repro_torch;
+  if (B == 0) return 0;
+  if (D <= 0 || D > 1024 || nsplit != (ctx + SPLIT - 1) / SPLIT)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid(H, B);
+  if (dtype == 0)
+    paged_decode_combine<float><<<grid, D, 0, s>>>(
+        part_o, part_ml, kv_len, static_cast<float*>(out), H, D, ctx,
+        nsplit);
+  else if (dtype == 1)
+    paged_decode_combine<__nv_bfloat16><<<grid, D, 0, s>>>(
+        part_o, part_ml, kv_len, static_cast<__nv_bfloat16*>(out), H, D, ctx,
+        nsplit);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

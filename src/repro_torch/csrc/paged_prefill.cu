@@ -1,5 +1,5 @@
 // Segmented paged chunk-prefill attention (GQA) for Hopper, sm_90a, with
-// an optional second (host) pool.
+// an optional second (host) pool staged to the device first.
 //
 // Replaces the TPU kernel `paged_prefill_pallas` in both its forms
 // (src/repro/kernels/paged_prefill.py: `_paged_prefill_kernel` and
@@ -15,26 +15,41 @@
 // keys are handled by one mask), key j read at
 // pool[table[s, j / BS], j % BS] from the pool of (NB, BS, 2, KV, D)
 // blocks that tier[s] selects: the device pool, or, when tier[s] != 0,
-// the host pool (pinned host memory, read through its device-mapped
-// address; ids there may exceed the device pool's size).
+// the host pool (pinned host memory; ids there may exceed the device
+// pool's size).
 //
-// Bound on the H100: at the fused step's shapes (a 512-token llama2-7b
-// chunk over a 1024-token prefix, G = 1) attention is ~6.4 GFLOP against
-// ~25 MB of q, out and K/V per layer, well above the card's ridge, so a
-// tensor-core kernel would be bound by operations. This first version runs
-// both products on the f32 CUDA cores (no mma / wgmma yet), so it is
-// bound by FMA issue and shared-memory reads. What the design keeps from
-// the TPU kernel: one block per (query tile, KV head) pair, split along
-// the tile's tq x G (query, head) rows into blocks of BQ rows, so the G
-// query heads of a group share every K/V row the block loads; the block
-// reads its own tile metadata (segment and positions, from the tile's
-// rows -- the TPU's scalar prefetch) and chases its segment's table row;
-// it loops only over keys below min(kv_len, max q_pos + 1) -- blocks past
-// kv_len or wholly above the causal diagonal are never read (the TPU's
-// `pl.when(live)`); the online-softmax state and the accumulator stay on
-// chip. Where the Pallas two-pool kernel fetched both candidate blocks
-// and selected one (2x DMA), this kernel picks one base pointer per
-// segment and never indexes the other pool.
+// Two kernels, launched by one call on one stream:
+//
+// `stage_host_blocks_kernel` (two pools only) copies, for every segment
+// with tier[s] != 0, its live host blocks table[s, j], j <
+// ceil(min(kv_len[s], MAXB * BS) / BS), each whole (all KV heads, K and
+// V: one contiguous BS * 2 * KV * D run), from the pinned pool's
+// device-mapped address into a device staging buffer at slot s * MAXB +
+// j, with 16-byte loads, several in flight per thread, spread over
+// several blocks per pool block. Bound: PCIe (each live host byte crosses
+// it exactly once per call). Out-of-range ids are clamped into
+// [0, nb_host - 1], as the reference does.
+//
+// `paged_prefill_kernel`, the attention body. Bound on the H100: at the
+// fused step's shapes (a 512-token llama2-7b chunk over a 1024-token
+// prefix, G = 1) attention is ~6.4 GFLOP against ~25 MB of q, out and K/V
+// per layer, well above the card's ridge, so a tensor-core kernel would be
+// bound by operations. This version runs both products on the f32 CUDA
+// cores (no mma / wgmma yet), so it is bound by FMA issue and
+// shared-memory reads. What the design keeps from the TPU kernel: one
+// block per (query tile, KV head) pair, split along the tile's tq x G
+// (query, head) rows into blocks of BQ rows, so the G query heads of a
+// group share every K/V row the block loads; the block reads its own tile
+// metadata (segment and positions, from the tile's rows -- the TPU's
+// scalar prefetch) and chases its segment's table row; it loops only over
+// keys below min(kv_len, max q_pos + 1) -- blocks past kv_len or wholly
+// above the causal diagonal are never read (the TPU's `pl.when(live)`);
+// the online-softmax state and the accumulator stay on chip. A host
+// segment reads its staged blocks (slot s * MAXB + j) in place of the
+// device pool, with the same arithmetic, so the two-pool form gives the
+// same bits as the one-pool form on the same blocks. Every query tile of
+// a segment reads the whole prefix: from device memory, never again over
+// PCIe.
 //
 // Semantics follow `ref.paged_prefill_reference`: q is scaled before
 // QK^T, masked scores are -1e30 (not -inf), f32 accumulation, the final
@@ -65,14 +80,14 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ dpool,
-                     const T* __restrict__ hpool,
+                     const T* __restrict__ staged,
                      const int* __restrict__ table,
                      const int* __restrict__ seg_ids,
                      const int* __restrict__ q_pos,
                      const int* __restrict__ kv_len,
                      const int* __restrict__ tier, T* __restrict__ out,
                      int H, int KV, int BS, int S, int MAXB, int tq,
-                     int nb_dev, int nb_host, float scale) {
+                     int nb_dev, float scale) {
   constexpr int N = Vec16<T>::N;
   constexpr int VPR = D / N;   // 16-byte vectors per row
   constexpr int OPT = D / 16;  // output columns per thread (col tx + 16 j)
@@ -95,9 +110,9 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ dpool,
   const bool seg_ok = seg >= 0 && seg < S;
   const int kvl = seg_ok ? kv_len[seg] : 0;
   const bool host = seg_ok && tier != nullptr && tier[seg] != 0;
-  const T* pool = host ? hpool : dpool;
-  const int nb = host ? nb_host : nb_dev;
+  const T* pool = host ? staged : dpool;
   const int* trow = table + (size_t)(seg_ok ? seg : 0) * MAXB;
+  const int slot0 = (seg_ok ? seg : 0) * MAXB;  // the segment's staged run
   const size_t tok_stride = (size_t)2 * KV * D;  // elements per token slot
   const size_t blk_stride = (size_t)BS * tok_stride;
 
@@ -145,7 +160,8 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ dpool,
       const int tok = k0 + r;
       float kv_[N], vv_[N];
       if (tok < k_end) {
-        const int b = min(max(trow[tok / BS], 0), nb - 1);
+        const int b = host ? slot0 + tok / BS
+                           : min(max(trow[tok / BS], 0), nb_dev - 1);
         const T* row = pool + (size_t)b * blk_stride +
                        (size_t)(tok % BS) * tok_stride + (size_t)kvh * D + c;
         load_vec16<T>(row, kv_);
@@ -245,13 +261,75 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ dpool,
   }
 }
 
+// The staging kernel's threads per block, 16-byte loads in flight per
+// thread, and at most this many blocks per pool block copied.
+constexpr int ST_THREADS = 256;
+constexpr int ST_UNROLL = 4;
+constexpr int ST_MAX_PARTS = 16;
+
+__global__ void __launch_bounds__(ST_THREADS)
+stage_host_blocks_kernel(const uint4* __restrict__ hpool,
+                         const int* __restrict__ table,
+                         const int* __restrict__ kv_len,
+                         const int* __restrict__ tier,
+                         uint4* __restrict__ staged, int MAXB, int BS,
+                         int nb_host, int vpb) {
+  const int slot = blockIdx.x;            // s * MAXB + j
+  const int s = slot / MAXB, j = slot % MAXB;
+  if (tier[s] == 0) return;
+  const int kvl = min(kv_len[s], MAXB * BS);
+  if (j * BS >= kvl) return;              // j >= ceil(kvl / BS): not live
+  const int hb = min(max(table[slot], 0), nb_host - 1);
+  const uint4* src = hpool + (size_t)hb * vpb;
+  uint4* dst = staged + (size_t)slot * vpb;
+  constexpr int PER = ST_THREADS * ST_UNROLL;
+  for (int base = blockIdx.y * PER; base < vpb; base += gridDim.y * PER) {
+    uint4 r[ST_UNROLL];
+#pragma unroll
+    for (int u = 0; u < ST_UNROLL; ++u) {
+      const int i = base + u * ST_THREADS + threadIdx.x;
+      if (i < vpb) r[u] = src[i];
+    }
+#pragma unroll
+    for (int u = 0; u < ST_UNROLL; ++u) {
+      const int i = base + u * ST_THREADS + threadIdx.x;
+      if (i < vpb) dst[i] = r[u];
+    }
+  }
+}
+
+// Launch the staging kernel: `host_pool` is pinned host memory, looked up
+// for its device-mapped address (fails, launching nothing, if it has
+// none); `block_bytes` = BS * 2 * KV * D * sizeof(T), a multiple of 16.
+cudaError_t launch_stage(const void* host_pool, const int* table,
+                         const int* kv_len, const int* tier, void* staged,
+                         int S, int MAXB, int BS, int nb_host,
+                         size_t block_bytes, cudaStream_t stream) {
+  if (host_pool == nullptr || staged == nullptr || tier == nullptr ||
+      nb_host <= 0 || block_bytes % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (S * MAXB == 0) return cudaSuccess;
+  void* hdev = nullptr;
+  cudaError_t err =
+      cudaHostGetDevicePointer(&hdev, const_cast<void*>(host_pool), 0);
+  if (err != cudaSuccess) return err;
+  const int vpb = (int)(block_bytes / 16);
+  constexpr int PER = ST_THREADS * ST_UNROLL;
+  const int need = (vpb + PER - 1) / PER;
+  const int parts = need < ST_MAX_PARTS ? need : ST_MAX_PARTS;
+  dim3 grid(S * MAXB, parts);
+  stage_host_blocks_kernel<<<grid, ST_THREADS, 0, stream>>>(
+      static_cast<const uint4*>(hdev), table, kv_len, tier,
+      static_cast<uint4*>(staged), MAXB, BS, nb_host, vpb);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* dpool, const void* hpool,
+cudaError_t launch(const void* q, const void* dpool, const void* staged,
                    const int* table, const int* seg_ids, const int* q_pos,
                    const int* kv_len, const int* tier, void* out, int T_,
                    int H, int KV, int BS, int S, int MAXB, int tq,
-                   int nb_dev, int nb_host, float scale,
-                   cudaStream_t stream) {
+                   int nb_dev, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto kern = paged_prefill_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -261,47 +339,48 @@ cudaError_t launch(const void* q, const void* dpool, const void* hpool,
   dim3 grid(KV, T_ / tq, (tq * G + BQ - 1) / BQ);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(dpool),
-      static_cast<const T*>(hpool), table, seg_ids, q_pos, kv_len, tier,
-      static_cast<T*>(out), H, KV, BS, S, MAXB, tq, nb_dev, nb_host, scale);
+      static_cast<const T*>(staged), table, seg_ids, q_pos, kv_len, tier,
+      static_cast<T*>(out), H, KV, BS, S, MAXB, tq, nb_dev, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// C entry bound with ctypes. dtype: 0 = float32, 1 = bfloat16. Needs
-// T % tq == 0, G = H / KV <= 16 and D in {32, 64, 128}. `tier` null selects
-// the single-pool kernel; otherwise `host_pool` is pinned host memory
-// (PyTorch's pinned allocator) whose device-mapped address is looked up
-// here -- the call fails, and launches nothing, if it has none. Returns a
-// cudaError_t; 0 on a successful launch.
+// C entries bound with ctypes. dtype: 0 = float32, 1 = bfloat16. Each
+// returns a cudaError_t; 0 on a successful launch.
+//
+// paged_prefill_fwd needs T % tq == 0, G = H / KV <= 16 and D in {32, 64,
+// 128}. `tier` null selects the single pool. Otherwise `host_pool` is
+// pinned host memory (PyTorch's pinned allocator) and `staged` a device
+// buffer of S * MAXB pool blocks: the call first launches the staging
+// kernel into it, then the body, on `stream`.
 extern "C" int paged_prefill_fwd(const void* q, const void* dpool,
-                                 const void* host_pool, const int* table,
-                                 const int* seg_ids, const int* q_pos,
-                                 const int* kv_len, const int* tier,
-                                 void* out, int T_, int H, int KV, int D,
-                                 int BS, int S, int MAXB, int tq, int nb_dev,
-                                 int nb_host, float scale, int dtype,
-                                 void* stream) {
+                                 const void* host_pool, void* staged,
+                                 const int* table, const int* seg_ids,
+                                 const int* q_pos, const int* kv_len,
+                                 const int* tier, void* out, int T_, int H,
+                                 int KV, int D, int BS, int S, int MAXB,
+                                 int tq, int nb_dev, int nb_host,
+                                 float scale, int dtype, void* stream) {
   using namespace repro_torch;
   if (T_ == 0 || H == 0) return 0;
   if (tq <= 0 || T_ % tq != 0 || KV <= 0 || H % KV != 0 ||
-      H / KV > MAX_G || nb_dev <= 0)
+      H / KV > MAX_G || nb_dev <= 0 || (dtype != 0 && dtype != 1) ||
+      (D != 32 && D != 64 && D != 128))
     return (int)cudaErrorInvalidValue;
-  void* hdev = nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tier != nullptr) {
-    if (host_pool == nullptr || nb_host <= 0)
-      return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaHostGetDevicePointer(&hdev,
-                                               const_cast<void*>(host_pool),
-                                               0);
+    const size_t esize = dtype == 0 ? 4 : 2;
+    cudaError_t err =
+        launch_stage(host_pool, table, kv_len, tier, staged, S, MAXB, BS,
+                     nb_host, (size_t)BS * 2 * KV * D * esize, s);
     if (err != cudaSuccess) return (int)err;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_PP_CASE(TT, DD)                                               \
-  return (int)launch<TT, DD>(q, dpool, hdev, table, seg_ids, q_pos, kv_len, \
-                             tier, out, T_, H, KV, BS, S, MAXB, tq, nb_dev, \
-                             nb_host, scale, s)
+#define REPRO_PP_CASE(TT, DD)                                                \
+  return (int)launch<TT, DD>(q, dpool, staged, table, seg_ids, q_pos,       \
+                             kv_len, tier, out, T_, H, KV, BS, S, MAXB, tq, \
+                             nb_dev, scale, s)
   if (dtype == 0 && D == 32) REPRO_PP_CASE(float, 32);
   if (dtype == 0 && D == 64) REPRO_PP_CASE(float, 64);
   if (dtype == 0 && D == 128) REPRO_PP_CASE(float, 128);
@@ -310,4 +389,19 @@ extern "C" int paged_prefill_fwd(const void* q, const void* dpool,
   if (dtype == 1 && D == 128) REPRO_PP_CASE(__nv_bfloat16, 128);
 #undef REPRO_PP_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// The staging kernel alone (what paged_prefill_fwd runs first with two
+// pools): `staged` receives S * MAXB blocks of `block_bytes` each, the
+// live host blocks of host segments copied, every other slot untouched.
+extern "C" int stage_host_blocks_fwd(const void* host_pool,
+                                     const int* table, const int* kv_len,
+                                     const int* tier, void* staged, int S,
+                                     int MAXB, int BS, int nb_host,
+                                     long long block_bytes, void* stream) {
+  using namespace repro_torch;
+  if (S == 0 || MAXB == 0) return 0;
+  return (int)launch_stage(host_pool, table, kv_len, tier, staged, S, MAXB,
+                           BS, nb_host, (size_t)block_bytes,
+                           static_cast<cudaStream_t>(stream));
 }

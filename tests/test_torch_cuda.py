@@ -117,6 +117,100 @@ def test_paged_kernel_matches_plain(dtype, tol, H, KV, D):
     assert torch.isfinite(got).all() and (got[3] == 0).all()
 
 
+def _decode_case(dtype, H, KV, D, lens, seed, BS=16):
+    """Rows at `lens` (kv_len 0 rows are pad rows on a trash block),
+    tables from a permutation of the pool, MAXB a multiple of 8."""
+    r = np.random.RandomState(seed)
+    maxb = max(-(-max(lens) // BS), 1)
+    MAXB = -(-maxb // 8) * 8
+    B = len(lens)
+    nb = B * MAXB + 1
+    pool = _randn((nb, BS, 2, KV, D), dtype, seed + 1)
+    tab = r.permutation(nb - 1)[:B * MAXB].reshape(B, MAXB).astype(np.int32)
+    tab[np.asarray(lens) == 0] = nb - 1
+    q = _randn((B, H, D), dtype, seed + 2)
+    return (q, pool, torch.from_numpy(tab).cuda(),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+S_ = paged_attention.SPLIT
+# kv_len at the split's edges, and batches of 1, 8 and 32 with pad rows
+DECODE_LENS = {
+    "split edges": [1, S_ - 1, S_, S_ + 1, 2 * S_ - 1, 2 * S_, 2 * S_ + 1,
+                    4096, 0],
+    "B=1": [4096],
+    "B=8 with pad rows": [281, 1040, 700, 513, 0, 0, 0, 0],
+    "B=32 with pad rows": [int(x) for x in
+                           np.random.RandomState(9).randint(1, 2000, 20)]
+    + [0] * 12,
+}
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("H,KV,D", SHAPES)
+@pytest.mark.parametrize("case", list(DECODE_LENS))
+def test_paged_kernel_split_matches_plain(dtype, tol, H, KV, D, case):
+    """The split kernel (+ combine) against the plain version and the
+    plain split algorithm; pad rows give 0; one split launch per call,
+    and one combine launch when the table spans more than one split."""
+    _need_cuda()
+    lens = DECODE_LENS[case]
+    q, pool, tab, kv_len = _decode_case(dtype, H, KV, D, lens, 20)
+    before = (paged_attention.launches, paged_attention.launches_combine)
+    got = paged_attention.paged_attention(q, pool, tab, kv_len)
+    want = paged_attention.paged_attention_plain(q, pool, tab, kv_len)
+    split = paged_attention.paged_attention_split_plain(q, pool, tab,
+                                                        kv_len)
+    torch.cuda.synchronize()
+    live = kv_len > 0
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(got.float(), split.float(), atol=tol,
+                               rtol=tol)
+    assert torch.isfinite(got).all() and (got[~live] == 0).all()
+    multi = tab.shape[1] * 16 > S_
+    assert (paged_attention.launches, paged_attention.launches_combine) \
+        == (before[0] + 1, before[1] + int(multi))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D", SHAPES)
+def test_paged_kernel_is_batch_invariant(dtype, H, KV, D):
+    """A row has the same bits alone as inside a batch of 8 (split
+    boundaries depend on the position only)."""
+    _need_cuda()
+    lens = [1040, 281, 700, 4096, 513, 256, 0, 17]
+    q, pool, tab, kv_len = _decode_case(dtype, H, KV, D, lens, 21)
+    full = paged_attention.paged_attention(q, pool, tab, kv_len)
+    for i in range(len(lens)):
+        alone = paged_attention.paged_attention(
+            q[i:i + 1].contiguous(), pool, tab[i:i + 1].contiguous(),
+            kv_len[i:i + 1].contiguous())
+        assert torch.equal(alone[0], full[i]), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_combine_matches_plain(dtype):
+    """The combine kernel against its plain version on the split kernel's
+    own partials."""
+    _need_cuda()
+    lens = DECODE_LENS["B=8 with pad rows"]
+    q, pool, tab, kv_len = _decode_case(dtype, 32, 32, 128, lens, 22)
+    out, part_o, part_ml = paged_attention.split_pass(
+        q, pool, tab, kv_len, 128 ** -0.5)
+    ctx = tab.shape[1] * 16
+    rows = paged_attention.n_splits(kv_len, ctx) > 1
+    got = paged_attention.combine_pass(part_o, part_ml, kv_len, out.clone(),
+                                       ctx)
+    want = paged_attention.combine_plain(
+        part_o, part_ml, paged_attention.n_splits(kv_len, ctx)).to(dtype)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got[rows].float(), want[rows].float(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(got[~rows], out[~rows])
+
+
 def test_wrappers_reject_bad_inputs():
     _need_cuda()
     q = torch.zeros(1, 16, 4, 80, device="cuda")
@@ -203,6 +297,88 @@ def test_paged_prefill_kernel_two_pools(dtype, tol, H, KV, D):
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=tol)
     assert paged_prefill.launches_tiered == before + 1
+
+
+def _two_pool_case(dtype, H, KV, D, specs, tiers, tail=0, seed=12):
+    """The fused step's layout (tq 32, BS 16, `tail` tail tiles on the
+    last slot): device pool and pinned host pool holding the same blocks
+    at the same ids, so two pools and one must give the same bits."""
+    BS, TQ = 16, 32
+    q, (_, seg, pos, klen), live = _segments(specs, H, D, 1, len(specs),
+                                             TQ, seed)
+    if tail:
+        last = len(specs) - 1
+        seg = torch.cat([seg, torch.full((tail * TQ,), last,
+                                         dtype=torch.int32, device="cuda")])
+        pos = torch.cat([pos, torch.arange(tail * TQ, dtype=torch.int32,
+                                           device="cuda")])
+        q = torch.cat([q, _randn((tail * TQ, H, D), torch.float32, seed)])
+        live = np.concatenate([live, np.zeros(tail * TQ, bool)])
+    maxb = max(8, -(-max(-(-int(k) // BS) for k in klen.tolist()) // 8) * 8)
+    nb = len(specs) * maxb + 3
+    pool = _randn((nb, BS, 2, KV, D), dtype, seed + 1)
+    r = np.random.RandomState(seed + 2)
+    tab = torch.from_numpy(r.permutation(nb)[:len(specs) * maxb]
+                           .reshape(len(specs), maxb).astype(np.int32)).cuda()
+    tier = torch.tensor(tiers, device="cuda")
+    return (q.to(dtype), pool, pool.cpu().pin_memory(), tab, seg, pos, klen,
+            tier, torch.from_numpy(live).cuda())
+
+
+# (specs, tiers, tail tiles): the main path's timed shape (one 512-token
+# chunk at offset 512, host-resident) and the fused step's own layout
+TWO_POOL_LAYOUTS = {
+    "timed shape": ([(512, 512)], [True], 0),
+    "fused layout": ([(512, 512), (1000, 1), (777, 1), (0, 0)],
+                     [True, False, True, False], 13),
+    "chunk edges, mixed tiers": ([(29, 11), (0, 16), (47, 1), (5, 3),
+                                  (70, 40), (0, 0)],
+                                 [True, True, False, True, False, True], 0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D", [(32, 32, 128), (8, 2, 32)])
+@pytest.mark.parametrize("layout", list(TWO_POOL_LAYOUTS))
+def test_paged_prefill_two_pools_bit_identical_to_one_pool(dtype, H, KV, D,
+                                                          layout):
+    """Host segments read their staged blocks with the body's one-pool
+    arithmetic: the two-pool output equals the one-pool output on the same
+    blocks bit for bit, and one staging launch goes with each call."""
+    _need_cuda()
+    specs, tiers, tail = TWO_POOL_LAYOUTS[layout]
+    q, pool, hpool, tab, seg, pos, klen, tier, _ = _two_pool_case(
+        dtype, H, KV, D, specs, tiers, tail)
+    before = (paged_prefill.launches_tiered, paged_prefill.launches_stage)
+    two = paged_prefill.paged_prefill(q, pool, tab, seg, pos, klen,
+                                      host_pool=hpool, tier=tier, tq=32)
+    one = paged_prefill.paged_prefill(q, pool, tab, seg, pos, klen, tq=32)
+    torch.cuda.synchronize()
+    assert torch.equal(two, one)
+    assert (paged_prefill.launches_tiered,
+            paged_prefill.launches_stage) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", list(TWO_POOL_LAYOUTS))
+def test_stage_host_blocks_matches_plain(dtype, layout):
+    """The staging kernel writes exactly the live host slots, each equal
+    to its plain version; a NaN-filled buffer keeps every other slot."""
+    _need_cuda()
+    specs, tiers, tail = TWO_POOL_LAYOUTS[layout]
+    _, _, hpool, tab, _, _, klen, tier, _ = _two_pool_case(
+        dtype, 8, 2, 64, specs, tiers, tail)
+    S, MAXB = tab.shape
+    buf = torch.full((S * MAXB, *hpool.shape[1:]), float("nan"),
+                     dtype=dtype, device="cuda")
+    got = paged_prefill.stage_host_blocks(hpool, tab, klen, tier, out=buf)
+    want = paged_prefill.stage_host_blocks_plain(hpool, tab, klen, tier)
+    torch.cuda.synchronize()
+    live = paged_prefill.live_host_slots(tab, klen, tier, 16).reshape(-1)
+    assert torch.equal(got[live], want[live])
+    assert got[~live].isnan().all()
+    written = ~got.reshape(S * MAXB, -1).isnan().all(dim=1)
+    assert torch.equal(written, live)
 
 
 def test_paged_prefill_wrapper_rejects_bad_inputs():

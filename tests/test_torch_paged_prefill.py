@@ -134,3 +134,69 @@ def test_ops_paged_prefill_runs_the_plain_version_on_cpu():
     assert torch.equal(a, b)
     # CPU calls are not kernel launches
     assert (paged_prefill.launches, paged_prefill.launches_tiered) == before
+
+
+# Two-pool cases for the staging kernel's plain version: (specs, tiers,
+# (H, KV, D, BS, MAXB), device and host pool sizes, table or None for
+# host ids drawn above the device pool's size)
+STAGE_CASES = {
+    # tests/test_fused.py::test_paged_prefill_host_tier_variant
+    "test_fused host tier": ([(4, 9), (11, 5)], [True, False],
+                             (4, 1, 32, 8, 3), 8, 64,
+                             [[60, 33, 51], [2, 5, 1]]),
+    "mixed tiers": ([(9, 12), (30, 1), (17, 1), (40, 20)],
+                    [True, False, True, False], (8, 2, 64, 8, 8), 16, 64,
+                    None),
+    "host segment at kv_len 0": ([(5, 7), (0, 0), (20, 3)],
+                                 [False, True, True], (4, 2, 32, 8, 4), 12,
+                                 40, None),
+    "ids past both pools (clamped)": ([(3, 10), (6, 4)], [True, False],
+                                      (4, 1, 32, 8, 3), 8, 64,
+                                      [[70, 99, 63], [9, 12, 1]]),
+}
+
+
+@pytest.mark.parametrize("case", list(STAGE_CASES))
+def test_staged_host_blocks_one_pool_match_jax_two_pools(case):
+    """The staging kernel's plain version copies each live host block
+    (tier set, j < ceil(kv_len / BS)) to slot s * MAXB + j and nothing
+    else; the one-pool plain version over [device pool | staged buffer]
+    (host segments pointed at their slots, device ids clamped into the
+    device pool) equals the JAX two-pool reference on live rows."""
+    specs, tiers, (H, KV, D, BS, MAXB), nbd, nbh, tab = STAGE_CASES[case]
+    dpool = _pool(nbd, BS, KV, D, seed=3)
+    hpool = _pool(nbh, BS, KV, D, seed=4)
+    q, _, seg, pos, klen = _segments(specs, H, D, MAXB,
+                                     len(specs) * MAXB)
+    tier = np.asarray(tiers)
+    if tab is None:
+        r = np.random.RandomState(5)
+        tab = np.where(tier[:, None], r.randint(nbd, nbh, (len(specs), MAXB)),
+                       r.randint(0, nbd, (len(specs), MAXB)))
+    tab = np.asarray(tab, np.int32)
+    t_tab, t_klen, t_tier = (torch.from_numpy(a) for a in (tab, klen, tier))
+    before = paged_prefill.launches_stage
+    staged = paged_prefill.stage_host_blocks(torch.from_numpy(hpool), t_tab,
+                                             t_klen, t_tier).numpy()
+    assert paged_prefill.launches_stage == before   # CPU: no launch
+    nblk = -(-np.minimum(klen, MAXB * BS) // BS)
+    live = tier[:, None] & (np.arange(MAXB)[None] < nblk[:, None])
+    assert np.array_equal(paged_prefill.live_host_slots(
+        t_tab, t_klen, t_tier, BS).numpy(), live)
+    want_staged = np.zeros_like(staged)
+    for s, j in zip(*np.nonzero(live)):
+        want_staged[s * MAXB + j] = hpool[min(tab[s, j], nbh - 1)]
+    np.testing.assert_array_equal(staged, want_staged)
+
+    pool = np.concatenate([dpool, staged])
+    slots = nbd + np.arange(len(specs) * MAXB).reshape(len(specs), MAXB)
+    tab1 = np.where(tier[:, None], slots, np.minimum(tab, nbd - 1))
+    got = paged_prefill.paged_prefill_plain(
+        *[torch.from_numpy(np.ascontiguousarray(a)) for a in
+          (q, pool, tab1.astype(np.int32), seg, pos, klen)], tq=TQ).numpy()
+    want = np.asarray(jref.paged_prefill_reference(
+        *[jnp.asarray(a) for a in (q, dpool, tab, seg, pos, klen)],
+        host_pool=jnp.asarray(hpool), tier=jnp.asarray(tier), tq=TQ))
+    rows = klen[seg] > 0
+    np.testing.assert_allclose(got[rows], want[rows], **TOL)
+    assert np.all(np.isfinite(got))

@@ -1,0 +1,187 @@
+#!/usr/bin/env python3
+"""Sweep the tuning constants of the paged kernels on one NVIDIA GPU.
+
+    python3 tools/paged_sweep.py [OUT_JSON]
+
+Writes variants of `csrc/paged_attention.cu` (SPLIT tokens per block, NW
+warps, STAGES of the cp.async ring) and of the staging kernel in
+`csrc/paged_prefill.cu` (ST_UNROLL loads in flight per thread,
+ST_MAX_PARTS blocks per pool block) under the gitignored
+`build/sweep/`, with the constants substituted, builds them with one
+`nvcc` each, in parallel, loads them with ctypes and times, with
+`chip_smoke._time_ms`:
+
+  - paged decode (split kernel + combine), llama2-7b heads, bf16, BS 16:
+    the serve path's batch (8 rows at prompt + 16), B 1 at ctx 4096 and
+    B 32 at ctx 256-2047, each variant checked against the plain version;
+  - the staging of the fused path's timed shape (64 live host blocks of
+    256 KB from the pinned pool), checked bit for bit;
+  - the copy engine on the same bytes, pinned to device and back
+    (`copy_`, non-blocking).
+
+Prints one line per variant and shape and the card's name and power
+limit; with OUT_JSON also writes them there. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(ROOT, "build", "sweep")
+# (SPLIT, NW, STAGES); the first is the committed kernel's
+DECODE = [(256, 4, 3), (256, 4, 4), (256, 4, 2), (512, 4, 3), (128, 4, 3),
+          (256, 8, 3)]
+# (ST_UNROLL, ST_MAX_PARTS); the first is the committed kernel's
+STAGE = [(4, 16), (8, 16), (4, 64), (16, 8)]
+
+
+def _variant(name, src, repl):
+    """Write `src` with each (old, new) of `repl` substituted and start
+    its build; returns (process, library path)."""
+    from repro_torch.kernels import _build
+    text = open(os.path.join(_build.CSRC, src)).read()
+    for old, new in repl:
+        if old not in text:
+            raise RuntimeError(f"{src}: {old!r} not found")
+        text = text.replace(old, new)
+    cu = os.path.join(OUT, f"{name}.cu")
+    with open(cu, "w") as f:
+        f.write(text)
+    so = os.path.join(OUT, f"lib{name}.so")
+    log = open(cu + ".log", "w")
+    return subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                             str(_build.CSRC), "-o", so, cu], stdout=log,
+                            stderr=subprocess.STDOUT), so
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import paged_attention as pa
+    os.makedirs(OUT, exist_ok=True)
+    builds = {}
+    for s, w, st in DECODE:
+        builds[("decode", s, w, st)] = _variant(
+            f"decode_s{s}_w{w}_st{st}", "paged_attention.cu",
+            [("constexpr int SPLIT = 256;", f"constexpr int SPLIT = {s};"),
+             ("constexpr int NW = 4;", f"constexpr int NW = {w};"),
+             ("constexpr int STAGES = 3;", f"constexpr int STAGES = {st};")])
+    for u, p in STAGE:
+        builds[("stage", u, p)] = _variant(
+            f"stage_u{u}_p{p}", "paged_prefill.cu",
+            [("constexpr int ST_UNROLL = 4;", f"constexpr int ST_UNROLL = {u};"),
+             ("constexpr int ST_MAX_PARTS = 16;",
+              f"constexpr int ST_MAX_PARTS = {p};")])
+    libs = {}
+    for key, (proc, so) in builds.items():
+        if proc.wait():
+            raise RuntimeError(f"nvcc failed for {key}; see {OUT}")
+        libs[key] = ctypes.CDLL(so)
+    smi = cs._smi()
+    print(smi, flush=True)
+    res = {"nvidia_smi": smi, "decode": [], "stage": []}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    H, KV, D = cs.FLASH_SHAPES["llama2-7b"]
+    bf16 = torch.bfloat16
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    b32 = torch.randint(256, 2048, (32,), generator=torch.Generator()
+                        .manual_seed(3)).tolist()
+    for shape, ctx in (("B=8 serve batch", [len(p) + 16
+                                            for p in cs._prompts()]),
+                       ("B=1 ctx 4096", [4096]), ("B=32 ctx 256-2047", b32)):
+        q, pool, tab, lens = cs._paged_rows(gen, H, KV, D, bf16, ctx)
+        B, MAXB = tab.shape
+        want = pa.paged_attention_plain(q, pool, tab, lens)
+        nbytes, _ = cs._decode_bound(ctx, H, KV, D, 16, B)
+        for key, lib in libs.items():
+            if key[0] != "decode":
+                continue
+            split = key[1]
+            ns = -(-MAXB * 16 // split)
+            f, g = lib.paged_attention_fwd, lib.paged_decode_combine_fwd
+            f.argtypes = [vp] * 7 + [ci] * 8 + [ctypes.c_float, ci, vp]
+            g.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+            out = torch.empty_like(q)
+            po = torch.empty(B, H, ns, D, device="cuda")
+            pm = torch.empty(B, H, ns, 2, device="cuda")
+
+            def call():
+                st = torch.cuda.current_stream().cuda_stream
+                err = f(q.data_ptr(), pool.data_ptr(), tab.data_ptr(),
+                        lens.data_ptr(), out.data_ptr(), po.data_ptr(),
+                        pm.data_ptr(), B, H, KV, D, 16, MAXB, split, ns,
+                        D ** -0.5, 1, st)
+                if not err and ns > 1:
+                    err = g(po.data_ptr(), pm.data_ptr(), lens.data_ptr(),
+                            out.data_ptr(), B, H, D, MAXB * 16, ns, 1, st)
+                if err:
+                    raise RuntimeError(f"{key}: cudaError_t {err}")
+            call()
+            err, ok = cs._max_err(out, want, 2e-2)
+            if not ok:
+                raise AssertionError(f"{key} {shape}: err {err}")
+            ms = cs._time_ms(call, reps=50)
+            row = {"split": split, "warps": key[2], "stages": key[3],
+                   "shape": shape, "ms": ms,
+                   "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3}
+            res["decode"].append(row)
+            print(f"[sweep] decode SPLIT {split} NW {key[2]} STAGES "
+                  f"{key[3]} {shape}: {ms:.4f} ms (bound "
+                  f"{row['bound_ms']:.4f})", flush=True)
+        del q, pool, tab, lens, want
+    q, seg, pos, klen, _, maxb = cs._pp_batch(gen, H, KV, D, bf16,
+                                              [(512, 512)])
+    pool = torch.randn(4 * maxb, 16, 2, KV, D, generator=gen,
+                       device="cuda").to(bf16)
+    tab = torch.randperm(4 * maxb, generator=gen, device="cuda")[:maxb] \
+        .reshape(1, maxb).int()
+    hpool = pool.cpu().pin_memory()
+    tier = torch.ones(1, dtype=torch.int32, device="cuda")
+    staged = torch.empty((maxb, 16, 2, KV, D), dtype=bf16, device="cuda")
+    bb = staged[0].numel() * staged.element_size()
+    nbytes = (512 + 512) // 16 * bb
+    want = hpool[tab[0].long().cpu()]
+    for key, lib in libs.items():
+        if key[0] != "stage":
+            continue
+        f = lib.stage_host_blocks_fwd
+        f.argtypes = [vp] * 5 + [ci] * 4 + [ctypes.c_longlong, vp]
+
+        def call():
+            err = f(hpool.data_ptr(), tab.data_ptr(), klen.data_ptr(),
+                    tier.data_ptr(), staged.data_ptr(), 1, maxb, 16,
+                    hpool.shape[0], bb, torch.cuda.current_stream()
+                    .cuda_stream)
+            if err:
+                raise RuntimeError(f"{key}: cudaError_t {err}")
+        call()
+        if not torch.equal(staged.cpu(), want):
+            raise AssertionError(f"{key}: staged blocks differ")
+        ms = cs._time_ms(call, reps=30)
+        res["stage"].append({"unroll": key[1], "parts": key[2], "ms": ms,
+                             "gb_per_s": nbytes / ms / 1e6})
+        print(f"[sweep] staging ST_UNROLL {key[1]} ST_MAX_PARTS {key[2]}: "
+              f"{ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s", flush=True)
+    src = torch.empty(nbytes // 2, dtype=bf16).pin_memory()
+    dst = torch.empty(nbytes // 2, dtype=bf16, device="cuda")
+    for name, fn in (("h2d", lambda: dst.copy_(src, non_blocking=True)),
+                     ("d2h", lambda: src.copy_(dst, non_blocking=True))):
+        ms = cs._time_ms(fn, reps=30)
+        res[f"copy_engine_{name}_gb_per_s"] = nbytes / ms / 1e6
+        print(f"[sweep] copy engine {name} (pinned): {ms:.4f} ms = "
+              f"{nbytes / ms / 1e6:.1f} GB/s", flush=True)
+    if argv:
+        with open(argv[0], "w") as fh:
+            json.dump(res, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

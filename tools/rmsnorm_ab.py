@@ -40,25 +40,10 @@ def _sha(t):
     return hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def _kernel_us(fn, n=20):
-    """Device microseconds per call of each kernel `fn` launches, from
-    torch.profiler over `n` calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        out[e.key[:80]] = us / n
-    return out
+def _kernel_us(cs, fn):
+    """Device microseconds per call of each kernel `fn` launches
+    (`chip_smoke._kernel_ms` over 20 calls)."""
+    return {k: ms * 1e3 for k, ms in cs._kernel_ms(fn, 20).items()}
 
 
 def _one(tree: str, out: str) -> None:
@@ -88,7 +73,7 @@ def _one(tree: str, out: str) -> None:
             "ms": cs._time_ms(lambda: rn.rmsnorm(x, w), reps=REPS),
             "library_ms": cs._time_ms(
                 lambda: F.rms_norm(x, (d,), w, eps=1e-6), reps=REPS),
-            "kernels_us": _kernel_us(lambda: rn.rmsnorm(x, w))}
+            "kernels_us": _kernel_us(cs, lambda: rn.rmsnorm(x, w))}
     x, w, rows, d = cs._norm_inputs(gen, cs.NORM_SHAPES["train"])
     dy = torch.randn(x.shape, generator=gen, device="cuda") \
         .to(torch.bfloat16)
@@ -101,7 +86,7 @@ def _one(tree: str, out: str) -> None:
         "ms": cs._time_ms(lambda: rn.rmsnorm_bwd(dy, x, w, rstd), reps=REPS),
         "library_ms": cs._time_ms(lambda: torch.autograd.grad(
             y, (xg, wg), dy, retain_graph=True), reps=REPS),
-        "kernels_us": _kernel_us(lambda: rn.rmsnorm_bwd(dy, x, w, rstd))}
+        "kernels_us": _kernel_us(cs, lambda: rn.rmsnorm_bwd(dy, x, w, rstd))}
     with open(out, "w") as f:
         json.dump(res, f, indent=1)
     fwd = "; ".join(f"{k} {v['ms']:.4f} (F.rms_norm {v['library_ms']:.4f}, "
