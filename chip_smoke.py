@@ -29,7 +29,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            algorithm, batch-invariant bit for bit (each row of a batch of
            8 alone), and the combine kernel against its plain version on
            the split kernel's partials; paged
-           prefill at the same two shapes, tq = 32, BS = 16, on the cases
+           prefill at the same two shapes and at G = 16 (H 32, KV 2, D
+           128: 512 rows per tile), tq = 32, BS = 16, each call's body
+           asserted on its route (bf16 at D 64 / 128 on the tensor-core
+           kernel, f32 and D 32 on the CUDA-core one), on the cases
            of tests/test_fused.py (chunk edges, a chunk + decode tokens + a
            kv_len = 0 dummy, and the two-pool variant with the host pool
            pinned on the CPU and host ids above the device pool's size),
@@ -54,7 +57,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            ctx 4096; paged prefill, both variants, held once more against
            its plain version on the timed inputs, the two-pool call split
            by kernel with torch.profiler, the staging kernel alone beside
-           the copy engine on the same bytes) with CUDA events around
+           the copy engine on the same bytes, the tensor-core body also
+           at granite-3-2b's heads and the CUDA-core body at the smoke
+           paths' D = 32) with CUDA events around
            back-to-back calls that
            a spin kernel let the host enqueue first (device time, not the
            host's launch rate), beside its plain version, one PyTorch
@@ -144,6 +149,9 @@ FLASH_SHAPES = {"llama2-7b": (32, 32, 128), "granite-3-2b": (32, 8, 64)}
 # (H, KV, D) that complete G = H / KV in {1, 4, 8} at D = 64 and 128 for
 # the flash checks
 FLASH_GQA_SHAPES = [(32, 32, 64), (32, 4, 64), (32, 8, 128), (32, 4, 128)]
+# paged prefill's checks: FLASH_SHAPES and G = 16 (512 rows per 32-token
+# tile, the kernel's largest group)
+PP_SHAPES = {**FLASH_SHAPES, "G 16": (32, 2, 128)}
 # the smoke configs' attention (D = 32: bf16 takes the CUDA-core kernels)
 SMOKE_SHAPES = {"granite-3-2b smoke": (8, 2, 32),
                 "deepseek-moe-16b smoke": (4, 4, 32)}
@@ -223,14 +231,15 @@ def phase_build():
             if "registers" in line or "spill" in line or "arning" in line:
                 _say(f"[build] {name}: {line.strip()}")
     sass = {}
-    for name in ("flash_prefill", "flash_backward"):
+    for name in ("flash_prefill", "flash_backward", "paged_prefill"):
         sass[name] = _build.sass_counts(name)
         _say(f"[build] {name}: tensor-core instructions in its SASS "
              f"(cuobjdump -sass): {sass[name]}")
     if not sass["flash_prefill"]["HGMMA"]:
         raise AssertionError("the flash forward holds no HGMMA (wgmma)")
-    if not any(sass["flash_backward"].values()):
-        raise AssertionError("the flash backward holds no HMMA / HGMMA")
+    for name in ("flash_backward", "paged_prefill"):
+        if not any(sass[name].values()):
+            raise AssertionError(f"{name} holds no HMMA / HGMMA")
     smi = _smi()
     _say(f"[build] nvidia-smi: {smi}")
     return smi
@@ -543,7 +552,21 @@ def _pp_batch(gen, H, KV, D, dtype, specs, tq=32, BS=16, tail=0):
     return q, seg, pos, klen, live, maxb
 
 
-def check_paged_prefill(gen, sizes=FLASH_SHAPES):
+def _pp_route_call(route, fn):
+    """Run `fn` (one paged_prefill call) and assert that its body ran on
+    `route` ("mma": the tensor-core kernel, "fma": the CUDA-core one):
+    one launch on that route's counter, none on the other's."""
+    from repro_torch.kernels import paged_prefill as pp
+    before = (pp.launches_mma, pp.launches_fma)
+    out = fn()
+    got = (pp.launches_mma - before[0], pp.launches_fma - before[1])
+    if got != ((1, 0) if route == "mma" else (0, 1)):
+        raise AssertionError(f"paged_prefill body: expected the {route} "
+                             f"route, launches (mma, fma) {got}")
+    return out
+
+
+def check_paged_prefill(gen, sizes=PP_SHAPES):
     """The cases of tests/test_fused.py at the fused step's tile (tq =
     MIXED_TQ = 32) and block size (16): chunk edges one segment at a
     time, a chunk + decode tokens + a kv_len = 0 dummy in one call (live
@@ -552,18 +575,23 @@ def check_paged_prefill(gen, sizes=FLASH_SHAPES):
     size, at each of `sizes` ({name: (H, KV, D)}). For every two-pool
     case also: the staging kernel writes exactly the live host slots, each
     equal to its plain version (`_check_staging`), and the two-pool output
-    equals the one-pool output over the same blocks bit for bit. Returns
-    the worst error per dtype for each variant and for the staging."""
+    equals the one-pool output over the same blocks bit for bit. Every
+    call's body must take its route (`_pp_route_call`): the tensor-core
+    kernel for bf16 at D 64 and 128, the CUDA-core one for f32 and for
+    D 32. Returns the worst error per dtype for each variant, for each
+    body route and for the staging."""
     import torch
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.serving.executor import MIXED_TQ as TQ
     BS = 16
     worst = {"paged_prefill": {}, "paged_prefill_tiered": {},
-             "stage_host_blocks": {}}
+             "stage_host_blocks": {}, "paged_prefill_mma": {},
+             "paged_prefill_fma": {}}
     for arch, (H, KV, D) in sizes.items():
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
             key = str(dtype)[6:]
+            route = "mma" if dtype == torch.bfloat16 and D >= 64 else "fma"
             cases = [
                 ("chunk straddling a block", [(29, 11)], None),
                 ("block-aligned first chunk", [(0, 32)], None),
@@ -609,7 +637,8 @@ def check_paged_prefill(gen, sizes=FLASH_SHAPES):
                                          device="cuda")[:S * maxb] \
                         .reshape(S, maxb).int()
                     variant = "paged_prefill"
-                got = pp.paged_prefill(q, dpool, tab, seg, pos, klen, **kw)
+                got = _pp_route_call(route, lambda: pp.paged_prefill(
+                    q, dpool, tab, seg, pos, klen, **kw))
                 want = pp.paged_prefill_plain(q, dpool, tab, seg, pos, klen,
                                               **kw)
                 torch.cuda.synchronize()
@@ -621,12 +650,13 @@ def check_paged_prefill(gen, sizes=FLASH_SHAPES):
                 if not ok:
                     raise AssertionError(f"{variant} kernel disagrees: "
                                          f"{arch} {dtype} {name} err {err}")
-                worst[variant][key] = max(worst[variant].get(key, 0.0), err)
+                for row in (variant, f"paged_prefill_{route}"):
+                    worst[row][key] = max(worst[row].get(key, 0.0), err)
                 if tiers:
                     n = _check_staging(hpool, tab, klen, tier)
                     same = torch.cat([dpool, hpool[nb_dev:].to("cuda")])
-                    one = pp.paged_prefill(q, same, tab, seg, pos, klen,
-                                           tq=TQ)
+                    one = _pp_route_call(route, lambda: pp.paged_prefill(
+                        q, same, tab, seg, pos, klen, tq=TQ))
                     torch.cuda.synchronize()
                     if not torch.equal(got, one):
                         raise AssertionError(f"two pools differ from one "
@@ -669,6 +699,45 @@ def _kernel_ms(fn, n=10):
             if ms}
 
 
+def _time_pp_one_pool(gen, H, KV, D, dtype, C, off, route, BS=16):
+    """One layer's chunk attention over the device pool: a C-token chunk
+    at offset `off` (kv_len off + C), tq = MIXED_TQ, held against the
+    plain version with its body on `route` asserted, then timed beside
+    the plain version, with its bound. Returns the timing row."""
+    import torch
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.serving.executor import MIXED_TQ as TQ
+    q, seg, pos, klen, _, maxb = _pp_batch(gen, H, KV, D, dtype, [(off, C)])
+    pool = torch.randn(4 * maxb, BS, 2, KV, D, generator=gen,
+                       device="cuda").to(dtype)
+    tab = torch.randperm(4 * maxb, generator=gen, device="cuda")[:maxb] \
+        .reshape(1, maxb).int()
+    got = _pp_route_call(route, lambda: pp.paged_prefill(
+        q, pool, tab, seg, pos, klen, tq=TQ))
+    want = pp.paged_prefill_plain(q, pool, tab, seg, pos, klen, tq=TQ)
+    torch.cuda.synchronize()
+    key = str(dtype)[6:]
+    err, ok = _max_err(got, want, TOL[key])
+    if not ok or not torch.isfinite(got).all():
+        raise AssertionError(f"paged_prefill {route} disagrees: H {H} KV "
+                             f"{KV} D {D} {key}, err {err}")
+    esize = q.element_size()
+    kvl = off + C
+    nbytes = (2 * q.numel() + kvl * 2 * KV * D) * esize + maxb * 4 \
+        + 2 * q.shape[0] * 4 + 4
+    flops = 4 * D * H * _flash_pairs(C, [off], [kvl])
+    t = _bound(_time_ms(lambda: pp.paged_prefill(q, pool, tab, seg, pos,
+                                                 klen, tq=TQ)),
+               _time_ms(lambda: pp.paged_prefill_plain(
+                   q, pool, tab, seg, pos, klen, tq=TQ), reps=5),
+               None, nbytes, flops, BF16_FLOPS_PER_S if esize == 2
+               else F32_FLOPS_PER_S,
+               f"T={C} at offset {off} (kv_len {kvl}) H={H} KV={KV} D={D} "
+               f"{key} BS={BS} tq={TQ}")
+    t["max_abs_err"] = err
+    return t
+
+
 def time_paged_prefill(gen):
     """llama2-7b chunk attention of one layer at the fused path's shape:
     one 512-token chunk at offset 512 (kv_len 1024), bf16, BS 16, tq 32,
@@ -680,8 +749,13 @@ def time_paged_prefill(gen):
     that size to the device: a yardstick the port never calls). Each
     variant is held against its plain version, the two-pool output
     against the one-pool output bit for bit, and the staged blocks
-    against the plain staging (`_check_staging`). Returns the rows of
-    paged_prefill, paged_prefill_tiered and stage_host_blocks."""
+    against the plain staging (`_check_staging`), and each body call's
+    route asserted (the tensor-core kernel). The tensor-core body is also
+    timed at granite-3-2b's heads (H 32, KV 8, D 64) on the same chunk,
+    and the CUDA-core body at the smoke paths' shape (granite-3-2b smoke,
+    D 32, bf16: a 64-token chunk at offset 64). Returns the rows of
+    paged_prefill, paged_prefill_tiered, stage_host_blocks and of the two
+    body kernels, paged_prefill_mma and paged_prefill_fma."""
     import torch
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.serving.executor import MIXED_TQ as TQ
@@ -707,7 +781,8 @@ def time_paged_prefill(gen):
     for name, kw in (("paged_prefill", {}),
                      ("paged_prefill_tiered",
                       {"host_pool": hpool, "tier": tier})):
-        got = pp.paged_prefill(q, pool, tab, seg, pos, klen, tq=TQ, **kw)
+        got = _pp_route_call("mma", lambda: pp.paged_prefill(
+            q, pool, tab, seg, pos, klen, tq=TQ, **kw))
         want = pp.paged_prefill_plain(q, pool, tab, seg, pos, klen, tq=TQ,
                                       **kw)
         torch.cuda.synchronize()
@@ -760,6 +835,14 @@ def time_paged_prefill(gen):
                           "one contiguous pinned buffer (the copy engine)")
     out["stage_host_blocks"] = st
     out["paged_prefill_tiered"]["copy_engine_ms"] = ce_ms
+    # the body kernels: the one-pool call launches only the body
+    out["paged_prefill_mma"] = dict(
+        out["paged_prefill"], at_other_shapes=[_time_pp_one_pool(
+            gen, *FLASH_SHAPES["granite-3-2b"], torch.bfloat16, C, off,
+            "mma")])
+    out["paged_prefill_fma"] = _time_pp_one_pool(
+        gen, *SMOKE_SHAPES["granite-3-2b smoke"], torch.bfloat16, 64, 64,
+        "fma")
     return out
 
 
@@ -981,10 +1064,13 @@ def phase_kernels():
     norm_t, norm_bwd_t = time_rmsnorm(gen)
     fbwd_t = time_flash_bwd(gen)
     torch.cuda.empty_cache()
-    for name in ("paged_prefill", "paged_prefill_tiered"):
-        # the timed shape's check counts too
-        pp_err[name]["bfloat16"] = max(pp_err[name]["bfloat16"],
-                                       pp_t[name]["max_abs_err"])
+    for name in ("paged_prefill", "paged_prefill_tiered",
+                 "paged_prefill_mma", "paged_prefill_fma"):
+        # the timed shapes' checks count too
+        pp_err[name]["bfloat16"] = max(
+            [pp_err[name].get("bfloat16", 0.0), pp_t[name]["max_abs_err"]]
+            + [t["max_abs_err"] for t in pp_t[name].get("at_other_shapes",
+                                                        [])])
     res = {"flash_attention": (flash_err, flash_t),
            "paged_attention": (paged_err["paged_attention"], paged_t),
            "paged_attention_combine": (paged_err["paged_attention_combine"],
@@ -995,22 +1081,28 @@ def phase_kernels():
                                     pp_t["paged_prefill_tiered"]),
            "stage_host_blocks": (pp_err["stage_host_blocks"],
                                  pp_t["stage_host_blocks"]),
+           "paged_prefill_mma": (pp_err["paged_prefill_mma"],
+                                 pp_t["paged_prefill_mma"]),
+           "paged_prefill_fma": (pp_err["paged_prefill_fma"],
+                                 pp_t["paged_prefill_fma"]),
            "rmsnorm": (norm_err["rmsnorm"], norm_t),
            "rmsnorm_bwd": (norm_err["rmsnorm_bwd"], norm_bwd_t),
            "flash_attention_bwd": (fbwd_err, fbwd_t)}
-    for name, (err, t) in res.items():
-        lib = "none" if t["library_ms"] is None \
+    def lib(t):
+        return "none" if t["library_ms"] is None \
             else f"{t['library_ms']:.4f}"
-        _say(f"[kernels] {name} [{t['shape']}]: max_abs_err bf16 "
-             f"{err['bfloat16']:.3g} f32 {err['float32']:.3g}, "
+    for name, (err, t) in res.items():
+        errs = ", ".join(f"{k} {v:.3g}" for k, v in sorted(err.items()))
+        _say(f"[kernels] {name} [{t['shape']}]: max_abs_err {errs}, "
              f"kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} "
-             f"library_ms {lib} bound_ms {t['bound_ms']:.4f} "
+             f"library_ms {lib(t)} bound_ms {t['bound_ms']:.4f} "
              f"({t['bound_by']})")
         for also in ([t["at_train_shape"]] if "at_train_shape" in t
-                     else []) + t.get("at_serve_shapes", []):
+                     else []) + t.get("at_serve_shapes", []) \
+                + t.get("at_other_shapes", []):
             _say(f"[kernels] {name} [{also['shape']}]: kernel_ms "
                  f"{also['ms']:.4f} plain_ms {also['plain_ms']:.4f} "
-                 f"library_ms {also['library_ms']:.4f} bound_ms "
+                 f"library_ms {lib(also)} bound_ms "
                  f"{also['bound_ms']:.4f} ({also['bound_by']})")
     b1 = paged_t["at_b1_ctx4096"]
     _say(f"[kernels] paged_attention [{b1['shape']}]: kernel_ms "
@@ -1089,6 +1181,7 @@ def _zero_launches():
     from repro_torch.kernels import rmsnorm as rn
     fp.launches = pa.launches = pp.launches = pp.launches_tiered = 0
     pa.launches_combine = pp.launches_stage = pp.staging_bytes_peak = 0
+    pp.launches_mma = pp.launches_fma = 0
     fp.launches_bwd = rn.launches = rn.launches_bwd = 0
 
 
@@ -1102,6 +1195,8 @@ def _launches():
             "paged_prefill": pp.launches,
             "paged_prefill_tiered": pp.launches_tiered,
             "stage_host_blocks": pp.launches_stage,
+            "paged_prefill_mma": pp.launches_mma,
+            "paged_prefill_fma": pp.launches_fma,
             "rmsnorm": rn.launches, "rmsnorm_bwd": rn.launches_bwd,
             "flash_attention_bwd": fp.launches_bwd}
 
@@ -1154,6 +1249,10 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
         raise AssertionError(f"a kernel was never launched: {launches}")
     if launches["stage_host_blocks"] != launches["paged_prefill_tiered"]:
         raise AssertionError(f"one staging launch per two-pool call: "
+                             f"{launches}")
+    if launches["paged_prefill_mma"] + launches["paged_prefill_fma"] != \
+            launches["paged_prefill"] + launches["paged_prefill_tiered"]:
+        raise AssertionError(f"one body launch per paged_prefill call: "
                              f"{launches}")
     if eng.ex.nonfinite_logits():
         raise AssertionError("non-finite logits on the layerkv run")
@@ -1217,14 +1316,16 @@ PATHS = {
                   mode=dict(chunked=True, fused=True,
                             max_prefill_tokens=512),
                   kernels=("paged_prefill", "paged_prefill_tiered",
-                           "stage_host_blocks", "paged_attention",
-                           "paged_attention_combine", "rmsnorm")),
+                           "stage_host_blocks", "paged_prefill_mma",
+                           "paged_attention", "paged_attention_combine",
+                           "rmsnorm")),
     "moe": dict(arch="deepseek-moe-16b", n=6, seed=1, out_len=16, ndb=2048,
                 ndb_ref=20000, nhb=16384,
                 mode=dict(chunked=True, fused=True, max_prefill_tokens=512),
                 kernels=("paged_prefill", "paged_prefill_tiered",
-                         "stage_host_blocks", "paged_attention",
-                         "paged_attention_combine", "rmsnorm")),
+                         "stage_host_blocks", "paged_prefill_mma",
+                         "paged_attention", "paged_attention_combine",
+                         "rmsnorm")),
     "serve-smoke": dict(arch="granite-3-2b", smoke=True, n=6, seed=2,
                         prompt_lens=(40, 160), out_len=8, ndb=SMOKE_NDB,
                         ndb_ref=1024, nhb=1024, mode={},
@@ -1236,8 +1337,8 @@ PATHS = {
                         mode=dict(chunked=True, fused=True,
                                   max_prefill_tokens=64),
                         kernels=("paged_prefill", "paged_prefill_tiered",
-                                 "stage_host_blocks", "paged_attention",
-                                 "rmsnorm")),
+                                 "stage_host_blocks", "paged_prefill_fma",
+                                 "paged_attention", "rmsnorm")),
     # Eq. 4 keeps both layers of this 2-layer model on the device at these
     # prompts, so no chunk reads the host pool (fused-smoke's do)
     "moe-smoke": dict(arch="deepseek-moe-16b", smoke=True, n=6, seed=2,
@@ -1245,8 +1346,8 @@ PATHS = {
                       ndb_ref=1024, nhb=1024,
                       mode=dict(chunked=True, fused=True,
                                 max_prefill_tokens=64),
-                      kernels=("paged_prefill", "paged_attention",
-                               "rmsnorm")),
+                      kernels=("paged_prefill", "paged_prefill_fma",
+                               "paged_attention", "rmsnorm")),
 }
 
 
@@ -1305,6 +1406,7 @@ def phase_head_dim_32():
              "paged_prefill": pp["paged_prefill"],
              "paged_prefill_tiered": pp["paged_prefill_tiered"],
              "stage_host_blocks": pp["stage_host_blocks"],
+             "paged_prefill_fma": pp["paged_prefill_fma"],
              "flash_attention_bwd": check_flash_bwd(gen, SMOKE_SHAPES)}
     for name, err in worst.items():
         _say(f"[d32] {name}: max_abs_err bf16 {err['bfloat16']:.3g} f32 "
@@ -1484,7 +1586,8 @@ def _profile_decode(cfg, params, prompts, out_len, steps=4):
 
 
 # the paged kernels of the serving paths, by the name the profiler shows
-PAGED_KERNELS = ("paged_prefill_kernel", "stage_host_blocks_kernel",
+PAGED_KERNELS = ("paged_prefill_mma", "paged_prefill_kernel",
+                 "stage_host_blocks_kernel",
                  "paged_decode_kernel", "paged_decode_combine")
 TWO_POOL_RANGE = "paged_prefill two pools"
 
@@ -1646,6 +1749,18 @@ REPLACES = {
         "src/repro/kernels/paged_prefill.py:210",
         "the first half of the two-pool call: the Pallas kernel fetched "
         "the host-pool blocks by DMA inside its grid"),
+    "paged_prefill_mma": (
+        "src/repro_torch/csrc/paged_prefill.cu",
+        "src/repro/kernels/paged_prefill.py:140",
+        "src/repro/kernels/paged_prefill.py:186",
+        "the body of both forms on the tensor cores (tc::paged_prefill_mma,"
+        " mma.sync): bf16 at D 64 and 128, every main path"),
+    "paged_prefill_fma": (
+        "src/repro_torch/csrc/paged_prefill.cu",
+        "src/repro/kernels/paged_prefill.py:140",
+        "src/repro/kernels/paged_prefill.py:186",
+        "the body of both forms on the CUDA cores (paged_prefill_kernel): "
+        "f32, and bf16 at D 32 (the smoke paths)"),
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:29",
                 "src/repro/kernels/rmsnorm.py:44", None),
@@ -1661,7 +1776,8 @@ REPLACES = {
 MAIN_PATH = {"flash_attention": "serve", "paged_attention": "serve",
              "paged_attention_combine": "serve",
              "paged_prefill": "fused", "paged_prefill_tiered": "fused",
-             "stage_host_blocks": "fused",
+             "stage_host_blocks": "fused", "paged_prefill_mma": "fused",
+             "paged_prefill_fma": "fused-smoke",
              "rmsnorm": "train", "rmsnorm_bwd": "train",
              "flash_attention_bwd": "train"}
 
@@ -1696,7 +1812,7 @@ def main(argv=None) -> int:
     kern = phase_kernels()
     for name, err in phase_head_dim_32().items():   # rows hold the worst
         for key, e in err.items():
-            kern[name][0][key] = max(kern[name][0][key], e)
+            kern[name][0][key] = max(kern[name][0].get(key, 0.0), e)
     paths = phase_smoke()
     paths["serve"] = phase_serve(profile=args.profile)
     params = paths["serve"].pop("params")
@@ -1723,11 +1839,12 @@ def main(argv=None) -> int:
             "launches_by_path": {k: v["launches"][name]
                                  for k, v in paths.items()},
             "max_abs_err": err["bfloat16"],
-            "max_abs_err_f32": err["float32"],
+            "max_abs_err_f32": err.get("float32"),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
-        for extra in ("at_train_shape", "at_serve_shapes", "at_b1_ctx4096",
+        for extra in ("at_train_shape", "at_serve_shapes", "at_other_shapes",
+                      "at_b1_ctx4096",
                       "bound_ms_pcie", "copy_engine_ms", "by_kernel_ms",
                       "staged_bytes", "library_note"):
             if extra in t:

@@ -466,42 +466,6 @@ __device__ __forceinline__ void load_tile_async(uint32_t dst,
   }
 }
 
-// The ldmatrix row address of this lane for a 16 x 16 block at (row0,
-// col0) of a swizzled tile: as an A operand (rows = m), or as two B
-// operands stored [n][k] (`b_nk`), or as two B operands stored [k][n]
-// read transposed (`b_kn`).
-template <int D>
-__device__ __forceinline__ uint32_t a_addr(uint32_t tile, int row0,
-                                           int col0, int lane) {
-  return tile + swz<D>(row0 + (lane & 15), col0 + (lane >> 4) * 8);
-}
-template <int D>
-__device__ __forceinline__ uint32_t b_nk_addr(uint32_t tile, int n0, int k0,
-                                              int lane) {
-  return tile + swz<D>(n0 + (lane & 7) + (lane >> 4) * 8,
-                       k0 + ((lane >> 3) & 1) * 8);
-}
-template <int D>
-__device__ __forceinline__ uint32_t b_kn_addr(uint32_t tile, int k0, int n0,
-                                              int lane) {
-  return tile + swz<D>(k0 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                       n0 + (lane >> 4) * 8);
-}
-
-// Accumulator tiles (16 x 8 each, N8 of them along n) to bf16 A
-// fragments along k: chunk kc is accumulator tiles 2kc and 2kc + 1.
-template <int N8>
-__device__ __forceinline__ void acc_to_a(const float (&acc)[N8][4],
-                                         uint32_t (&a)[N8 / 2][4]) {
-#pragma unroll
-  for (int kc = 0; kc < N8 / 2; ++kc) {
-    a[kc][0] = pack_bf16(acc[2 * kc][0], acc[2 * kc][1]);
-    a[kc][1] = pack_bf16(acc[2 * kc][2], acc[2 * kc][3]);
-    a[kc][2] = pack_bf16(acc[2 * kc + 1][0], acc[2 * kc + 1][1]);
-    a[kc][3] = pack_bf16(acc[2 * kc + 1][2], acc[2 * kc + 1][3]);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS, min_blocks_dq<D>())
 flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,

@@ -8,7 +8,10 @@ straight over the paged pool, and a segment whose layer lives in the host
 tier (layer-wise offload mid-prefill) reads the pinned HOST pool. On the
 card a two-pool call first stages the host segments' live blocks into a
 device buffer (each host byte crosses PCIe once), then runs the one-pool
-body, which reads them there.
+body, which reads them there. The body is one of two kernels, picked by
+dtype and head dim (`body_route`): bf16 at D = 64 and 128 runs the
+tensor-core kernel (mma.sync), f32 at every D and bf16 at D = 32 the
+CUDA-core one.
 """
 from __future__ import annotations
 
@@ -27,6 +30,11 @@ from repro_torch.kernels.ref import paged_prefill_reference
 launches = 0
 launches_tiered = 0
 launches_stage = 0
+# the same calls' body launches by route: the tensor-core kernel
+# (`tc::paged_prefill_mma`) or the CUDA-core one (`paged_prefill_kernel`);
+# launches_mma + launches_fma == launches + launches_tiered
+launches_mma = 0
+launches_fma = 0
 # the largest staging buffer a two-pool call allocated since the last
 # reset, in bytes (transient, one layer at a time; not KV capacity)
 staging_bytes_peak = 0
@@ -72,6 +80,16 @@ def _fn():
         f.argtypes = [vp] * 10 + [ci] * 10 + [ctypes.c_float, ci, vp]
         f.restype = ci
     return f
+
+
+def body_route(dtype, head_dim) -> str:
+    """The body kernel a CUDA call launches for q of `dtype` and
+    `head_dim`, as the kernel library dispatches it: "mma" (tensor cores)
+    or "fma" (CUDA cores)."""
+    f = _build.load("paged_prefill").paged_prefill_route
+    if f.argtypes is None:
+        f.argtypes, f.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return "mma" if f(head_dim, _DTYPES[dtype]) else "fma"
 
 
 def _stage_fn():
@@ -158,13 +176,15 @@ def paged_prefill(q, kv_pool, block_table, seg_ids, q_pos, kv_len, *,
     (T, H, D) in q.dtype. The chunk's own K/V must already be in the
     pool.
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel,
-    which takes bf16 or f32, D in {32, 64, 128}, H / KV <= 16 and contiguous
-    inputs, with `host_pool` in pinned CPU memory; a two-pool call first
-    launches the staging kernel (`stage_host_blocks`) into a transient
-    device buffer of S * MAXB blocks, which the body reads in place of the
-    host pool. Raises on anything else."""
+    CPU tensors run the plain version. CUDA tensors launch the kernel
+    (its body on the route `body_route` names), which takes bf16 or f32, D
+    in {32, 64, 128}, H / KV <= 16 and contiguous inputs, with `host_pool`
+    in pinned CPU memory; a two-pool call first launches the staging
+    kernel (`stage_host_blocks`) into a transient device buffer of S * MAXB
+    blocks, which the body reads in place of the host pool. Raises on
+    anything else."""
     global launches, launches_tiered, launches_stage, staging_bytes_peak
+    global launches_mma, launches_fma
     if q.device.type == "cpu":
         return paged_prefill_plain(
             q, kv_pool, block_table, seg_ids, q_pos, kv_len,
@@ -230,4 +250,8 @@ def paged_prefill(q, kv_pool, block_table, seg_ids, q_pos, kv_len, *,
                                  staged.numel() * staged.element_size())
     else:
         launches += 1
+    if body_route(q.dtype, D) == "mma":
+        launches_mma += 1
+    else:
+        launches_fma += 1
     return out

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from paged_chunk_layouts import CHUNKINGS, chunk_layout
 from repro_torch.kernels import flash_prefill, paged_attention, \
     paged_prefill, rmsnorm
 
@@ -26,6 +27,9 @@ DTYPES = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
 # llama2-7b, granite-3-2b, and the granite-3-2b and deepseek-moe-16b
 # smoke configs (D = 32: bf16 on the CUDA-core kernels)
 SHAPES = [(32, 32, 128), (32, 8, 64), (8, 2, 32), (4, 4, 32)]
+# the paged prefill's largest group: 16 query heads per KV head, 512
+# (query, head) rows per 32-token tile, several blocks per tile
+G16 = (32, 2, 128)
 
 
 def _need_cuda():
@@ -247,7 +251,7 @@ def _segments(specs, H, D, MAXB, NB, tq, seed):
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("H,KV,D", SHAPES)
+@pytest.mark.parametrize("H,KV,D", SHAPES + [G16])
 @pytest.mark.parametrize("tq", [8, 32])
 def test_paged_prefill_kernel_matches_plain(dtype, tol, H, KV, D, tq):
     """Chunk edges (straddling a block, block-aligned, one token, mid-block
@@ -269,6 +273,49 @@ def test_paged_prefill_kernel_matches_plain(dtype, tol, H, KV, D, tq):
                                atol=tol, rtol=tol)
     assert torch.isfinite(got).all() and (got[~live] == 0).all()
     assert paged_prefill.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D", SHAPES + [G16])
+def test_paged_prefill_rows_invariant_to_chunking(dtype, H, KV, D):
+    """A row's output depends only on its q, its segment's keys and the
+    key steps: the prompt's rows computed as one chunk, as two chunks and
+    as three (split mid-block, other segments beside them, tq 32:
+    `paged_chunk_layouts`) are equal bit for bit."""
+    _need_cuda()
+    pool = _randn((64, 16, 2, KV, D), dtype, 21)
+    outs = {}
+    for name, cuts in CHUNKINGS.items():
+        q, *ints, rows = (torch.from_numpy(a).cuda()
+                          for a in chunk_layout(cuts, H, D))
+        outs[name] = paged_prefill.paged_prefill(q.to(dtype), pool, *ints,
+                                                 tq=32)[rows]
+    torch.cuda.synchronize()
+    for name in CHUNKINGS:
+        assert torch.equal(outs[name], outs["one chunk"]), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_paged_prefill_body_route(dtype, D):
+    """bf16 at D = 64 and 128 launches the tensor-core body, f32 at every
+    D and bf16 at D = 32 the CUDA-core one: one launch on the route's
+    counter per call, one pool or two."""
+    _need_cuda()
+    KV, BS = 2, 16
+    pool = _randn((8, BS, 2, KV, D), dtype, 22)
+    q, (tab, seg, pos, klen), _ = _segments([(20, 30)], 8, D, 4, 8, 32, 23)
+    route = "mma" if dtype == torch.bfloat16 and D >= 64 else "fma"
+    assert paged_prefill.body_route(dtype, D) == route
+    for kw in ({}, {"host_pool": pool.cpu().pin_memory(),
+                    "tier": torch.ones(1, dtype=torch.bool, device="cuda")}):
+        before = (paged_prefill.launches_mma, paged_prefill.launches_fma)
+        paged_prefill.paged_prefill(q.to(dtype), pool, tab, seg, pos, klen,
+                                    tq=32, **kw)
+        torch.cuda.synchronize()
+        after = (paged_prefill.launches_mma, paged_prefill.launches_fma)
+        want = (1, 0) if route == "mma" else (0, 1)
+        assert (after[0] - before[0], after[1] - before[1]) == want
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)

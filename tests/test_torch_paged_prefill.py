@@ -19,6 +19,7 @@ from repro.kernels import ref as jref
 from repro.kernels.paged_prefill import paged_prefill_pallas
 from repro_torch.kernels import ops, paged_prefill
 from repro_torch.kernels import ref as tref
+from paged_chunk_layouts import CHUNKINGS, chunk_layout
 
 torch.set_num_threads(2)
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -200,3 +201,24 @@ def test_staged_host_blocks_one_pool_match_jax_two_pools(case):
     rows = klen[seg] > 0
     np.testing.assert_allclose(got[rows], want[rows], **TOL)
     assert np.all(np.isfinite(got))
+
+
+@pytest.mark.parametrize("cut", ["two chunks", "three chunks"])
+@pytest.mark.parametrize("H,KV,D", [(4, 1, 64), (8, 2, 32)])
+def test_paged_prefill_plain_rows_invariant_to_chunking(cut, H, KV, D):
+    """A row's output depends only on its q, its segment's keys and its
+    position: the prompt's rows computed as one chunk and as chunks split
+    mid-block, with other segments beside them (`paged_chunk_layouts`,
+    the card test's case), agree with each other
+    and with the JAX reference and the Pallas kernel on every layout (tq
+    32, BS 16)."""
+    pool = _pool(64, 16, KV, D, seed=21)
+    outs = {}
+    for name in ("one chunk", cut):
+        q, tab, seg, pos, klen, rows = chunk_layout(CHUNKINGS[name], H, D)
+        assert np.array_equal(pos[rows], np.arange(100))
+        got, want, pallas = _both(q, pool, tab, seg, pos, klen, tq=32)
+        np.testing.assert_allclose(got[rows], want[rows], **TOL)
+        np.testing.assert_allclose(got[rows], pallas[rows], **TOL)
+        outs[name] = got[rows]
+    np.testing.assert_allclose(outs[cut], outs["one chunk"], **TOL)

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Sweep the tuning constants of the paged kernels on one NVIDIA GPU.
 
-    python3 tools/paged_sweep.py [OUT_JSON]
+    python3 tools/paged_sweep.py [--only decode,stage,body] [OUT_JSON]
 
 Writes variants of `csrc/paged_attention.cu` (SPLIT tokens per block, NW
-warps, STAGES of the cp.async ring) and of the staging kernel in
+warps, STAGES of the cp.async ring), of the staging kernel in
 `csrc/paged_prefill.cu` (ST_UNROLL loads in flight per thread,
-ST_MAX_PARTS blocks per pool block) under the gitignored
-`build/sweep/`, with the constants substituted, builds them with one
-`nvcc` each, in parallel, loads them with ctypes and times, with
+ST_MAX_PARTS blocks per pool block) and of its tensor-core body (BK keys
+per step, STAGES of its ring, MAX_NWR warps per block) under the
+gitignored `build/sweep/`, with the constants substituted, builds them
+with one `nvcc` each, in parallel, loads them with ctypes and times, with
 `chip_smoke._time_ms`:
 
   - paged decode (split kernel + combine), llama2-7b heads, bf16, BS 16:
@@ -16,6 +17,9 @@ ST_MAX_PARTS blocks per pool block) under the gitignored
     B 32 at ctx 256-2047, each variant checked against the plain version;
   - the staging of the fused path's timed shape (64 live host blocks of
     256 KB from the pinned pool), checked bit for bit;
+  - the one-pool body at that shape (a 512-token chunk at offset 512,
+    llama2-7b heads) and at granite-3-2b's (H 32, KV 8, D 64), bf16,
+    each variant checked against the plain version;
   - the copy engine on the same bytes, pinned to device and back
     (`copy_`, non-blocking).
 
@@ -37,6 +41,10 @@ DECODE = [(256, 4, 3), (256, 4, 4), (256, 4, 2), (512, 4, 3), (128, 4, 3),
           (256, 8, 3)]
 # (ST_UNROLL, ST_MAX_PARTS); the first is the committed kernel's
 STAGE = [(4, 16), (8, 16), (4, 64), (16, 8)]
+# the tensor-core body's (BK, STAGES, MAX_NWR); the first is the
+# committed kernel's (Q passes through one ring slot: MAX_NWR * 8 <= BK)
+BODY = [(64, 2, 4), (64, 3, 4), (32, 3, 4), (32, 2, 4), (64, 2, 8),
+        (64, 2, 2)]
 
 
 def _variant(name, src, repl):
@@ -60,24 +68,37 @@ def _variant(name, src, repl):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    kinds = {"decode", "stage", "body"}
+    if argv[:1] == ["--only"]:
+        kinds, argv = set(argv[1].split(",")), argv[2:]
     sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_prefill as pp
     os.makedirs(OUT, exist_ok=True)
     builds = {}
-    for s, w, st in DECODE:
+    for s, w, st in DECODE if "decode" in kinds else ():
         builds[("decode", s, w, st)] = _variant(
             f"decode_s{s}_w{w}_st{st}", "paged_attention.cu",
             [("constexpr int SPLIT = 256;", f"constexpr int SPLIT = {s};"),
              ("constexpr int NW = 4;", f"constexpr int NW = {w};"),
              ("constexpr int STAGES = 3;", f"constexpr int STAGES = {st};")])
-    for u, p in STAGE:
+    for u, p in STAGE if "stage" in kinds else ():
         builds[("stage", u, p)] = _variant(
             f"stage_u{u}_p{p}", "paged_prefill.cu",
             [("constexpr int ST_UNROLL = 4;", f"constexpr int ST_UNROLL = {u};"),
              ("constexpr int ST_MAX_PARTS = 16;",
               f"constexpr int ST_MAX_PARTS = {p};")])
+    for bk, st, nw in BODY if "body" in kinds else ():
+        builds[("body", bk, st, nw)] = _variant(
+            f"body_bk{bk}_st{st}_nwr{nw}", "paged_prefill.cu",
+            [("constexpr int BK = 64;         // keys per step",
+              f"constexpr int BK = {bk};         // keys per step"),
+             ("constexpr int STAGES = 2;      // depth",
+              f"constexpr int STAGES = {st};      // depth"),
+             ("constexpr int MAX_NWR = 4;     // warps",
+              f"constexpr int MAX_NWR = {nw};     // warps")])
     libs = {}
     for key, (proc, so) in builds.items():
         if proc.wait():
@@ -169,6 +190,43 @@ def main(argv=None) -> int:
                              "gb_per_s": nbytes / ms / 1e6})
         print(f"[sweep] staging ST_UNROLL {key[1]} ST_MAX_PARTS {key[2]}: "
               f"{ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s", flush=True)
+    res["body"] = []
+    for arch in ("llama2-7b", "granite-3-2b"):
+        Hb, KVb, Db = cs.FLASH_SHAPES[arch]
+        qb, segb, posb, klenb, _, mb = cs._pp_batch(gen, Hb, KVb, Db, bf16,
+                                                    [(512, 512)])
+        poolb = torch.randn(4 * mb, 16, 2, KVb, Db, generator=gen,
+                            device="cuda").to(bf16)
+        tabb = torch.randperm(4 * mb, generator=gen, device="cuda")[:mb] \
+            .reshape(1, mb).int()
+        wantb = pp.paged_prefill_plain(qb, poolb, tabb, segb, posb, klenb,
+                                       tq=32)
+        for key, lib in libs.items():
+            if key[0] != "body":
+                continue
+            f = lib.paged_prefill_fwd
+            f.argtypes = [vp] * 10 + [ci] * 10 + [ctypes.c_float, ci, vp]
+            outb = torch.empty_like(qb)
+
+            def call():
+                err = f(qb.data_ptr(), poolb.data_ptr(), None, None,
+                        tabb.data_ptr(), segb.data_ptr(), posb.data_ptr(),
+                        klenb.data_ptr(), None, outb.data_ptr(),
+                        qb.shape[0], Hb, KVb, Db, 16, 1, mb, 32,
+                        poolb.shape[0], 0, Db ** -0.5, 1,
+                        torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{key}: cudaError_t {err}")
+            call()
+            err, ok = cs._max_err(outb, wantb, 2e-2)
+            if not ok:
+                raise AssertionError(f"{key} {arch}: err {err}")
+            ms = cs._time_ms(call, reps=50)
+            res["body"].append({"bk": key[1], "stages": key[2],
+                                "max_nwr": key[3], "shape": arch, "ms": ms})
+            print(f"[sweep] body BK {key[1]} STAGES {key[2]} MAX_NWR "
+                  f"{key[3]} {arch} timed shape: {ms:.4f} ms", flush=True)
+        del qb, poolb, tabb, wantb
     src = torch.empty(nbytes // 2, dtype=bf16).pin_memory()
     dst = torch.empty(nbytes // 2, dtype=bf16, device="cuda")
     for name, fn in (("h2d", lambda: dst.copy_(src, non_blocking=True)),
