@@ -22,13 +22,14 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            bf16 kernel's 128 x 128 tiles with G = H / KV in {1, 4, 8} at
            D = 64 and 128 (Sq 1000 / Skv 1037, kv_len below one tile,
            per-row q_offset with kv_len across a tile, a window of 200);
-           paged decode (the split kernel and its combine) at B = 1, 8,
-           32 with power-of-two pad rows (kv_len = 0 on a trash block),
-           BS = 16, MAXB a multiple of 8, contexts up to 4096, and at the
-           split's edges, against the plain version and the plain split
+           paged decode (one launch of the split kernel, whose last split
+           block per row merges the row's splits) at B = 1, 8, 32 with
+           power-of-two pad rows (kv_len = 0 on a trash block), BS = 16,
+           MAXB a multiple of 8, contexts up to 4096, and at the split's
+           edges, against the plain version and the plain split
            algorithm, batch-invariant bit for bit (each row of a batch of
-           8 alone), and the combine kernel against its plain version on
-           the split kernel's partials; paged
+           8 alone, and a second call), and the in-kernel merge against
+           its plain version on the partials the launch left; paged
            prefill at the same two shapes and at G = 16 (H 32, KV 2, D
            128: 512 rows per tile), tq = 32, BS = 16, each call's body
            asserted on its route (bf16 at D 64 / 128 on the tensor-core
@@ -39,9 +40,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            and at the fused step's own layout and size (a 512-token chunk
            at offset 512 among one-token segments, a dummy slot and tail
            tiles, T = 1024, MAXB 64), one pool and two; for every two-pool
-           case the staging kernel writes exactly the live host blocks,
-           each equal to its plain version, and the two-pool output equals
-           the one-pool output on the same blocks bit for bit; RMSNorm forward
+           case the staging (the copy engine on the side stream) writes
+           exactly the live host blocks, each equal to its plain version,
+           and the two-pool output equals the one-pool output on the same
+           blocks bit for bit; RMSNorm forward
            against its plain version and its backward (dx, dw) against
            autograd through the plain version, and the flash backward
            (dq, dk, dv) against autograd through the plain flash
@@ -55,23 +57,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            Then time each kernel at its main-path shape (the flash
            forward also at the train path's, paged decode also at B 1,
            ctx 4096; paged prefill, both variants, held once more against
-           its plain version on the timed inputs, the two-pool call split
-           by kernel with torch.profiler, the staging kernel alone beside
-           the copy engine on the same bytes, the tensor-core body also
-           at granite-3-2b's heads and the CUDA-core body at the smoke
-           paths' D = 32) with CUDA events around
-           back-to-back calls that
-           a spin kernel let the host enqueue first (device time, not the
-           host's launch rate), beside its plain version, one PyTorch
-           library call where one computes the same
-           function (scaled_dot_product_attention, its backward with
-           enable_gqa, F.rms_norm and its autograd backward: yardsticks the
-           port never calls), and its bound: the larger of bytes /
-           3.35 TB/s and operations / the peak for their type (989 TFLOP/s
-           bf16 dense for attention, 67 TFLOP/s f32 for the norm's
-           elementwise math; H100 SXM data sheet). The RMSNorm forward is
-           also timed at llama2-7b's serve shapes (1024 x 4096 prefill,
-           8 x 4096 decode), where the serve path's launches run.
+           its plain version on the timed inputs, the two-pool call
+           (staging from a host-side list of runs, then the body) split
+           by kernel with torch.profiler, the staging alone on the side
+           stream beside one copy_ of the same bytes from one pinned
+           buffer, the staged blocks held against the plain staging,
+           the tensor-core body also at granite-3-2b's heads and the
+           CUDA-core body at the smoke paths' D = 32) with CUDA events
+           around back-to-back calls that a spin kernel let the host
+           enqueue first (device time, not the host's launch rate),
+           beside its plain version, one PyTorch library call where one
+           computes the same function (scaled_dot_product_attention,
+           its backward with enable_gqa, F.rms_norm and its autograd
+           backward: yardsticks the port never calls), and its bound:
+           the larger of bytes / 3.35 TB/s and operations / the peak for
+           their type (989 TFLOP/s bf16 dense for attention, 67 TFLOP/s
+           f32 for the norm's elementwise math; H100 SXM data sheet).
+           The RMSNorm forward is also timed at llama2-7b's serve shapes
+           (1024 x 4096 prefill, 8 x 4096 decode), where the serve
+           path's launches run.
   d32      every attention kernel (flash forward and backward, paged
            decode, paged prefill over one pool and two) against its plain
            version at head dim 32, the smoke configs' (granite-3-2b H 8
@@ -119,7 +123,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
   profile  (only with --profile) torch.profiler over a few decode-only
            steps of an exclusive vllm llama2-7b run at B = 8, over one
            more layerkv run of the fused path (the paged kernels' device
-           time and launches, the two-pool calls apart), and over one
+           time and launches, the two-pool calls apart, the side
+           stream's staging copies with the share that overlaps compute
+           kernels, and staging host calls, runs and host time per
+           step), and over one
            train step after the train phase: wall and device-busy time,
            device ops, top device ops.
 
@@ -351,18 +358,19 @@ def _paged_rows(gen, H, KV, D, dtype, lens, BS=16):
 
 
 def check_paged(gen, sizes=FLASH_SHAPES):
-    """Paged decode (split kernel + combine) against its plain version
-    and the plain split algorithm: B = 1, 8, 32 with pow2 pad rows
-    (kv_len 0 on a trash block) and contexts up to 4096, and rows at the
-    split's edges; every row finite, pad rows 0. Batch invariance: each
-    row of a batch of 8 has the same bits alone. The combine kernel
-    against its plain version on the split kernel's own partials. Returns
-    the worst error per dtype of the decode and of the combine."""
+    """Paged decode (the split kernel, whose last split block per row
+    merges the row's splits) against its plain version and the plain
+    split algorithm: B = 1, 8, 32 with pow2 pad rows (kv_len 0 on a
+    trash block) and contexts up to 4096, and rows at the split's edges;
+    every row finite, pad rows 0. Batch invariance: each row of a batch
+    of 8 has the same bits alone and in a repeated call. The in-kernel
+    merge against its plain version (`combine_plain`) on the partials the
+    same launch left. Returns the worst error per dtype."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     SP = pa.SPLIT
     edges = [1, SP - 1, SP, SP + 1, 2 * SP - 1, 2 * SP, 2 * SP + 1, 4096, 0]
-    worst = {"paged_attention": {}, "paged_attention_combine": {}}
+    worst = {}
     for arch, (H, KV, D) in sizes.items():
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
@@ -389,14 +397,17 @@ def check_paged(gen, sizes=FLASH_SHAPES):
                 if not (ok and ok2):
                     raise AssertionError(f"paged kernel disagrees: {arch} "
                                          f"{dtype} {name} err {err} / {err2}")
-                worst["paged_attention"][key] = max(
-                    worst["paged_attention"].get(key, 0.0), err, err2)
+                worst[key] = max(worst.get(key, 0.0), err, err2)
                 del q, pool, tab, lens, got, want, split
-            # batch invariance, and the combine on the kernel's partials
+            # batch invariance, and the merge on the launch's partials
             q, pool, tab, lens = _paged_rows(gen, H, KV, D, dtype,
                                              [1040, 281, 700, 4096, 513, 256,
                                               0, 17])
-            full = pa.paged_attention(q, pool, tab, lens)
+            full, part_o, part_ml = pa.split_pass(q, pool, tab, lens,
+                                                  D ** -0.5)
+            if not torch.equal(pa.paged_attention(q, pool, tab, lens), full):
+                raise AssertionError(f"paged kernel differs between two "
+                                     f"calls: {arch} {dtype}")
             for i in range(q.shape[0]):
                 alone = pa.paged_attention(q[i:i + 1].contiguous(), pool,
                                            tab[i:i + 1].contiguous(),
@@ -405,22 +416,18 @@ def check_paged(gen, sizes=FLASH_SHAPES):
                     raise AssertionError(f"paged kernel is not batch "
                                          f"invariant: {arch} {dtype} row {i}")
             ctx = tab.shape[1] * 16
-            out, part_o, part_ml = pa.split_pass(q, pool, tab, lens,
-                                                 D ** -0.5)
             rows = pa.n_splits(lens, ctx) > 1
-            got = pa.combine_pass(part_o, part_ml, lens, out.clone(), ctx)
             want = pa.combine_plain(part_o, part_ml,
                                     pa.n_splits(lens, ctx)).to(dtype)
             torch.cuda.synchronize()
-            err, ok = _max_err(got[rows], want[rows], tol)
+            err, ok = _max_err(full[rows], want[rows], tol)
             _say(f"[kernels] paged {arch} {key}: batch-invariant (8 rows "
-                 f"alone = in the batch, bit for bit); combine "
-                 f"max_abs_err {err:.3g} (tol {tol})")
-            if not ok or not torch.equal(got[~rows], out[~rows]):
-                raise AssertionError(f"paged combine disagrees: {arch} "
+                 f"alone = in the batch = a second call, bit for bit); "
+                 f"in-kernel merge max_abs_err {err:.3g} (tol {tol})")
+            if not ok:
+                raise AssertionError(f"paged merge disagrees: {arch} "
                                      f"{dtype} err {err}")
-            worst["paged_attention_combine"][key] = max(
-                worst["paged_attention_combine"].get(key, 0.0), err)
+            worst[key] = max(worst.get(key, 0.0), err)
     return worst
 
 
@@ -481,11 +488,12 @@ def _decode_bound(ctx, H, KV, D, BS, B):
 def time_paged(gen):
     """llama2-7b decode attention of one layer at the serve phase's batch
     (8 sequences at their prompt lengths + 16) and at B 1, ctx 4096, bf16,
-    BS 16: the split kernel with its combine (one wrapper call) beside the
-    plain version. The combine kernel alone at the serve batch, on the
-    split kernel's own partials, beside its plain version, is returned as
-    a row of its own. Returns (decode row with "at_b1_ctx4096", combine
-    row)."""
+    BS 16: one wrapper call (the split kernel, which merges a row's
+    splits itself) beside the plain version. On a tree from before the
+    merge was folded in (its module has `combine_pass`, as a parent
+    checkout run by tools/paged_ab.py may), the separate combine kernel
+    is also timed alone on the serve batch's partials ("combine_ms").
+    Returns the decode row with "at_b1_ctx4096"."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     H, KV, D = FLASH_SHAPES["llama2-7b"]
@@ -501,26 +509,18 @@ def time_paged(gen):
         rows.append(_bound(ms, plain, None, nbytes, flops, BF16_FLOPS_PER_S,
                            f"B={B} ctx {min(ctx)}-{max(ctx)} H=KV={H} D={D} "
                            f"bf16 BS={BS}"))
-        if B > 1:    # the combine alone, on this batch's partials
+        if B > 1 and hasattr(pa, "combine_pass"):
             out, part_o, part_ml = pa.split_pass(q, pool, tab, lens,
                                                  D ** -0.5)
-            used = pa.n_splits(lens, tab.shape[1] * BS)
             ctx_t = tab.shape[1] * BS
-            c_ms = _time_ms(lambda: pa.combine_pass(part_o, part_ml, lens,
-                                                    out, ctx_t))
-            c_plain = _time_ms(lambda: pa.combine_plain(part_o, part_ml,
-                                                        used), reps=5)
-            n_used = int(used[used > 1].sum())
-            n_rows = int((used > 1).sum())
-            c_bytes = H * (n_used * (D + 2) * 4 + n_rows * D * 2) + B * 4
-            combine = _bound(c_ms, c_plain, None, c_bytes,
-                             3 * H * D * n_used, F32_FLOPS_PER_S,
-                             f"B={B} ctx {min(ctx)}-{max(ctx)} H={H} D={D} "
-                             f"bf16 out, {n_used} f32 partials per head "
-                             f"(SPLIT {pa.SPLIT})")
+            rows[0]["combine_ms"] = _time_ms(lambda: pa.combine_pass(
+                part_o, part_ml, lens, out, ctx_t))
         del q, pool, tab, lens
     rows[0]["at_b1_ctx4096"] = rows[1]
-    return rows[0], combine
+    rows[0]["note"] = ("one launch per call: the split kernel's last block "
+                       "per row merges the row's splits (the separate "
+                       "combine kernel is folded in)")
+    return rows[0]
 
 
 def _pp_batch(gen, H, KV, D, dtype, specs, tq=32, BS=16, tail=0):
@@ -573,9 +573,10 @@ def check_paged_prefill(gen, sizes=PP_SHAPES):
     rows compared, every row finite), and the two-pool variant with the
     host pool pinned on the CPU and host ids above the device pool's
     size, at each of `sizes` ({name: (H, KV, D)}). For every two-pool
-    case also: the staging kernel writes exactly the live host slots, each
-    equal to its plain version (`_check_staging`), and the two-pool output
-    equals the one-pool output over the same blocks bit for bit. Every
+    case also: the staging (the copy engine) writes exactly the live host
+    slots, each equal to its plain version (`_check_staging`), and the
+    two-pool output equals the one-pool output over the same blocks bit
+    for bit. Every
     call's body must take its route (`_pp_route_call`): the tensor-core
     kernel for bf16 at D 64 and 128, the CUDA-core one for f32 and for
     D 32. Returns the worst error per dtype for each variant, for each
@@ -619,7 +620,6 @@ def check_paged_prefill(gen, sizes=PP_SHAPES):
                 nb_dev = 8 if tiers else S * maxb
                 dpool = torch.randn(nb_dev, BS, 2, KV, D, generator=gen,
                                     device="cuda").to(dtype)
-                kw = {"tq": TQ}
                 if tiers:
                     nb_host = 256
                     hpool = torch.randn(nb_host, BS, 2, KV, D, generator=gen,
@@ -630,17 +630,28 @@ def check_paged_prefill(gen, sizes=PP_SHAPES):
                     hi = torch.where(tier, nb_host, nb_dev)[:, None]
                     u = torch.rand(S, maxb, generator=gen, device="cuda")
                     tab = (lo + (u * (hi - lo)).long()).int()
-                    kw.update(host_pool=hpool, tier=tier)
+                    runs = pp.host_block_runs(tab.cpu(), klen.cpu(),
+                                              tier.cpu(), BS, nb_host)
+                    staged = torch.empty((S * maxb, BS, 2, KV, D),
+                                         dtype=dtype, device="cuda")
                     variant = "paged_prefill_tiered"
                 else:
                     tab = torch.randperm(nb_dev, generator=gen,
                                          device="cuda")[:S * maxb] \
                         .reshape(S, maxb).int()
                     variant = "paged_prefill"
-                got = _pp_route_call(route, lambda: pp.paged_prefill(
-                    q, dpool, tab, seg, pos, klen, **kw))
-                want = pp.paged_prefill_plain(q, dpool, tab, seg, pos, klen,
-                                              **kw)
+                def call():
+                    if not tiers:
+                        return pp.paged_prefill(q, dpool, tab, seg, pos,
+                                                klen, tq=TQ)
+                    return staged_two_pool_call(
+                        hpool, runs, staged, lambda: pp.paged_prefill(
+                            q, dpool, tab, seg, pos, klen, tq=TQ,
+                            staged=staged, tier=tier))
+                got = _pp_route_call(route, call)
+                want = pp.paged_prefill_plain(
+                    q, dpool, tab, seg, pos, klen, tq=TQ,
+                    **({"host_pool": hpool, "tier": tier} if tiers else {}))
                 torch.cuda.synchronize()
                 if not torch.isfinite(got).all():
                     raise AssertionError(f"{variant}: non-finite output")
@@ -670,15 +681,19 @@ def check_paged_prefill(gen, sizes=PP_SHAPES):
 
 
 def _check_staging(hpool, tab, klen, tier, BS=16):
-    """Stage into a NaN-filled buffer: the written slots must be exactly
-    the live host slots, each equal to the plain version (torch.equal).
-    Returns the number of blocks staged."""
+    """Stage the live host blocks (`host_block_runs`, then the copy
+    engine on the side stream: `staged_two_pool_call`) into a NaN-filled
+    buffer: the written slots must be exactly the live host slots, each
+    equal to the plain version (torch.equal). Returns the number of
+    blocks staged."""
     import torch
     from repro_torch.kernels import paged_prefill as pp
     S, MAXB = tab.shape
     buf = torch.full((S * MAXB, *hpool.shape[1:]), float("nan"),
                      dtype=hpool.dtype, device="cuda")
-    got = pp.stage_host_blocks(hpool, tab, klen, tier, out=buf)
+    runs = pp.host_block_runs(tab.cpu(), klen.cpu(), tier.cpu(), BS,
+                              hpool.shape[0])
+    got = staged_two_pool_call(hpool, runs, buf, lambda: buf)
     want = pp.stage_host_blocks_plain(hpool, tab, klen, tier)
     live = pp.live_host_slots(tab, klen, tier, BS).reshape(-1)
     torch.cuda.synchronize()
@@ -738,24 +753,46 @@ def _time_pp_one_pool(gen, H, KV, D, dtype, C, off, route, BS=16):
     return t
 
 
+def staged_two_pool_call(hpool, runs, staged, body):
+    """One two-pool paged_prefill call composed as the executor issues it,
+    from a host-side list of runs and with no host sync: the copy engine
+    stages `runs` into `staged` on the side stream after the current
+    stream's work, the current stream waits for it, then `body()` runs
+    (the body reading `staged`). Returns body()'s result."""
+    import torch
+    from repro_torch.kernels import paged_prefill as pp
+    main = torch.cuda.current_stream()
+    side = pp.staging_stream(staged.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        pp.stage_host_runs(hpool, runs, staged)
+    main.wait_stream(side)
+    return body()
+
+
 def time_paged_prefill(gen):
     """llama2-7b chunk attention of one layer at the fused path's shape:
     one 512-token chunk at offset 512 (kv_len 1024), bf16, BS 16, tq 32,
     over the device pool and, for the two-pool variant, over the same
-    blocks in the pinned host pool. The two-pool call is timed whole and
-    split by kernel (staging, body) with torch.profiler; the staging
-    kernel is also timed alone, and beside it the copy engine on the same
-    live bytes (a non-blocking copy_ of one contiguous pinned buffer of
-    that size to the device: a yardstick the port never calls). Each
-    variant is held against its plain version, the two-pool output
-    against the one-pool output bit for bit, and the staged blocks
-    against the plain staging (`_check_staging`), and each body call's
-    route asserted (the tensor-core kernel). The tensor-core body is also
+    blocks in the pinned host pool. Each variant is held against its
+    plain version, the two-pool output against the one-pool output bit
+    for bit, the staged blocks against the plain staging
+    (`_check_staging`, and the timed buffer's live slots), and each body
+    call's route asserted (the tensor-core kernel). The two-pool call is
+    timed as the executor issues it, from a host-side list of runs
+    (`staged_two_pool_call`: staging on the side stream, then the body;
+    no host sync inside the timed calls), and split by kernel with
+    torch.profiler. The staging is also timed alone on the side stream,
+    for the timed table (64 live blocks in random order) and for the same
+    bytes as one run, beside the copy engine moving them from one
+    contiguous pinned buffer (a copy_: a yardstick the port never calls).
+    The tensor-core body is also
     timed at granite-3-2b's heads (H 32, KV 8, D 64) on the same chunk,
     and the CUDA-core body at the smoke paths' shape (granite-3-2b smoke,
     D 32, bf16: a 64-token chunk at offset 64). Returns the rows of
     paged_prefill, paged_prefill_tiered, stage_host_blocks and of the two
     body kernels, paged_prefill_mma and paged_prefill_fma."""
+    import numpy as np
     import torch
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.serving.executor import MIXED_TQ as TQ
@@ -770,6 +807,9 @@ def time_paged_prefill(gen):
         .reshape(1, maxb).int()
     hpool = pool.cpu().pin_memory()
     tier = torch.ones(1, dtype=torch.bool, device="cuda")
+    runs = pp.host_block_runs(tab.cpu(), klen.cpu(), tier.cpu(), BS, NB)
+    staged = torch.empty((maxb, BS, 2, KV, D), dtype=torch.bfloat16,
+                         device="cuda")
     kvl = off + C
     pairs = _flash_pairs(C, [off], [kvl])
     flops = 4 * D * H * pairs
@@ -778,11 +818,17 @@ def time_paged_prefill(gen):
     shape = (f"T={C} at offset {off} (kv_len {kvl}) H=KV={H} D={D} bf16 "
              f"BS={BS} tq={TQ}")
     out, one = {}, None
+
+    def body(**kw):
+        return pp.paged_prefill(q, pool, tab, seg, pos, klen, tq=TQ, **kw)
+
+    def two_pool():
+        return staged_two_pool_call(hpool, runs, staged, lambda: body(
+            staged=staged, tier=tier))
     for name, kw in (("paged_prefill", {}),
                      ("paged_prefill_tiered",
                       {"host_pool": hpool, "tier": tier})):
-        got = _pp_route_call("mma", lambda: pp.paged_prefill(
-            q, pool, tab, seg, pos, klen, tq=TQ, **kw))
+        got = _pp_route_call("mma", two_pool if kw else body)
         want = pp.paged_prefill_plain(q, pool, tab, seg, pos, klen, tq=TQ,
                                       **kw)
         torch.cuda.synchronize()
@@ -799,40 +845,54 @@ def time_paged_prefill(gen):
             raise AssertionError("two pools differ from one pool on the "
                                  "same blocks at the timed shape")
         del want
-        ms = _time_ms(lambda: pp.paged_prefill(q, pool, tab, seg, pos, klen,
-                                               tq=TQ, **kw))
+        ms = _time_ms(two_pool if kw else body)
         plain = _time_ms(lambda: pp.paged_prefill_plain(
             q, pool, tab, seg, pos, klen, tq=TQ, **kw), reps=5)
         t = _bound(ms, plain, None, nbytes, flops, BF16_FLOPS_PER_S,
-                   shape + (" (K/V in the pinned host pool)"
+                   shape + (" (K/V in the pinned host pool; staging from "
+                            "a host-side list, then the body)"
                             if kw else ""))
         t["max_abs_err"] = err
         if kw:   # the same K/V bytes over PCIe Gen5 x16 (spec, one way)
             t["bound_ms_pcie"] = kv_bytes / PCIE_BYTES_PER_S * 1e3
             t["staged_blocks"] = _check_staging(hpool, tab, klen, tier)
             t["staged_bytes"] = t["staged_blocks"] * BS * 2 * KV * D * 2
-            t["by_kernel_ms"] = _kernel_ms(lambda: pp.paged_prefill(
-                q, pool, tab, seg, pos, klen, tq=TQ, **kw))
+            t["by_kernel_ms"] = _kernel_ms(two_pool)
         out[name] = t
+    live = pp.live_host_slots(tab, klen, tier, BS).reshape(-1)
+    torch.cuda.synchronize()
+    if not torch.equal(staged[live], pp.stage_host_blocks_plain(
+            hpool, tab, klen, tier)[live]):
+        raise AssertionError("staged blocks differ from the plain version")
     _say(f"[kernels] paged_prefill_tiered at the timed shape: bit-identical "
          f"to one pool; staged {out['paged_prefill_tiered']['staged_blocks']}"
          f" blocks = {out['paged_prefill_tiered']['staged_bytes']} bytes "
-         f"(the live K/V: {kv_bytes}); by kernel (profiler, ms/call): "
-         f"{out['paged_prefill_tiered']['by_kernel_ms']}")
-    # the staging kernel alone, and the copy engine on the same bytes
+         f"(the live K/V: {kv_bytes}) in {len(runs)} runs; by kernel "
+         f"(profiler, ms/call): {out['paged_prefill_tiered']['by_kernel_ms']}")
+    # the staging alone on the side stream, as the timed table's runs and
+    # as one run of the same bytes, and the copy engine on one buffer
     src = torch.empty(kv_bytes // 2, dtype=torch.bfloat16).pin_memory()
     dst = torch.empty(kv_bytes // 2, dtype=torch.bfloat16, device="cuda")
-    ce_ms = _time_ms(lambda: dst.copy_(src, non_blocking=True))
-    st = _bound(_time_ms(lambda: pp.stage_host_blocks(hpool, tab, klen,
-                                                      tier)),
-                _time_ms(lambda: pp.stage_host_blocks_plain(
+    one_run = np.asarray([[0, 0, maxb]], np.int64)
+    with torch.cuda.stream(pp.staging_stream(pool.device)):
+        ce_ms = _time_ms(lambda: dst.copy_(src, non_blocking=True))
+        st_ms = _time_ms(lambda: pp.stage_host_runs(hpool, runs, staged))
+        one_ms = _time_ms(lambda: pp.stage_host_runs(hpool, one_run, staged))
+    st = _bound(st_ms, _time_ms(lambda: pp.stage_host_blocks_plain(
                     hpool, tab, klen, tier), reps=5),
                 ce_ms, 2 * kv_bytes + maxb * 4 + 8, 0, BF16_FLOPS_PER_S,
                 f"{kvl // BS} live host blocks of {BS * 2 * KV * D * 2} "
-                f"bytes (llama2-7b, bf16) to the device")
+                f"bytes (llama2-7b, bf16) to the device, {len(runs)} runs "
+                f"(random table) in one copy-engine batch")
     st["bound_ms_pcie"] = kv_bytes / PCIE_BYTES_PER_S * 1e3
+    st["one_run_ms"] = one_ms
+    st["runs"] = len(runs)
     st["library_note"] = ("library_ms: copy_ of the same live bytes from "
                           "one contiguous pinned buffer (the copy engine)")
+    _say(f"[kernels] stage_host_blocks at the timed shape (copy engine, "
+         f"side stream): {st_ms:.4f} ms for {len(runs)} runs, {one_ms:.4f} "
+         f"ms as one run, copy_ of one buffer {ce_ms:.4f} ms, bound over "
+         f"PCIe {st['bound_ms_pcie']:.4f} ms")
     out["stage_host_blocks"] = st
     out["paged_prefill_tiered"]["copy_engine_ms"] = ce_ms
     # the body kernels: the one-pool call launches only the body
@@ -1059,7 +1119,7 @@ def phase_kernels():
     fbwd_err = check_flash_bwd(gen)
     torch.cuda.empty_cache()
     flash_t = time_flash(gen)
-    paged_t, combine_t = time_paged(gen)
+    paged_t = time_paged(gen)
     pp_t = time_paged_prefill(gen)
     norm_t, norm_bwd_t = time_rmsnorm(gen)
     fbwd_t = time_flash_bwd(gen)
@@ -1072,9 +1132,7 @@ def phase_kernels():
             + [t["max_abs_err"] for t in pp_t[name].get("at_other_shapes",
                                                         [])])
     res = {"flash_attention": (flash_err, flash_t),
-           "paged_attention": (paged_err["paged_attention"], paged_t),
-           "paged_attention_combine": (paged_err["paged_attention_combine"],
-                                       combine_t),
+           "paged_attention": (paged_err, paged_t),
            "paged_prefill": (pp_err["paged_prefill"],
                              pp_t["paged_prefill"]),
            "paged_prefill_tiered": (pp_err["paged_prefill_tiered"],
@@ -1108,11 +1166,7 @@ def phase_kernels():
     _say(f"[kernels] paged_attention [{b1['shape']}]: kernel_ms "
          f"{b1['ms']:.4f} plain_ms {b1['plain_ms']:.4f} bound_ms "
          f"{b1['bound_ms']:.4f} ({b1['bound_by']})")
-    tiered = pp_t["paged_prefill_tiered"]
-    _say(f"[kernels] paged_prefill_tiered and stage_host_blocks bound over "
-         f"PCIe (live K/V bytes at 64 GB/s): {tiered['bound_ms_pcie']:.4f} "
-         f"ms; copy engine on the same bytes (pinned copy_): "
-         f"{tiered['copy_engine_ms']:.4f} ms")
+    _say(f"[kernels] paged_attention: {paged_t['note']}")
     _say(f"[kernels] phase {time.perf_counter() - t0:.1f}s")
     return res
 
@@ -1180,7 +1234,8 @@ def _zero_launches():
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import rmsnorm as rn
     fp.launches = pa.launches = pp.launches = pp.launches_tiered = 0
-    pa.launches_combine = pp.launches_stage = pp.staging_bytes_peak = 0
+    pp.launches_stage = pp.stage_runs = 0
+    pp.stage_host_s = 0.0
     pp.launches_mma = pp.launches_fma = 0
     fp.launches_bwd = rn.launches = rn.launches_bwd = 0
 
@@ -1191,7 +1246,6 @@ def _launches():
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import rmsnorm as rn
     return {"flash_attention": fp.launches, "paged_attention": pa.launches,
-            "paged_attention_combine": pa.launches_combine,
             "paged_prefill": pp.launches,
             "paged_prefill_tiered": pp.launches_tiered,
             "stage_host_blocks": pp.launches_stage,
@@ -1201,9 +1255,13 @@ def _launches():
             "flash_attention_bwd": fp.launches_bwd}
 
 
-def _staging_peak():
+def _staging(eng):
+    """The staging counters since `_zero_launches` (the copy-engine runs
+    and the host seconds of listing and issuing them) and the device
+    bytes engine `eng`'s two staging buffers hold."""
     from repro_torch.kernels import paged_prefill as pp
-    return pp.staging_bytes_peak
+    return {"staging_bytes": eng.ex.staging_bytes,
+            "stage_runs": pp.stage_runs, "stage_host_s": pp.stage_host_s}
 
 
 def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
@@ -1226,11 +1284,13 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
     eng, done, st = _serve(cfg, params, "layerkv", ndb, nhb, prompts,
                            out_len, seed=0, device=device, **ec_kw)
     launches = _launches()
-    staging_peak = _staging_peak()
+    staging = _staging(eng)
     _say(f"[{tag}] layerkv: {len(done)} done in {st['wall_s']:.2f}s wall "
          f"({st['steps']} steps; setup+run {time.perf_counter() - t0:.1f}s)"
-         f", launches {launches}, largest staging buffer {staging_peak} "
-         f"bytes")
+         f", launches {launches}; staging: {launches['stage_host_blocks']} "
+         f"calls, {staging['stage_runs']} copy-engine runs, "
+         f"{staging['stage_host_s'] * 1e3:.2f} ms host, staging buffers "
+         f"{staging['staging_bytes']} bytes (both, kept)")
     kinds = [x.kind for x in eng.off.ledger.log]
     n_off, n_rel = kinds.count("offload"), kinds.count("reload")
     mem = (f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB"
@@ -1248,7 +1308,7 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
     if on_cuda and not all(launches[k] > 0 for k in kernels):
         raise AssertionError(f"a kernel was never launched: {launches}")
     if launches["stage_host_blocks"] != launches["paged_prefill_tiered"]:
-        raise AssertionError(f"one staging launch per two-pool call: "
+        raise AssertionError(f"one staging call per two-pool body: "
                              f"{launches}")
     if launches["paged_prefill_mma"] + launches["paged_prefill_fma"] != \
             launches["paged_prefill"] + launches["paged_prefill_tiered"]:
@@ -1291,7 +1351,7 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
              f"decode-only steps = {tps:.1f} tok/s")
     return {"layerkv": st, "vllm": st_v, "offloads": n_off,
             "reloads": n_rel, "agreement": agree / total,
-            "launches": launches, "staging_bytes_peak": staging_peak,
+            "launches": launches, **staging,
             "host_tier_signatures": host_steps,
             "tokens": lk_tokens, "params": params}
 
@@ -1310,22 +1370,20 @@ PATHS = {
     "serve": dict(arch="llama2-7b", n=8, seed=0, out_len=32, ndb=4096,
                   ndb_ref=20000, nhb=16384, mode={},
                   kernels=("flash_attention", "paged_attention",
-                           "paged_attention_combine", "rmsnorm")),
+                           "rmsnorm")),
     "fused": dict(arch="llama2-7b", n=8, seed=0, out_len=32, ndb=4096,
                   ndb_ref=20000, nhb=16384,
                   mode=dict(chunked=True, fused=True,
                             max_prefill_tokens=512),
                   kernels=("paged_prefill", "paged_prefill_tiered",
                            "stage_host_blocks", "paged_prefill_mma",
-                           "paged_attention", "paged_attention_combine",
-                           "rmsnorm")),
+                           "paged_attention", "rmsnorm")),
     "moe": dict(arch="deepseek-moe-16b", n=6, seed=1, out_len=16, ndb=2048,
                 ndb_ref=20000, nhb=16384,
                 mode=dict(chunked=True, fused=True, max_prefill_tokens=512),
                 kernels=("paged_prefill", "paged_prefill_tiered",
                          "stage_host_blocks", "paged_prefill_mma",
-                         "paged_attention", "paged_attention_combine",
-                         "rmsnorm")),
+                         "paged_attention", "rmsnorm")),
     "serve-smoke": dict(arch="granite-3-2b", smoke=True, n=6, seed=2,
                         prompt_lens=(40, 160), out_len=8, ndb=SMOKE_NDB,
                         ndb_ref=1024, nhb=1024, mode={},
@@ -1401,8 +1459,7 @@ def phase_head_dim_32():
     pp = check_paged_prefill(gen, SMOKE_SHAPES)
     paged = check_paged(gen, SMOKE_SHAPES)
     worst = {"flash_attention": check_flash(gen, SMOKE_SHAPES),
-             "paged_attention": paged["paged_attention"],
-             "paged_attention_combine": paged["paged_attention_combine"],
+             "paged_attention": paged,
              "paged_prefill": pp["paged_prefill"],
              "paged_prefill_tiered": pp["paged_prefill_tiered"],
              "stage_host_blocks": pp["stage_host_blocks"],
@@ -1586,6 +1643,9 @@ def _profile_decode(cfg, params, prompts, out_len, steps=4):
 
 
 # the paged kernels of the serving paths, by the name the profiler shows
+# (stage_host_blocks_kernel and paged_decode_combine: a tree from before
+# the staging moved to the copy engine and the combine was folded in, as
+# tools/paged_ab.py traces it)
 PAGED_KERNELS = ("paged_prefill_mma", "paged_prefill_kernel",
                  "stage_host_blocks_kernel",
                  "paged_decode_kernel", "paged_decode_combine")
@@ -1599,12 +1659,20 @@ def _profile_run(cfg, params, tag, prompts):
     device time and launches. Every two-pool paged_prefill call runs
     inside a record_function range (TWO_POOL_RANGE), so the two-pool
     calls' device span shows apart from the one-pool calls' even where
-    both launch one kernel name. Uses only the port's public wrappers, so
-    it runs on any checkout's port."""
+    both launch one kernel name. Every staging call (`stage_host_runs`,
+    where the tree has it) runs between two marker kernels on its stream,
+    so `_side_copies` can read each call's device span off the compute
+    stream and the part of it that overlapped compute kernels; per fused
+    step also the staging host calls, their copy-engine runs and the host
+    time of listing and issuing them (`stage_host_s`). The markers add
+    two tiny kernels per staging call to the traced run only. Uses only
+    the port's public wrappers (reading counters a tree may lack as 0),
+    so it runs on any checkout's port."""
+    import torch
     from torch.profiler import record_function
     from repro_torch.kernels import paged_prefill as pp
     pc = PATHS[tag]
-    inner, done = pp.paged_prefill, []
+    inner, done, stats = pp.paged_prefill, [], {}
 
     def two_pool_marked(*a, **kw):
         if kw.get("tier") is None:
@@ -1613,20 +1681,43 @@ def _profile_run(cfg, params, tag, prompts):
             return inner(*a, **kw)
 
     def run():
-        done.extend(_serve(cfg, params, "layerkv", pc["ndb"], pc["nhb"],
-                           prompts, pc["out_len"], seed=0, device="cuda",
-                           **pc["mode"])[1])
+        _, d, st = _serve(cfg, params, "layerkv", pc["ndb"], pc["nhb"],
+                          prompts, pc["out_len"], seed=0, device="cuda",
+                          **pc["mode"])
+        done.extend(d)
+        stats.update(st)
+    stage = getattr(pp, "stage_host_runs", None)
+
+    def stage_marked(*a, **kw):
+        torch.cuda._sleep(1)          # STAGE_MARKER, on the staging stream
+        try:
+            return stage(*a, **kw)
+        finally:
+            torch.cuda._sleep(1)
+    _zero_launches()
     pp.paged_prefill = two_pool_marked
+    if stage is not None:
+        pp.stage_host_runs = stage_marked
     try:
         out = _trace(run, 1, top=12, kernels=PAGED_KERNELS,
-                     ranges=(TWO_POOL_RANGE,))
+                     ranges=(TWO_POOL_RANGE,), side_copies=True)
     finally:
         pp.paged_prefill = inner
-    out.update(tag=tag, requests=len(done))
+        if stage is not None:
+            pp.stage_host_runs = stage
+    steps = stats["steps"]
+    calls = pp.launches_stage
+    out.update(tag=tag, requests=len(done), steps=steps, staging={
+        "host_calls": calls, "host_calls_per_step": calls / steps,
+        "runs": getattr(pp, "stage_runs", 0),
+        "runs_per_call": getattr(pp, "stage_runs", 0) / max(calls, 1),
+        "host_ms_per_step": getattr(pp, "stage_host_s", 0.0) * 1e3 / steps,
+        "two_pool_bodies": pp.launches_tiered})
     two = out["ranges"][TWO_POOL_RANGE]
     _say(f"[profile] {tag} layerkv run traced: {len(done)} requests, "
-         f"{out['wall_ms_per_step'] / 1e3:.2f} s wall under the profiler, "
-         f"device busy {out['device_busy_ms_per_step'] / 1e3:.3f} s "
+         f"{steps} steps, {out['wall_ms_per_step'] / 1e3:.2f} s wall under "
+         f"the profiler, device busy "
+         f"{out['device_busy_ms_per_step'] / 1e3:.3f} s "
          f"({out['device_busy_share']:.3f}), "
          f"{out['device_ops_per_step']:.0f} device ops")
     for name, k in out["kernels"].items():
@@ -1634,19 +1725,84 @@ def _profile_run(cfg, params, tag, prompts):
              f"{k['launches']} launches")
     _say(f"[profile]   {TWO_POOL_RANGE}: {two['calls']} calls, "
          f"{two['ms']:.3f} ms device")
+    sc = out["side_copies"]
+    _say(f"[profile]   staging on the side stream: {sc['calls']} calls "
+         f"({sc['markers']} markers), {sc['ms']:.3f} ms device, "
+         f"{sc['overlap_ms']:.3f} ms of it beside compute kernels on the "
+         f"compute stream ({sc['overlap_share']:.3f}); the compute stream "
+         f"ran kernels {sc['compute_stream_kernels_ms']:.3f} ms")
+    _say(f"[profile]   staging: {out['staging']}")
     for name, ms, n in out["top"]:
         _say(f"[profile]   {ms:9.3f} ms  x{n:<6d} {name[:90]}")
     return out
 
 
-def _trace(step, steps, top=10, kernels=(), ranges=()):
+def _union(iv):
+    """Sorted disjoint (start, end) intervals covering `iv`."""
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+# the marker kernel `_profile_run` puts on the staging stream around each
+# staging call (torch.cuda._sleep's kernel): the profiler does not record
+# the copies of a cudaMemcpyBatchAsync, so the markers bound them
+STAGE_MARKER = "spin_kernel"
+
+
+def _side_copies(prof, ranges=()):
+    """From a finished profiler's raw device events: the compute stream
+    (the stream whose kernels took the most device time) and the staging
+    calls on any other stream, each the span from the end of the marker
+    before it to the start of the marker after it (STAGE_MARKER, in
+    pairs): their count, summed device time, and how much of it
+    overlapped kernels running on the compute stream; and the time the
+    compute stream had a kernel running."""
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if str(e.device_type()).endswith("CUDA")
+           and e.name() not in ranges]
+    kern = [e for e in evs if not e.name().startswith(("Memcpy", "Memset"))]
+    by_stream = {}
+    for e in kern:
+        by_stream[e.device_resource_id()] = \
+            by_stream.get(e.device_resource_id(), 0) + e.duration_ns()
+    main = max(by_stream, key=by_stream.get) if by_stream else None
+    marks = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in kern if STAGE_MARKER in e.name()
+                   and e.device_resource_id() != main)
+    spans = [(marks[i][1], marks[i + 1][0])
+             for i in range(0, len(marks) - 1, 2)]
+    compute = _union([(e.start_ns(), e.start_ns() + e.duration_ns())
+                      for e in kern if e.device_resource_id() == main])
+    overlap, i = 0, 0
+    for a, b in _union(spans):
+        while i < len(compute) and compute[i][1] <= a:
+            i += 1
+        j = i
+        while j < len(compute) and compute[j][0] < b:
+            overlap += min(b, compute[j][1]) - max(a, compute[j][0])
+            j += 1
+    total = sum(b - a for a, b in spans)
+    return {"calls": len(spans), "markers": len(marks), "ms": total / 1e6,
+            "overlap_ms": overlap / 1e6,
+            "overlap_share": overlap / total if total else 0.0,
+            "compute_stream": main,
+            "compute_stream_kernels_ms": sum(b - a for a, b in compute)
+            / 1e6}
+
+
+def _trace(step, steps, top=10, kernels=(), ranges=(), side_copies=False):
     """torch.profiler over `steps` calls of `step()`: wall per step,
     device-busy time and share, device ops per step, and the `top` device
     ops by time (all with None). With `kernels`, the summed device time
     and launches of the device ops whose name holds each; with `ranges`,
     the device-side span of each record_function range of that name
     (from the first kernel launched inside to the end of the last) and
-    its calls."""
+    its calls; with `side_copies`, `_side_copies` of the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
@@ -1682,6 +1838,8 @@ def _trace(step, steps, top=10, kernels=(), ranges=()):
             name: {"ms": sum(dev_us(e) for e in dev if name in e.key) / 1e3,
                    "launches": sum(e.count for e in dev if name in e.key)}
             for name in kernels}
+    if side_copies:
+        out["side_copies"] = _side_copies(prof, ranges)
     if ranges:
         out["ranges"] = {
             name: {"ms": sum(dev_us(e) for e in spans if e.key == name)
@@ -1730,16 +1888,14 @@ REPLACES = {
     "flash_attention": ("src/repro_torch/csrc/flash_prefill.cu",
                         "src/repro/kernels/flash_prefill.py:83", None, None),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                        "src/repro/kernels/paged_attention.py:73", None,
-                        None),
+                        "src/repro/kernels/paged_attention.py:73",
+                        "src/repro/kernels/paged_attention.py:110",
+                        "one launch per call: the last split block of a "
+                        "row merges its splits (the former separate "
+                        "combine kernel is folded in)"),
     "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
                       "src/repro/kernels/paged_prefill.py:140",
                       "src/repro/kernels/paged_prefill.py:186", None),
-    "paged_attention_combine": (
-        "src/repro_torch/csrc/paged_attention.cu",
-        "src/repro/kernels/paged_attention.py:73", None,
-        "the second pass of the split decode: the Pallas kernel carries "
-        "its softmax state across its sequential block axis instead"),
     "paged_prefill_tiered": ("src/repro_torch/csrc/paged_prefill.cu",
                              "src/repro/kernels/paged_prefill.py:140",
                              "src/repro/kernels/paged_prefill.py:210", None),
@@ -1747,8 +1903,11 @@ REPLACES = {
         "src/repro_torch/csrc/paged_prefill.cu",
         "src/repro/kernels/paged_prefill.py:140",
         "src/repro/kernels/paged_prefill.py:210",
-        "the first half of the two-pool call: the Pallas kernel fetched "
-        "the host-pool blocks by DMA inside its grid"),
+        "the first half of the two-pool call, now on the copy engine "
+        "(stage_host_runs_fwd: one cudaMemcpyBatchAsync of the live host "
+        "blocks' runs, on a side stream one layer ahead in the executor); "
+        "the Pallas kernel fetched the host-pool blocks by DMA inside its "
+        "grid"),
     "paged_prefill_mma": (
         "src/repro_torch/csrc/paged_prefill.cu",
         "src/repro/kernels/paged_prefill.py:140",
@@ -1774,7 +1933,6 @@ REPLACES = {
 }
 # the main path whose launch count each kernel's row reports
 MAIN_PATH = {"flash_attention": "serve", "paged_attention": "serve",
-             "paged_attention_combine": "serve",
              "paged_prefill": "fused", "paged_prefill_tiered": "fused",
              "stage_host_blocks": "fused", "paged_prefill_mma": "fused",
              "paged_prefill_fma": "fused-smoke",
@@ -1844,15 +2002,16 @@ def main(argv=None) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
         for extra in ("at_train_shape", "at_serve_shapes", "at_other_shapes",
-                      "at_b1_ctx4096",
-                      "bound_ms_pcie", "copy_engine_ms", "by_kernel_ms",
-                      "staged_bytes", "library_note"):
+                      "at_b1_ctx4096", "bound_ms_pcie", "copy_engine_ms",
+                      "by_kernel_ms", "staged_bytes", "library_note",
+                      "one_run_ms", "runs"):
             if extra in t:
                 rows[-1][extra] = t[extra]
         if name == "stage_host_blocks":
-            rows[-1]["staging_bytes_peak_by_path"] = {
-                k: v["staging_bytes_peak"] for k, v in paths.items()
-                if "staging_bytes_peak" in v}
+            rows[-1]["staging_by_path"] = {
+                k: {x: v[x] for x in ("staging_bytes", "stage_runs",
+                                      "stage_host_s")}
+                for k, v in paths.items() if "staging_bytes" in v}
         if call:
             rows[-1]["pallas_call"] = call
         if note:

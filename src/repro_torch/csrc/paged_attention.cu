@@ -31,9 +31,15 @@
 //   every K/V row loaded; K rows are XOR-swizzled by the token's parity so
 //   the four lanes of two neighbouring tokens hit distinct banks.
 // - The warps' (m, l, acc) merge in shared memory in warp order. A row
-//   that fits in one split writes its output directly; a longer row writes
-//   f32 partials (m, l, acc) and `paged_decode_combine` merges them in
-//   split order. Both orders are fixed, so the result is deterministic.
+//   that fits in one split writes its output directly. A longer row's
+//   split blocks write f32 partials (m, l, acc), fence them and take a
+//   ticket on a counter per (row, KV head); the block that draws the last
+//   ticket resets the counter to 0 for the next call, reads every split's
+//   partials through L2 (`__ldcg`, several splits' loads in flight) and
+//   merges them in split order.
+//   The merge's order is the split index, never the ticket order, so the
+//   result is deterministic and batch-invariant; no second launch re-reads
+//   the partials.
 //
 // Semantics follow `ref.paged_attention_reference`: q scaled before the
 // product, masked scores -1e30 (never -inf), f32 accumulation, the final
@@ -97,14 +103,24 @@ __device__ __forceinline__ void load_row_part(const T* src, float* dst) {
   }
 }
 
+// *p += v, returning the old value, as an acquire-release atomic at GPU
+// scope (one instruction; __threadfence's sequentially consistent fence
+// plus a relaxed atomic cost more)
+__device__ __forceinline__ int atomic_add_acq_rel_gpu(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
 template <typename T, int D, int GMAX>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
                     const int* __restrict__ table,
                     const int* __restrict__ kv_len, T* __restrict__ out,
                     float* __restrict__ part_o, float* __restrict__ part_ml,
-                    int H, int KV, int BS, int MAXB, int nsplit,
-                    float scale) {
+                    int* __restrict__ tickets, int H, int KV, int BS,
+                    int MAXB, int nsplit, float scale) {
   using Gm = Geo<T, D>;
   constexpr int N = Gm::N;
   const int kvh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
@@ -285,40 +301,69 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
       }
     }
   }
-}
+  if (row_splits <= 1) return;
 
-// Rows of more than one split: out[b, h] = sum_s acc_s e^(m_s - M) /
-// max(sum_s l_s e^(m_s - M), 1e-30) over the row's splits, in split order.
-// One block per (head, row), one thread per column.
-template <typename T>
-__global__ void paged_decode_combine(const float* __restrict__ part_o,
-                                     const float* __restrict__ part_ml,
-                                     const int* __restrict__ kv_len,
-                                     T* __restrict__ out, int H, int D,
-                                     int ctx, int nsplit) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int kvl = min(kv_len[b], ctx);
-  const int ns = (kvl + SPLIT - 1) / SPLIT;
-  if (ns <= 1 || d >= D) return;
-  const size_t row = (size_t)b * H + h;
-  const float* ml = part_ml + row * nsplit * 2;
-  const float* po = part_o + row * nsplit * D;
-  float M = kNegInf;
-  for (int s = 0; s < ns; ++s) M = fmaxf(M, ml[2 * s]);
-  float L = 0.f, O = 0.f;
-  for (int s = 0; s < ns; ++s) {
-    const float c = expf(ml[2 * s] - M);
-    L += ml[2 * s + 1] * c;
-    O += po[(size_t)s * D + d] * c;
+  // A row of several splits: the last of its split blocks to finish merges
+  // them. After the barrier, thread 0 takes the block's ticket with an
+  // acquire-release atomic at GPU scope: its release covers the whole
+  // block's partials (ordered before it by the barrier), and the block
+  // that draws the last ticket acquires every other split's.
+  __shared__ int merge;
+  __syncthreads();
+  if (tid == 0) {
+    int* ticket = tickets + (size_t)b * KV + kvh;
+    merge = atomic_add_acq_rel_gpu(ticket, 1) == row_splits - 1;
+    if (merge) *ticket = 0;  // every split has drawn: ready for the next call
   }
-  out[row * D + d] = from_float<T>(O / fmaxf(L, 1e-30f));
+  __syncthreads();
+  if (!merge) return;
+  // out[b, h] = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30)
+  // over the row's splits, summed in split order; the partials are read
+  // through L2, MU splits' loads issued together
+  constexpr int MU = 8;
+  for (int idx = tid; idx < G * D; idx += THREADS) {
+    const int g = idx / D, d = idx % D;
+    const size_t h = (size_t)b * H + (size_t)kvh * G + g;
+    const float2* ml = reinterpret_cast<const float2*>(part_ml) + h * nsplit;
+    const float* po = part_o + h * nsplit * D + d;
+    float M = kNegInf;
+    for (int s0 = 0; s0 < row_splits; s0 += MU) {
+      float2 v[MU];
+#pragma unroll
+      for (int i = 0; i < MU; ++i)
+        if (s0 + i < row_splits) v[i] = __ldcg(ml + s0 + i);
+#pragma unroll
+      for (int i = 0; i < MU; ++i)
+        if (s0 + i < row_splits) M = fmaxf(M, v[i].x);
+    }
+    float L = 0.f, O = 0.f;
+    for (int s0 = 0; s0 < row_splits; s0 += MU) {
+      float2 v[MU];
+      float o[MU];
+#pragma unroll
+      for (int i = 0; i < MU; ++i)
+        if (s0 + i < row_splits) {
+          v[i] = __ldcg(ml + s0 + i);
+          o[i] = __ldcg(po + (size_t)(s0 + i) * D);
+        }
+#pragma unroll
+      for (int i = 0; i < MU; ++i)
+        if (s0 + i < row_splits) {
+          const float c = expf(v[i].x - M);
+          L += v[i].y * c;
+          O += o[i] * c;
+        }
+    }
+    out[h * D + d] = from_float<T>(O / fmaxf(L, 1e-30f));
+  }
 }
 
 template <typename T, int D, int GMAX>
 cudaError_t launch(const void* q, const void* pool, const int* table,
                    const int* kv_len, void* out, float* part_o,
-                   float* part_ml, int B, int H, int KV, int BS, int MAXB,
-                   int nsplit, float scale, cudaStream_t stream) {
+                   float* part_ml, int* tickets, int B, int H, int KV,
+                   int BS, int MAXB, int nsplit, float scale,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D, GMAX>();
   auto kern = paged_decode_kernel<T, D, GMAX>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -327,24 +372,25 @@ cudaError_t launch(const void* q, const void* pool, const int* table,
   dim3 grid(KV, B, nsplit);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pool), table, kv_len,
-      static_cast<T*>(out), part_o, part_ml, H, KV, BS, MAXB, nsplit, scale);
+      static_cast<T*>(out), part_o, part_ml, tickets, H, KV, BS, MAXB, nsplit,
+      scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_g(const void* q, const void* pool, const int* table,
                      const int* kv_len, void* out, float* part_o,
-                     float* part_ml, int B, int H, int KV, int BS, int MAXB,
-                     int nsplit, float scale, cudaStream_t stream) {
+                     float* part_ml, int* tickets, int B, int H, int KV,
+                     int BS, int MAXB, int nsplit, float scale,
+                     cudaStream_t stream) {
   const int G = H / KV;
-  if (G == 1)
-    return launch<T, D, 1>(q, pool, table, kv_len, out, part_o, part_ml, B,
-                           H, KV, BS, MAXB, nsplit, scale, stream);
-  if (G <= 4)
-    return launch<T, D, 4>(q, pool, table, kv_len, out, part_o, part_ml, B,
-                           H, KV, BS, MAXB, nsplit, scale, stream);
-  return launch<T, D, MAX_G>(q, pool, table, kv_len, out, part_o, part_ml,
-                             B, H, KV, BS, MAXB, nsplit, scale, stream);
+#define REPRO_PAGED_G(GG)                                                 \
+  return launch<T, D, GG>(q, pool, table, kv_len, out, part_o, part_ml,   \
+                          tickets, B, H, KV, BS, MAXB, nsplit, scale, stream)
+  if (G == 1) REPRO_PAGED_G(1);
+  if (G <= 4) REPRO_PAGED_G(4);
+  REPRO_PAGED_G(MAX_G);
+#undef REPRO_PAGED_G
 }
 
 }  // namespace
@@ -357,24 +403,26 @@ cudaError_t launch_g(const void* q, const void* pool, const int* table,
 // {32, 64, 128}, `split` must equal the compiled SPLIT, and nsplit =
 // ceil(MAXB * BS / split). With nsplit > 1, part_o (B, H, nsplit, D) and
 // part_ml (B, H, nsplit, 2) are f32 scratch that rows longer than one
-// split fill; paged_decode_combine_fwd (ctx = MAXB * BS) then writes
-// those rows' output.
+// split fill, and `tickets` is B * KV ints, all 0 on entry (the kernel
+// leaves them 0): the last split block of each such row merges its
+// partials into `out`. Calls that share `tickets` must not overlap.
 extern "C" int paged_attention_fwd(const void* q, const void* pool,
                                    const int* table, const int* kv_len,
                                    void* out, float* part_o, float* part_ml,
-                                   int B, int H, int KV, int D, int BS,
-                                   int MAXB, int split, int nsplit,
+                                   int* tickets, int B, int H, int KV, int D,
+                                   int BS, int MAXB, int split, int nsplit,
                                    float scale, int dtype, void* stream) {
   using namespace repro_torch;
   if (B == 0) return 0;
   if (KV <= 0 || H % KV != 0 || H / KV > MAX_G || BS <= 0 || MAXB <= 0 ||
       split != SPLIT || nsplit != (MAXB * BS + SPLIT - 1) / SPLIT ||
-      (nsplit > 1 && (part_o == nullptr || part_ml == nullptr)))
+      (nsplit > 1 &&
+       (part_o == nullptr || part_ml == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_PAGED_CASE(T, DD)                                             \
   return (int)launch_g<T, DD>(q, pool, table, kv_len, out, part_o, part_ml, \
-                              B, H, KV, BS, MAXB, nsplit, scale, s)
+                              tickets, B, H, KV, BS, MAXB, nsplit, scale, s)
   if (dtype == 0 && D == 32) REPRO_PAGED_CASE(float, 32);
   if (dtype == 0 && D == 64) REPRO_PAGED_CASE(float, 64);
   if (dtype == 0 && D == 128) REPRO_PAGED_CASE(float, 128);
@@ -383,28 +431,4 @@ extern "C" int paged_attention_fwd(const void* q, const void* pool,
   if (dtype == 1 && D == 128) REPRO_PAGED_CASE(__nv_bfloat16, 128);
 #undef REPRO_PAGED_CASE
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int paged_decode_combine_fwd(const float* part_o,
-                                        const float* part_ml,
-                                        const int* kv_len, void* out, int B,
-                                        int H, int D, int ctx, int nsplit,
-                                        int dtype, void* stream) {
-  using namespace repro_torch;
-  if (B == 0) return 0;
-  if (D <= 0 || D > 1024 || nsplit != (ctx + SPLIT - 1) / SPLIT)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(H, B);
-  if (dtype == 0)
-    paged_decode_combine<float><<<grid, D, 0, s>>>(
-        part_o, part_ml, kv_len, static_cast<float*>(out), H, D, ctx,
-        nsplit);
-  else if (dtype == 1)
-    paged_decode_combine<__nv_bfloat16><<<grid, D, 0, s>>>(
-        part_o, part_ml, kv_len, static_cast<__nv_bfloat16*>(out), H, D, ctx,
-        nsplit);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
 }

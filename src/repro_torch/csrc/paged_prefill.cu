@@ -1,5 +1,5 @@
 // Segmented paged chunk-prefill attention (GQA) for Hopper, sm_90a, with
-// an optional second (host) pool staged to the device first.
+// an optional second (host) pool, staged to the device by the copy engine.
 //
 // Replaces the TPU kernel `paged_prefill_pallas` in both its forms
 // (src/repro/kernels/paged_prefill.py: `_paged_prefill_kernel` and
@@ -18,17 +18,17 @@
 // the host pool (pinned host memory; ids there may exceed the device
 // pool's size).
 //
-// Two kernels, launched by one call on one stream:
-//
-// `stage_host_blocks_kernel` (two pools only) copies, for every segment
-// with tier[s] != 0, its live host blocks table[s, j], j <
-// ceil(min(kv_len[s], MAXB * BS) / BS), each whole (all KV heads, K and
-// V: one contiguous BS * 2 * KV * D run), from the pinned pool's
-// device-mapped address into a device staging buffer at slot s * MAXB +
-// j, with 16-byte loads, several in flight per thread, spread over
-// several blocks per pool block. Bound: PCIe (each live host byte crosses
-// it exactly once per call). Out-of-range ids are clamped into
-// [0, nb_host - 1], as the reference does.
+// Host staging (`stage_host_runs_fwd`, two pools only). The Pallas kernel
+// fetched host blocks by DMA inside its grid; on this card the copy
+// engine is that DMA. The caller lists, on the host, the live host blocks
+// table[s, j], j < ceil(min(kv_len[s], MAXB * BS) / BS), of every segment
+// with tier[s] != 0 as runs consecutive in both the host pool and the
+// staging buffer (slot s * MAXB + j), and one call hands every run to the
+// copy engine as one batch (`cudaMemcpyBatchAsync`, CUDA >= 12.8) on the
+// caller's stream: no SM spends a cycle on it, and each live host byte
+// crosses PCIe once. The serving executor issues a layer's staging on a
+// side stream one layer ahead, so it overlaps the compute of the layer
+// before (PCIe bound: ~0.26 ms per 16.8 MB at the Gen5 x16 spec).
 //
 // The attention body, in two kernels picked by dtype and head dim (a
 // dispatch by shape, never a fallback: nothing retries another kernel
@@ -45,11 +45,11 @@
 // min(kv_len, MAXB * BS, max q_pos + 1) -- blocks past kv_len or wholly
 // above the causal diagonal are never read (the TPU's `pl.when(live)`);
 // the online-softmax state and the accumulator stay on chip. A host
-// segment reads its staged blocks (slot s * MAXB + j) in place of the
-// device pool, with the same arithmetic, so the two-pool form gives the
-// same bits as the one-pool form on the same blocks. Every query tile of
-// a segment reads the whole prefix: from device memory (mostly L2),
-// never again over PCIe.
+// segment reads its staged blocks (slot s * MAXB + j of the staging
+// buffer) in place of the device pool, with the same arithmetic, so the
+// two-pool form gives the same bits as the one-pool form on the same
+// blocks. Every query tile of a segment reads the whole prefix: from
+// device memory (mostly L2), never again over PCIe.
 //
 // `tc::paged_prefill_mma` (bf16, D = 64 and 128: every main path). Both
 // products on the tensor cores as mma.sync m16n8k16 (bf16 in, f32
@@ -91,6 +91,9 @@
 // normaliser is clamped at 1e-30, and out-of-range block ids are clamped
 // into the selected pool. A segment with kv_len = 0 reads nothing and
 // writes 0 (finite), as the Pallas kernel's skipped tiles do.
+#include <cstring>
+#include <vector>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -295,69 +298,6 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ dpool,
     for (int j = 0; j < OPT; ++j)
       orow[tx + 16 * j] = from_float<T>(o[i][j] * inv);
   }
-}
-
-// The staging kernel's threads per block, 16-byte loads in flight per
-// thread, and at most this many blocks per pool block copied.
-constexpr int ST_THREADS = 256;
-constexpr int ST_UNROLL = 4;
-constexpr int ST_MAX_PARTS = 16;
-
-__global__ void __launch_bounds__(ST_THREADS)
-stage_host_blocks_kernel(const uint4* __restrict__ hpool,
-                         const int* __restrict__ table,
-                         const int* __restrict__ kv_len,
-                         const int* __restrict__ tier,
-                         uint4* __restrict__ staged, int MAXB, int BS,
-                         int nb_host, int vpb) {
-  const int slot = blockIdx.x;            // s * MAXB + j
-  const int s = slot / MAXB, j = slot % MAXB;
-  if (tier[s] == 0) return;
-  const int kvl = min(kv_len[s], MAXB * BS);
-  if (j * BS >= kvl) return;              // j >= ceil(kvl / BS): not live
-  const int hb = min(max(table[slot], 0), nb_host - 1);
-  const uint4* src = hpool + (size_t)hb * vpb;
-  uint4* dst = staged + (size_t)slot * vpb;
-  constexpr int PER = ST_THREADS * ST_UNROLL;
-  for (int base = blockIdx.y * PER; base < vpb; base += gridDim.y * PER) {
-    uint4 r[ST_UNROLL];
-#pragma unroll
-    for (int u = 0; u < ST_UNROLL; ++u) {
-      const int i = base + u * ST_THREADS + threadIdx.x;
-      if (i < vpb) r[u] = src[i];
-    }
-#pragma unroll
-    for (int u = 0; u < ST_UNROLL; ++u) {
-      const int i = base + u * ST_THREADS + threadIdx.x;
-      if (i < vpb) dst[i] = r[u];
-    }
-  }
-}
-
-// Launch the staging kernel: `host_pool` is pinned host memory, looked up
-// for its device-mapped address (fails, launching nothing, if it has
-// none); `block_bytes` = BS * 2 * KV * D * sizeof(T), a multiple of 16.
-cudaError_t launch_stage(const void* host_pool, const int* table,
-                         const int* kv_len, const int* tier, void* staged,
-                         int S, int MAXB, int BS, int nb_host,
-                         size_t block_bytes, cudaStream_t stream) {
-  if (host_pool == nullptr || staged == nullptr || tier == nullptr ||
-      nb_host <= 0 || block_bytes % 16 != 0)
-    return cudaErrorInvalidValue;
-  if (S * MAXB == 0) return cudaSuccess;
-  void* hdev = nullptr;
-  cudaError_t err =
-      cudaHostGetDevicePointer(&hdev, const_cast<void*>(host_pool), 0);
-  if (err != cudaSuccess) return err;
-  const int vpb = (int)(block_bytes / 16);
-  constexpr int PER = ST_THREADS * ST_UNROLL;
-  const int need = (vpb + PER - 1) / PER;
-  const int parts = need < ST_MAX_PARTS ? need : ST_MAX_PARTS;
-  dim3 grid(S * MAXB, parts);
-  stage_host_blocks_kernel<<<grid, ST_THREADS, 0, stream>>>(
-      static_cast<const uint4*>(hdev), table, kv_len, tier,
-      static_cast<uint4*>(staged), MAXB, BS, nb_host, vpb);
-  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -712,35 +652,29 @@ cudaError_t launch(const void* q, const void* dpool, const void* staged,
 }  // namespace repro_torch
 
 // C entries bound with ctypes. dtype: 0 = float32, 1 = bfloat16. Each
-// returns a cudaError_t; 0 on a successful launch.
+// returns a cudaError_t; 0 on success.
 //
-// paged_prefill_fwd needs T % tq == 0, G = H / KV <= 16 and D in {32, 64,
-// 128}. `tier` null selects the single pool. Otherwise `host_pool` is
-// pinned host memory (PyTorch's pinned allocator) and `staged` a device
-// buffer of S * MAXB pool blocks: the call first launches the staging
-// kernel into it, then the body, on `stream`.
+// paged_prefill_fwd launches the body: T % tq == 0, G = H / KV <= 16 and
+// D in {32, 64, 128}. `tier` null selects the single pool. Otherwise
+// `staged` is a device buffer of at least S * MAXB pool blocks whose slot
+// s * MAXB + j holds the live block j of every host segment s
+// (`stage_host_runs_fwd`), which the body reads in place of the device
+// pool.
 extern "C" int paged_prefill_fwd(const void* q, const void* dpool,
-                                 const void* host_pool, void* staged,
-                                 const int* table, const int* seg_ids,
-                                 const int* q_pos, const int* kv_len,
-                                 const int* tier, void* out, int T_, int H,
-                                 int KV, int D, int BS, int S, int MAXB,
-                                 int tq, int nb_dev, int nb_host,
+                                 const void* staged, const int* table,
+                                 const int* seg_ids, const int* q_pos,
+                                 const int* kv_len, const int* tier,
+                                 void* out, int T_, int H, int KV, int D,
+                                 int BS, int S, int MAXB, int tq, int nb_dev,
                                  float scale, int dtype, void* stream) {
   using namespace repro_torch;
   if (T_ == 0 || H == 0) return 0;
   if (tq <= 0 || T_ % tq != 0 || KV <= 0 || H % KV != 0 ||
       H / KV > MAX_G || nb_dev <= 0 || (dtype != 0 && dtype != 1) ||
-      (D != 32 && D != 64 && D != 128))
+      (D != 32 && D != 64 && D != 128) ||
+      (tier != nullptr && staged == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tier != nullptr) {
-    const size_t esize = dtype == 0 ? 4 : 2;
-    cudaError_t err =
-        launch_stage(host_pool, table, kv_len, tier, staged, S, MAXB, BS,
-                     nb_host, (size_t)BS * 2 * KV * D * esize, s);
-    if (err != cudaSuccess) return (int)err;
-  }
 #define REPRO_PP_ARGS                                                      \
   q, dpool, staged, table, seg_ids, q_pos, kv_len, tier, out, T_, H, KV, BS, \
       S, MAXB, tq, nb_dev, scale, s
@@ -763,17 +697,37 @@ extern "C" int paged_prefill_route(int D, int dtype) {
   return dtype == 1 && (D == 64 || D == 128) ? 1 : 0;
 }
 
-// The staging kernel alone (what paged_prefill_fwd runs first with two
-// pools): `staged` receives S * MAXB blocks of `block_bytes` each, the
-// live host blocks of host segments copied, every other slot untouched.
-extern "C" int stage_host_blocks_fwd(const void* host_pool,
-                                     const int* table, const int* kv_len,
-                                     const int* tier, void* staged, int S,
-                                     int MAXB, int BS, int nb_host,
-                                     long long block_bytes, void* stream) {
-  using namespace repro_torch;
-  if (S == 0 || MAXB == 0) return 0;
-  return (int)launch_stage(host_pool, table, kv_len, tier, staged, S, MAXB,
-                           BS, nb_host, (size_t)block_bytes,
-                           static_cast<cudaStream_t>(stream));
+// Host staging on the copy engine: for each of the n_runs rows (src, dst,
+// n) of `runs` (host memory, int64), copy host-pool blocks [src, src + n)
+// of `block_bytes` each from pinned `host_pool` to blocks [dst, dst + n)
+// of the device buffer `staged`, all in one cudaMemcpyBatchAsync on
+// `stream` (in stream order; not the legacy default stream, which the
+// batch call refuses). The caller checks the ranges.
+extern "C" int stage_host_runs_fwd(const void* host_pool, void* staged,
+                                   const long long* runs, int n_runs,
+                                   long long block_bytes, void* stream) {
+#if CUDART_VERSION < 12080
+#error "stage_host_runs_fwd needs cudaMemcpyBatchAsync (CUDA 12.8 or later)"
+#endif
+  if (n_runs == 0) return 0;
+  if (host_pool == nullptr || staged == nullptr || runs == nullptr ||
+      n_runs < 0 || block_bytes <= 0 || stream == nullptr)
+    return (int)cudaErrorInvalidValue;
+  std::vector<void*> dsts(n_runs), srcs(n_runs);
+  std::vector<size_t> sizes(n_runs);
+  for (int i = 0; i < n_runs; ++i) {
+    const long long* r = runs + 3 * (size_t)i;
+    srcs[i] = const_cast<char*>(static_cast<const char*>(host_pool)) +
+              r[0] * block_bytes;
+    dsts[i] = static_cast<char*>(staged) + r[1] * block_bytes;
+    sizes[i] = (size_t)(r[2] * block_bytes);
+  }
+  cudaMemcpyAttributes attr;
+  std::memset(&attr, 0, sizeof(attr));
+  attr.srcAccessOrder = cudaMemcpySrcAccessOrderStream;
+  attr.flags = cudaMemcpyFlagPreferOverlapWithCompute;
+  size_t first = 0, fail = 0;
+  return (int)cudaMemcpyBatchAsync(dsts.data(), srcs.data(), sizes.data(),
+                                   (size_t)n_runs, &attr, &first, 1, &fail,
+                                   static_cast<cudaStream_t>(stream));
 }

@@ -31,16 +31,19 @@ def paged_attention(q, kv_pool, block_table, kv_len, *, softmax_scale=None):
 
 
 def paged_prefill(q, kv_pool, block_table, seg_ids, q_pos, kv_len, *,
-                  host_pool=None, tier=None, tq=8, softmax_scale=None):
+                  host_pool=None, tier=None, staged=None, tq=8,
+                  softmax_scale=None):
     """Segmented prefill/decode attention straight over the paged pool(s).
 
     q: (T, H, D) flat token batch — per-request segments each padded to a
     multiple of `tq` (so a query tile never straddles segments); the
     chunk's own KV must already be written into the pool. block_table:
     (S, MAXB); seg_ids/q_pos: (T,); kv_len: (S,). With `tier` (S,), a
-    segment whose flag is set reads `host_pool`. Returns (T, H, D)."""
+    segment whose flag is set reads `host_pool`, or its blocks already
+    staged at slots s * MAXB + j of `staged`. Returns (T, H, D)."""
     return _pp.paged_prefill(q, kv_pool, block_table, seg_ids, q_pos,
-                             kv_len, host_pool=host_pool, tier=tier, tq=tq,
+                             kv_len, host_pool=host_pool, tier=tier,
+                             staged=staged, tq=tq,
                              softmax_scale=softmax_scale)
 
 

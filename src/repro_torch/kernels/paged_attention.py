@@ -6,7 +6,8 @@ Replaces the TPU kernel
 per sequence attends over KV kept in a single pooled tensor of blocks
 (paper §4), addressed through a block table. On the card the context is
 split into SPLIT-token pieces, one block each; a row longer than one split
-leaves f32 partials that a second kernel combines in split order.
+leaves f32 partials, and the last of its split blocks to finish merges
+them in split order (one launch per call).
 """
 from __future__ import annotations
 
@@ -18,11 +19,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_prefill import _DTYPES, _HEAD_DIMS, _check
 from repro_torch.kernels.ref import NEG_INF, paged_attention_reference
 
-# kernel launches since the last reset (CPU calls do not count): the split
-# kernel, once per call, and the combine kernel, once per call whose table
-# spans more than one split
+# kernel launches since the last reset (CPU calls do not count): one per
+# call (the merge of a row's splits runs inside the same launch)
 launches = 0
-launches_combine = 0
 
 MAX_GROUP = 16  # query heads per KV head the kernel holds (csrc MAX_G)
 SPLIT = 256     # context tokens per block (csrc SPLIT)
@@ -40,9 +39,10 @@ def n_splits(kv_len, ctx, split=SPLIT):
 
 
 def combine_plain(part_o, part_ml, rows_splits):
-    """The combine kernel's plain version. part_o (B, H, NS, D) and
-    part_ml (B, H, NS, 2) hold each split's f32 (acc, (m, l)); row b uses
-    its first rows_splits[b] splits, in order. Returns (B, H, D) f32:
+    """The plain version of the kernel's merge of a row's splits. part_o
+    (B, H, NS, D) and part_ml (B, H, NS, 2) hold each split's f32 (acc,
+    (m, l)); row b uses its first rows_splits[b] splits, in order.
+    Returns (B, H, D) f32:
     sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30), 0 for a
     row with no split."""
     NS = part_o.shape[2]
@@ -98,45 +98,57 @@ def _fn():
     f = lib.paged_attention_fwd
     if f.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [vp] * 7 + [ci] * 8 + [ctypes.c_float, ci, vp]
+        f.argtypes = [vp] * 8 + [ci] * 8 + [ctypes.c_float, ci, vp]
         f.restype = ci
     return f
 
 
-def _combine_fn():
-    lib = _build.load("paged_attention")
-    f = lib.paged_decode_combine_fwd
-    if f.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [vp] * 4 + [ci] * 6 + [vp]
-        f.restype = ci
-    return f
+# per (CUDA device, stream): B * KV int32 tickets, zero between calls
+# (the kernel's last split block of each row resets its own); grown,
+# never shrunk. Calls on one stream run in order, so no two calls ever
+# share tickets at once
+_tickets = {}
+
+
+def _ticket_buffer(device, n):
+    """At least `n` zeroed int32 tickets for calls on `device`'s current
+    stream, allocated (and zeroed) on it only when a call there needs
+    more than any call before."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())),
+                          dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 def split_pass(q, kv_pool, block_table, kv_len, scale):
     """Launch the split kernel on checked CUDA inputs. Returns (out,
-    part_o, part_ml): out holds the rows of at most one split; part_o
-    (B, H, NS, D) and part_ml (B, H, NS, 2) the f32 partials of longer
-    rows (None when the table spans one split)."""
+    part_o, part_ml): out (B, H, D) holds every row, those longer than
+    one split merged inside the launch from their f32 partials part_o
+    (B, H, NS, D) and part_ml (B, H, NS, 2) (None when the table spans
+    one split), which the call leaves in place."""
     global launches
     B, H, D = q.shape
-    BS = kv_pool.shape[1]
+    KV, BS = kv_pool.shape[3], kv_pool.shape[1]
     MAXB = block_table.shape[1]
     ns = -(-MAXB * BS // SPLIT)
     out = torch.empty_like(q)
-    part_o = part_ml = None
+    part_o = part_ml = tickets = None
     if ns > 1:
         part_o = torch.empty(B, H, ns, D, dtype=torch.float32,
                              device=q.device)
         part_ml = torch.empty(B, H, ns, 2, dtype=torch.float32,
                               device=q.device)
+        tickets = _ticket_buffer(q.device, B * KV)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(q.data_ptr(), kv_pool.data_ptr(), block_table.data_ptr(),
                 kv_len.data_ptr(), out.data_ptr(),
-                None if part_o is None else part_o.data_ptr(),
-                None if part_ml is None else part_ml.data_ptr(),
-                B, H, kv_pool.shape[3], D, BS, MAXB, SPLIT, ns,
-                float(scale), _DTYPES[q.dtype], stream)
+                *(None if t is None else t.data_ptr()
+                  for t in (part_o, part_ml, tickets)),
+                B, H, KV, D, BS, MAXB, SPLIT, ns, float(scale),
+                _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError_t {err}")
@@ -144,31 +156,15 @@ def split_pass(q, kv_pool, block_table, kv_len, scale):
     return out, part_o, part_ml
 
 
-def combine_pass(part_o, part_ml, kv_len, out, ctx):
-    """Launch the combine kernel: write the rows of `out` (B, H, D) whose
-    kv_len (clamped to ctx = MAXB * BS) spans more than one split."""
-    global launches_combine
-    B, H, ns, D = part_o.shape
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = _combine_fn()(part_o.data_ptr(), part_ml.data_ptr(),
-                        kv_len.data_ptr(), out.data_ptr(), B, H, D, ctx, ns,
-                        _DTYPES[out.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"paged_attention combine launch failed: "
-                           f"cudaError_t {err}")
-    launches_combine += 1
-    return out
-
-
 def paged_attention(q, kv_pool, block_table, kv_len, *, softmax_scale=None):
     """q: (B, H, D); kv_pool: (NB, BS, 2, KV, D); block_table: (B, MAXB)
     int32; kv_len: (B,) int32. Returns (B, H, D) in q.dtype. Every table
     entry below ceil(kv_len / BS) must be a block id < NB (the caller's
     contract; the kernel does not read the rest). CPU tensors run the
-    plain version; CUDA tensors launch the split kernel (and the combine
-    kernel when the table spans more than SPLIT tokens), which take bf16
-    or f32, D in {32, 64, 128}, H / KV <= 16 and contiguous inputs, and
-    raise on anything else."""
+    plain version; CUDA tensors launch the split kernel once, which takes
+    bf16 or f32, D in {32, 64, 128}, H / KV <= 16 and contiguous inputs,
+    and raises on anything else. Each stream has tickets of its own
+    for the split merge, so calls may run on several streams at once."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, kv_pool, block_table, kv_len,
                                      softmax_scale=softmax_scale)
@@ -199,7 +195,4 @@ def paged_attention(q, kv_pool, block_table, kv_len, *, softmax_scale=None):
     if any(t.data_ptr() % 16 for t in (q, kv_pool)):
         raise ValueError("paged_attention: inputs must be 16-byte aligned")
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
-    out, part_o, part_ml = split_pass(q, kv_pool, block_table, kv_len, scale)
-    if part_o is not None:
-        combine_pass(part_o, part_ml, kv_len, out, MAXB * BS)
-    return out
+    return split_pass(q, kv_pool, block_table, kv_len, scale)[0]

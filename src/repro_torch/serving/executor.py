@@ -16,17 +16,30 @@ Where JAX donated the pool buffers to each jitted step, the port updates
 the pools in place (`index_copy_` / `index_put_` / slice `copy_`).
 
 Host tier: on CUDA the HOST pool is pinned CPU memory. Device-to-host and
-host-to-device block copies are `non_blocking` copies of contiguous runs
-of host blocks on the current stream, so they are ordered with the
-forwards that produce and consume them without any extra
-synchronisation. The only CPU-side access to the host pool (a same-pool
-host copy) synchronises the stream first. Overlapping the copies on a
-side stream is later work.
+host-to-device block copies (offload, reload) are `non_blocking` copies
+of contiguous runs of host blocks on the current stream, so they are
+ordered with the forwards that produce and consume them without any
+extra synchronisation. The only CPU-side access to the host pool (a
+same-pool host copy) synchronises the stream first.
 
-Inside a fused step, chunk rows whose layer is host-resident write their
-new K/V into the pinned host pool as async copies of contiguous slot runs
-on the current stream, before that layer's attention reads the host pool
-in place through its device-mapped address (stream order, no sync).
+Inside a fused step, a chunk whose layer is host-resident reads that
+layer's live host blocks from a device staging buffer (slot s * MAXB +
+j). `mixed_step` lists each such layer's blocks on the host as copy runs
+(`paged_prefill.host_block_runs`), and the copy engine stages them one
+host-tier layer ahead on a side stream (`paged_prefill.staging_stream`)
+into one of two buffers, while the layer before computes. Ordering is by
+CUDA events only: the side stream waits for an event recorded at the
+start of the step (every earlier write into the host pool is before it)
+and, before it refills a buffer, for the body that last read it; the
+layer's writes and body wait for its staging. The chunk's own new K/V of
+a host-tier layer go both to the host pool (async copies of contiguous
+slot runs, which later steps read) and, by a device scatter, into the
+staged blocks the chunk fills, which were copied before those rows
+existed; so the body reads exactly the values the host pool holds, and
+two pools give one pool's bits. The two buffers are allocated once,
+grown to the largest step's need and kept (`staging_bytes`). On the CPU
+the same code runs with the plain staging, in the same order, without
+streams.
 
 Bucketed-shape contract (as in the reference): `prefill` pads the prompt
 buffer, `decode` the batch width R, and `mixed_step` the chunk rows Tc /
@@ -49,6 +62,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_prefill as pp
 from repro_torch.models import layers
 from repro_torch.models.model import (DecoderModel, ffn, layer_params,
                                       mask_pad_logits, torch_dtype)
@@ -105,6 +119,80 @@ class MixedDecode:
     tables: List[List[int]]  # per-layer DEVICE block ids
 
 
+class _HostStaging:
+    """One fused step's host staging. Host-tier layers h_0 < h_1 < ...
+    (those with a live host block) alternate between two staging buffers:
+    h_k's live host blocks are copied into buffer k % 2 by the copy engine
+    (`paged_prefill.stage_host_runs`), issued at the top of layer h_{k-1}
+    (h_0's at the start of the step). On CUDA the copies run on the side
+    stream and CUDA events order them, with no host sync: the side stream
+    waits for the step's start event (every earlier host-pool write is
+    before it) and, before it refills a buffer, for the body that last read
+    it; layer h_k's writes wait for its copies. On the CPU the same calls
+    run in the same order, with the plain staging and no events."""
+
+    def __init__(self, ex: "PagedExecutor", runs, st_idx, n_slots: int):
+        self.ex, self.runs, self.st_idx = ex, runs, st_idx
+        self.layers = [l for l, r in enumerate(runs) if r is not None]
+        self.order = {l: k for k, l in enumerate(self.layers)}
+        if not self.layers:
+            return
+        self.bufs = ex._staging_buffers(n_slots + 1)   # + the trash block
+        self.cuda = ex.device.type == "cuda"
+        if self.cuda:
+            if ex._staging_sync is None:
+                ex._staging_sync = (pp.staging_stream(ex.device),
+                                    [torch.cuda.Event() for _ in range(2)],
+                                    [torch.cuda.Event() for _ in range(2)])
+            self.side, self.staged_ev, self.read_ev = ex._staging_sync
+            self.main = torch.cuda.current_stream(ex.device)
+            self.side.wait_stream(self.main)      # the step's start
+        self._stage(0)
+
+    def _stage(self, k: int) -> None:
+        """Issue host-tier layer h_k's copies into buffer k % 2."""
+        b = k % 2
+        if self.cuda:
+            if k >= 2:
+                self.side.wait_event(self.read_ev[b])
+            with torch.cuda.stream(self.side):
+                pp.stage_host_runs(self.ex.host_pool,
+                                   self.runs[self.layers[k]], self.bufs[b])
+            self.staged_ev[b].record(self.side)
+        else:
+            pp.stage_host_runs(self.ex.host_pool, self.runs[self.layers[k]],
+                               self.bufs[b])
+
+    def ahead(self, l: int) -> None:
+        """At the top of layer l: if l is host-tier layer h_k, issue
+        h_{k+1}'s copies, which run while h_k computes."""
+        k = self.order.get(l)
+        if k is not None and k + 1 < len(self.layers):
+            self._stage(k + 1)
+
+    def write(self, l: int, host_runs, k, v):
+        """Write the chunk rows' new K/V (Tc, KV, hd) of host-tier layer l
+        into the host pool (async copies) and into its staged blocks (a
+        device scatter, after its copies). Returns the staging buffer the
+        layer's body reads, or None for a layer with no host block."""
+        kk = self.order.get(l)
+        if kk is None:
+            return None
+        buf = self.bufs[kk % 2]
+        if self.cuda:
+            self.main.wait_event(self.staged_ev[kk % 2])
+        kv = torch.stack([k, v], dim=1).to(buf.dtype)   # (Tc, 2, KV, hd)
+        self.ex._host_scatter(host_runs, kv)
+        buf.view(-1, *buf.shape[2:]).index_copy_(0, self.st_idx[l], kv)
+        return buf
+
+    def read(self, l: int) -> None:
+        """After layer l's body: its buffer may be refilled."""
+        kk = self.order.get(l)
+        if kk is not None and self.cuda:
+            self.read_ev[kk % 2].record(self.main)
+
+
 class PagedExecutor:
     """Owns the physical KV pools (device + host buffers, paged in
     `block_size`-token blocks) and runs model forwards against them:
@@ -139,6 +227,11 @@ class PagedExecutor:
         # the check never waits for it
         self._nonfinite = torch.zeros((), dtype=torch.int64,
                                       device=self.device)
+        # the fused step's two host staging buffers (grown to the largest
+        # step's Sc * MAXBc + 1 blocks, reused across steps) and, on CUDA,
+        # the side stream and events that order them (`_HostStaging`)
+        self._staging = None
+        self._staging_sync = None
         # shape accounting: every novel (entry point, shape bucket)
         # signature. Counts live in the obs registry; the owning engine
         # swaps in the core's registry so one snapshot() carries both.
@@ -344,21 +437,36 @@ class PagedExecutor:
         return logits, kc, vc
 
     # ----------------------------------------------------------- fused step
-    def _host_scatter(self, runs, k, v) -> None:
-        """Write chunk rows' K/V (T, KV, hd) into the HOST pool: one async
-        copy per run (row_a, row_b, slot) of consecutive pool slots
+    def _host_scatter(self, runs, kv) -> None:
+        """Write chunk rows' K/V (T, 2, KV, hd) into the HOST pool: one
+        async copy per run (row_a, row_b, slot) of consecutive pool slots
         (slot = block * BS + offset), on the current stream."""
-        if not runs:
-            return
         hp = self.host_pool
-        kv = torch.stack([k, v], dim=1).to(hp.dtype)     # (T, 2, KV, hd)
         flat = hp.view(-1, *hp.shape[2:])                # (slots, 2, KV, hd)
         for a, b, slot in runs:
             flat[slot:slot + b - a].copy_(kv[a:b], non_blocking=True)
 
+    @property
+    def staging_bytes(self) -> int:
+        """Device bytes the fused step's two staging buffers hold, from the
+        first host-tier step for as long as the executor lives (outside
+        the KV pools the block manager accounts for); 0 before."""
+        st = self._staging
+        return 0 if st is None else st.numel() * st.element_size()
+
+    def _staging_buffers(self, n_blocks: int):
+        """Two staging buffers of `n_blocks` pool blocks each, (2,
+        n_blocks, BS, 2, KV, hd): views of one allocation made on the
+        current stream and grown only when a step needs more."""
+        if self._staging is None or self._staging.shape[1] < n_blocks:
+            self._staging = None
+            self._staging = self.device_pool.new_zeros(
+                (2, n_blocks, *self.device_pool.shape[1:]))
+        return self._staging[:, :n_blocks]
+
     def _mixed_forward(self, tokens, q_pos, off, blk_dev, host_runs, c_seg,
                        c_qpos, c_kvlens, c_tables, c_tier, d_tables,
-                       d_kvlens, sample_idx, is_chunk, has_host: bool,
+                       d_kvlens, sample_idx, is_chunk, stage_runs, st_idx,
                        Tc: int, Rb: int):
         """ONE forward for a whole serving iteration: prefill-chunk tokens
         and decode tokens ride the same flat batch, so each layer's
@@ -378,15 +486,22 @@ class PagedExecutor:
         (attends ctx + 1 after the in-step write). sample_idx: (Sb,) flat
         row each output samples; is_chunk selects pad-vocab masking (chunk
         samples masked, decode samples raw, as the two-call paths do).
+        stage_runs: per layer, None or the (R, 3) copy runs of its live
+        host blocks (`paged_prefill.host_block_runs`); st_idx: (L, Tc) the
+        staging-buffer row (slot * BS + offset) each chunk row of a
+        host-tier layer writes, the trash block's first row for the rest.
         Writes the pools in place; returns (Sb, V) logits."""
         cfg, params = self.cfg, self.params
-        dpool, hpool = self.device_pool, self.host_pool
+        dpool = self.device_pool
         T = tokens.shape[0]
+        staging = _HostStaging(self, stage_runs, st_idx,
+                               c_tables.shape[1] * c_tables.shape[2])
         x = params["embed"][tokens][None]                  # (1, T, d)
         positions = q_pos[None]                            # (1, T)
         if cfg.pos_emb == "mrope":
             positions = positions[None].expand(3, 1, T)
         for l in range(cfg.n_layers):
+            staging.ahead(l)
             lp = layer_params(params["layers"], l)
             h = layers.apply_norm(cfg, lp["attn_norm"], x)
             q, k, v = layers.qkv_proj(cfg, lp["attn"], h)
@@ -394,15 +509,15 @@ class PagedExecutor:
             k = layers.apply_rope(cfg, k, positions)
             dpool[blk_dev[l], off, 0] = k[0].to(dpool.dtype)
             dpool[blk_dev[l], off, 1] = v[0].to(dpool.dtype)
-            if has_host:
-                self._host_scatter(host_runs[l], k[0], v[0])
+            staged = staging.write(l, host_runs[l], k[0, :Tc], v[0, :Tc])
             parts = []
             if Tc:
                 parts.append(ops.paged_prefill(
                     q[0, :Tc].contiguous(), dpool, c_tables[l], c_seg,
-                    c_qpos, c_kvlens,
-                    host_pool=hpool if has_host else None,
-                    tier=c_tier[l] if has_host else None, tq=MIXED_TQ))
+                    c_qpos, c_kvlens, staged=staged,
+                    tier=None if staged is None else c_tier[l],
+                    tq=MIXED_TQ))
+                staging.read(l)
             if Rb:
                 parts.append(ops.paged_attention(
                     q[0, Tc:].contiguous(), dpool, d_tables[l],
@@ -448,6 +563,9 @@ class PagedExecutor:
         off = np.zeros(T, np.int64)
         blk_dev = np.full((L, T), self.num_device_blocks, np.int64)  # trash
         host_runs: List[list] = [[] for _ in range(L)]
+        # staging-buffer rows of host-tier chunk rows; the rest write the
+        # trash block after the Sc * MAXBc slots
+        st_idx = np.full((L, Tc), Sc * MAXBc * BS, np.int64)
         c_seg = np.full(Tc, max(Sc - 1, 0), np.int32)
         c_tables = np.zeros((L, Sc, MAXBc), np.int32)
         c_tier = np.zeros((L, Sc), np.int32)
@@ -474,6 +592,8 @@ class PagedExecutor:
                     slots = lblk[pos // BS] * BS + pos % BS
                     host_runs[l].extend((t0 + a, t0 + b, int(s0))
                                         for a, b, s0 in _runs(slots))
+                    st_idx[l, t0:t0 + C] = (i * MAXBc + pos // BS) * BS \
+                        + pos % BS
                 else:
                     blk_dev[l, t0:t0 + C] = lblk[pos // BS]
             c_kvlens[i] = c.offset + C
@@ -498,6 +618,10 @@ class PagedExecutor:
             sample_idx[n_c + j] = t
         has_host = bool(c_tier.any())
         self._note_trace("mixed", (Tc, Sc, Rb, Sb, MAXBc, MAXBd, has_host))
+        # each host-tier layer's live host blocks as copy-engine runs
+        stage_runs = [pp.host_block_runs(c_tables[l], c_kvlens, c_tier[l],
+                                         BS, self.host_pool.shape[0])
+                      if c_tier[l].any() else None for l in range(L)]
         dv = self._to_device
         logits = self._mixed_forward(
             dv(tokens), dv(q_pos, torch.int32), dv(off), dv(blk_dev),
@@ -506,7 +630,7 @@ class PagedExecutor:
             dv(c_tier, torch.int32), dv(d_tables, torch.int32),
             dv(d_kvlens, torch.int32), dv(sample_idx), dv(is_chunk,
                                                           torch.bool),
-            has_host, Tc, Rb)
+            stage_runs, dv(st_idx) if has_host else None, Tc, Rb)
         n = n_c + n_d
         self._note_logits(logits[:n])
         return torch.argmax(logits[:n], dim=-1).tolist()

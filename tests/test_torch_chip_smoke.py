@@ -32,6 +32,7 @@ class _StubExecutor:
         self.registry = MetricsRegistry()
         self._jit_sigs = set()
         self.host_steps = 0
+        self.staging_bytes = 0
 
     def prefill(self, prompt, pad_to):
         return 1, [None] * self.cfg.n_layers, [None] * self.cfg.n_layers

@@ -154,13 +154,13 @@ DECODE_LENS = {
 @pytest.mark.parametrize("H,KV,D", SHAPES)
 @pytest.mark.parametrize("case", list(DECODE_LENS))
 def test_paged_kernel_split_matches_plain(dtype, tol, H, KV, D, case):
-    """The split kernel (+ combine) against the plain version and the
-    plain split algorithm; pad rows give 0; one split launch per call,
-    and one combine launch when the table spans more than one split."""
+    """The split kernel (its last split block per row merging the row's
+    splits) against the plain version and the plain split algorithm; pad
+    rows give 0; one launch per call, whatever the table spans."""
     _need_cuda()
     lens = DECODE_LENS[case]
     q, pool, tab, kv_len = _decode_case(dtype, H, KV, D, lens, 20)
-    before = (paged_attention.launches, paged_attention.launches_combine)
+    before = paged_attention.launches
     got = paged_attention.paged_attention(q, pool, tab, kv_len)
     want = paged_attention.paged_attention_plain(q, pool, tab, kv_len)
     split = paged_attention.paged_attention_split_plain(q, pool, tab,
@@ -172,9 +172,7 @@ def test_paged_kernel_split_matches_plain(dtype, tol, H, KV, D, case):
     torch.testing.assert_close(got.float(), split.float(), atol=tol,
                                rtol=tol)
     assert torch.isfinite(got).all() and (got[~live] == 0).all()
-    multi = tab.shape[1] * 16 > S_
-    assert (paged_attention.launches, paged_attention.launches_combine) \
-        == (before[0] + 1, before[1] + int(multi))
+    assert paged_attention.launches == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -195,24 +193,65 @@ def test_paged_kernel_is_batch_invariant(dtype, H, KV, D):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_combine_matches_plain(dtype):
-    """The combine kernel against its plain version on the split kernel's
-    own partials."""
+    """The merge of a row's splits, now done inside the split kernel by
+    the row's last split block, against its plain version
+    (`combine_plain`) on the partials the same launch left; the wrapper
+    returns the same bits."""
     _need_cuda()
     lens = DECODE_LENS["B=8 with pad rows"]
     q, pool, tab, kv_len = _decode_case(dtype, 32, 32, 128, lens, 22)
-    out, part_o, part_ml = paged_attention.split_pass(
+    got, part_o, part_ml = paged_attention.split_pass(
         q, pool, tab, kv_len, 128 ** -0.5)
     ctx = tab.shape[1] * 16
     rows = paged_attention.n_splits(kv_len, ctx) > 1
-    got = paged_attention.combine_pass(part_o, part_ml, kv_len, out.clone(),
-                                       ctx)
+    assert rows.any()
     want = paged_attention.combine_plain(
         part_o, part_ml, paged_attention.n_splits(kv_len, ctx)).to(dtype)
+    again = paged_attention.paged_attention(q, pool, tab, kv_len)
     torch.cuda.synchronize()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got[rows].float(), want[rows].float(),
                                atol=tol, rtol=tol)
-    assert torch.equal(got[~rows], out[~rows])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["B=1 ctx 4096", "serve batch"])
+def test_paged_decode_folded_merge_is_batch_invariant(dtype, case):
+    """With the merge folded into the split kernel (tickets drawn in any
+    order, splits merged in split order) a row has the same bits in
+    repeated calls, alone, and in a batch: at B 1 ctx 4096 and at the
+    serve batch (8 llama2-7b rows of 281-1040 tokens)."""
+    _need_cuda()
+    lens = ([4096, 281, 1040, 17] if case == "B=1 ctx 4096"
+            else [281, 1040, 700, 513, 977, 300, 650, 842])
+    q, pool, tab, kv_len = _decode_case(dtype, 32, 32, 128, lens, 23)
+    full = paged_attention.paged_attention(q, pool, tab, kv_len)
+    for _ in range(3):
+        assert torch.equal(paged_attention.paged_attention(
+            q, pool, tab, kv_len), full)
+    for i in range(1 if case == "B=1 ctx 4096" else len(lens)):
+        alone = paged_attention.paged_attention(
+            q[i:i + 1].contiguous(), pool, tab[i:i + 1].contiguous(),
+            kv_len[i:i + 1].contiguous())
+        assert torch.equal(alone[0], full[i]), i
+
+
+def test_paged_decode_is_one_launch():
+    """A decode call over a table of several splits runs one kernel on
+    the card (after the first call, which may zero the ticket buffer)."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+    q, pool, tab, kv_len = _decode_case(torch.bfloat16, 32, 32, 128,
+                                        DECODE_LENS["B=8 with pad rows"], 24)
+    paged_attention.paged_attention(q, pool, tab, kv_len)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        paged_attention.paged_attention(q, pool, tab, kv_len)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if str(e.device_type).endswith("CUDA")]
+    assert len(names) == 1 and "paged_decode_kernel" in names[0], names
 
 
 def test_wrappers_reject_bad_inputs():
@@ -307,23 +346,47 @@ def test_paged_prefill_body_route(dtype, D):
     q, (tab, seg, pos, klen), _ = _segments([(20, 30)], 8, D, 4, 8, 32, 23)
     route = "mma" if dtype == torch.bfloat16 and D >= 64 else "fma"
     assert paged_prefill.body_route(dtype, D) == route
-    for kw in ({}, {"host_pool": pool.cpu().pin_memory(),
-                    "tier": torch.ones(1, dtype=torch.bool, device="cuda")}):
+    tier = torch.ones(1, dtype=torch.bool, device="cuda")
+    for two in (False, True):
         before = (paged_prefill.launches_mma, paged_prefill.launches_fma)
-        paged_prefill.paged_prefill(q.to(dtype), pool, tab, seg, pos, klen,
-                                    tq=32, **kw)
+        if two:
+            _staged_call(q.to(dtype), pool, pool.cpu().pin_memory(), tab,
+                         seg, pos, klen, tier)
+        else:
+            paged_prefill.paged_prefill(q.to(dtype), pool, tab, seg, pos,
+                                        klen, tq=32)
         torch.cuda.synchronize()
         after = (paged_prefill.launches_mma, paged_prefill.launches_fma)
         want = (1, 0) if route == "mma" else (0, 1)
         assert (after[0] - before[0], after[1] - before[1]) == want
 
 
+def _staged_call(q, pool, hpool, tab, seg, pos, klen, tier, tq=32):
+    """One two-pool call as the executor issues it: the live host blocks
+    listed on the host (`host_block_runs`), staged by the copy engine on
+    the side stream after the current stream's work, then the body over
+    the staged buffer once the current stream has waited for it."""
+    BS, (S, MAXB) = pool.shape[1], tab.shape
+    runs = paged_prefill.host_block_runs(tab.cpu(), klen.cpu(), tier.cpu(),
+                                         BS, hpool.shape[0])
+    staged = torch.empty((S * MAXB, *pool.shape[1:]), dtype=pool.dtype,
+                         device=pool.device)
+    main, side = (torch.cuda.current_stream(),
+                  paged_prefill.staging_stream(pool.device))
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        paged_prefill.stage_host_runs(hpool, runs, staged)
+    main.wait_stream(side)
+    return paged_prefill.paged_prefill(q, pool, tab, seg, pos, klen,
+                                       staged=staged, tier=tier, tq=tq)
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("H,KV,D", SHAPES)
 def test_paged_prefill_kernel_two_pools(dtype, tol, H, KV, D):
-    """A host-resident segment reads the pinned HOST pool in place, with
-    ids above the device pool's size; device segments read the device
-    pool."""
+    """A host-resident segment reads its blocks of the pinned HOST pool,
+    staged by the copy engine, with ids above the device pool's size;
+    device segments read the device pool."""
     _need_cuda()
     BS, MAXB = 16, 4
     dpool = _randn((8, BS, 2, KV, D), dtype, 9)
@@ -335,8 +398,7 @@ def test_paged_prefill_kernel_two_pools(dtype, tol, H, KV, D):
                        dtype=torch.int32, device="cuda")
     tier = torch.tensor([True, False, True], device="cuda")
     before = paged_prefill.launches_tiered
-    got = paged_prefill.paged_prefill(q, dpool, tab, seg, pos, klen,
-                                      host_pool=hpool, tier=tier, tq=32)
+    got = _staged_call(q, dpool, hpool, tab, seg, pos, klen, tier)
     want = paged_prefill.paged_prefill_plain(q, dpool, tab, seg, pos, klen,
                                              host_pool=hpool, tier=tier,
                                              tq=32)
@@ -391,14 +453,13 @@ def test_paged_prefill_two_pools_bit_identical_to_one_pool(dtype, H, KV, D,
                                                           layout):
     """Host segments read their staged blocks with the body's one-pool
     arithmetic: the two-pool output equals the one-pool output on the same
-    blocks bit for bit, and one staging launch goes with each call."""
+    blocks bit for bit, and one staging call goes with each call."""
     _need_cuda()
     specs, tiers, tail = TWO_POOL_LAYOUTS[layout]
     q, pool, hpool, tab, seg, pos, klen, tier, _ = _two_pool_case(
         dtype, H, KV, D, specs, tiers, tail)
     before = (paged_prefill.launches_tiered, paged_prefill.launches_stage)
-    two = paged_prefill.paged_prefill(q, pool, tab, seg, pos, klen,
-                                      host_pool=hpool, tier=tier, tq=32)
+    two = _staged_call(q, pool, hpool, tab, seg, pos, klen, tier)
     one = paged_prefill.paged_prefill(q, pool, tab, seg, pos, klen, tq=32)
     torch.cuda.synchronize()
     assert torch.equal(two, one)
@@ -407,10 +468,74 @@ def test_paged_prefill_two_pools_bit_identical_to_one_pool(dtype, H, KV, D,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,D", [(32, 32, 128), (8, 2, 32)])
+@pytest.mark.parametrize("layout", list(TWO_POOL_LAYOUTS))
+def test_paged_prefill_prefetched_staging_bit_identical_to_one_pool(
+        dtype, H, KV, D, layout):
+    """The fused step's prefetch: the host blocks are staged by the copy
+    engine on the side stream from the host pool BEFORE the first
+    segment's own rows reach it (stale there), those rows are then
+    scattered into their staged slots, and the body over that buffer
+    (`staged=`) equals the one-pool body over the pool holding the rows,
+    bit for bit; one staging call, one copy-engine run per run listed."""
+    _need_cuda()
+    specs, tiers, tail = TWO_POOL_LAYOUTS[layout]
+    q, pool, _, tab, seg, pos, klen, tier, _ = _two_pool_case(
+        dtype, H, KV, D, specs, tiers, tail)
+    BS, S, MAXB = 16, *tab.shape
+    off, n = specs[0]
+    cpos = torch.arange(off, off + n, device="cuda")
+    blk = tab[0, cpos // BS].long()
+    stale = pool.clone()
+    stale[blk, cpos % BS] = _randn((n, 2, KV, D), dtype, 31)
+    runs = paged_prefill.host_block_runs(tab.cpu(), klen.cpu(), tier.cpu(),
+                                         BS, pool.shape[0])
+    staged = torch.zeros((S * MAXB + 1, BS, 2, KV, D), dtype=dtype,
+                         device="cuda")
+    main = torch.cuda.current_stream()
+    side = paged_prefill.staging_stream(pool.device)
+    hstale = stale.cpu().pin_memory()
+    side.wait_stream(main)
+    before = (paged_prefill.launches_stage, paged_prefill.stage_runs)
+    with torch.cuda.stream(side):
+        paged_prefill.stage_host_runs(hstale, runs, staged)
+    main.wait_stream(side)
+    rows = (cpos // BS) * BS + cpos % BS          # segment 0's slots
+    staged.view(-1, 2, KV, D).index_copy_(0, rows, pool[blk, cpos % BS])
+    two = paged_prefill.paged_prefill(q, pool, tab, seg, pos, klen,
+                                      staged=staged, tier=tier, tq=32)
+    one = paged_prefill.paged_prefill(q, pool, tab, seg, pos, klen, tq=32)
+    torch.cuda.synchronize()
+    assert torch.equal(two, one)
+    assert (paged_prefill.launches_stage, paged_prefill.stage_runs) == \
+        (before[0] + 1, before[1] + len(runs))
+
+
+def test_stage_host_runs_rejects_bad_inputs():
+    """The copy-engine staging refuses the legacy default stream, a run
+    outside either buffer and a pageable host pool."""
+    _need_cuda()
+    hpool = torch.zeros(8, 16, 2, 2, 32).pin_memory()
+    out = torch.zeros(4, 16, 2, 2, 32, device="cuda")
+    ok = np.asarray([[1, 0, 2]], np.int64)
+    with pytest.raises(ValueError, match="legacy default stream"):
+        with torch.cuda.stream(torch.cuda.default_stream()):
+            paged_prefill.stage_host_runs(hpool, ok, out)
+    with torch.cuda.stream(paged_prefill.staging_stream(out.device)):
+        for bad in ([[7, 0, 2]], [[0, 3, 2]], [[0, 0, 0]], [[-1, 0, 1]]):
+            with pytest.raises(ValueError, match="outside"):
+                paged_prefill.stage_host_runs(
+                    hpool, np.asarray(bad, np.int64), out)
+        with pytest.raises(ValueError, match="pinned"):
+            paged_prefill.stage_host_runs(hpool.clone(), ok, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", list(TWO_POOL_LAYOUTS))
 def test_stage_host_blocks_matches_plain(dtype, layout):
-    """The staging kernel writes exactly the live host slots, each equal
-    to its plain version; a NaN-filled buffer keeps every other slot."""
+    """The staging (the copy engine, on the side stream) writes exactly
+    the live host slots, each equal to its plain version; a NaN-filled
+    buffer keeps every other slot."""
     _need_cuda()
     specs, tiers, tail = TWO_POOL_LAYOUTS[layout]
     _, _, hpool, tab, _, _, klen, tier, _ = _two_pool_case(
@@ -418,7 +543,12 @@ def test_stage_host_blocks_matches_plain(dtype, layout):
     S, MAXB = tab.shape
     buf = torch.full((S * MAXB, *hpool.shape[1:]), float("nan"),
                      dtype=dtype, device="cuda")
-    got = paged_prefill.stage_host_blocks(hpool, tab, klen, tier, out=buf)
+    runs = paged_prefill.host_block_runs(tab.cpu(), klen.cpu(), tier.cpu(),
+                                         16, hpool.shape[0])
+    side = paged_prefill.staging_stream(buf.device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = paged_prefill.stage_host_runs(hpool, runs, buf)
     want = paged_prefill.stage_host_blocks_plain(hpool, tab, klen, tier)
     torch.cuda.synchronize()
     live = paged_prefill.live_host_slots(tab, klen, tier, 16).reshape(-1)
@@ -437,8 +567,11 @@ def test_paged_prefill_wrapper_rejects_bad_inputs():
             torch.arange(8, **i32), torch.ones(1, **i32))
     with pytest.raises(ValueError, match="multiple of tq"):
         paged_prefill.paged_prefill(*args, tq=16)
-    with pytest.raises(ValueError, match="pinned"):
-        paged_prefill.paged_prefill(*args, host_pool=pool.cpu(),
+    with pytest.raises(ValueError, match="staged="):
+        paged_prefill.paged_prefill(*args, host_pool=pool.cpu().pin_memory(),
+                                    tier=torch.ones(1, **i32))
+    with pytest.raises(ValueError, match="blocks of kv_pool"):
+        paged_prefill.paged_prefill(*args, staged=pool[:1],
                                     tier=torch.ones(1, **i32))
     with pytest.raises(ValueError, match="go together"):
         paged_prefill.paged_prefill(*args, tier=torch.ones(1, **i32))

@@ -107,6 +107,15 @@ def _run_both(params, arch, spec, stagger=0.0, **over):
              for r in jeng.run(_reqs(JaxRequest, spec, stagger))}
     teng = LayerKVEngine(tcfg, tp, ServeConfig.for_engine(**kw),
                          hw=TPU_V5E, device="cpu")
+    # every (offset, host-tier layers) of the chunks the port's steps ran
+    teng.host_chunks = []
+    step = teng.ex.mixed_step
+
+    def spy(chunks, decodes):
+        teng.host_chunks += [(c.offset, sum(c.tiers)) for c in chunks
+                             if any(c.tiers)]
+        return step(chunks, decodes)
+    teng.ex.mixed_step = spy
     tdone = {r.rid: r.generated
              for r in teng.run(_reqs(Request, spec, stagger))}
     return jeng, jdone, teng, tdone
@@ -118,6 +127,11 @@ CASES = {
     # tight pool: layerkv admits prompts with layers in the HOST pool, so
     # fused steps run chunk segments through the two-pool kernel variant
     "tight": dict(n=5, seed=2, over=dict(num_device_blocks=30)),
+    # the same pool with 20-token chunks on 8-token blocks: a host-tier
+    # chunk starts mid-block, so the step's prefetch stages a block the
+    # previous chunk half filled and this chunk fills
+    "tight_unaligned": dict(n=5, seed=2, over=dict(num_device_blocks=30,
+                                                   max_prefill_tokens=20)),
 }
 
 
@@ -134,10 +148,14 @@ def test_fused_engine_tokens_match_jax(params, arch, case):
     assert teng.ex.nonfinite_logits() == 0
     host_steps = [sig for fn, sig in teng.ex._jit_sigs
                   if fn == "mixed" and sig[-1]]
-    if case == "tight":
+    if case.startswith("tight"):
         kinds = [k for k, _ in _ledger(teng)]
         assert "offload" in kinds and "reload" in kinds
         assert host_steps, "a fused step must read the host tier"
+    if case == "tight_unaligned":
+        bs = _kw()["block_size"]
+        assert any(off % bs for off, _ in teng.host_chunks), \
+            "a host-tier chunk must start mid-block"
     teng.finish()
 
 

@@ -137,7 +137,7 @@ def test_ops_paged_prefill_runs_the_plain_version_on_cpu():
     assert (paged_prefill.launches, paged_prefill.launches_tiered) == before
 
 
-# Two-pool cases for the staging kernel's plain version: (specs, tiers,
+# Two-pool cases for the staging's plain version: (specs, tiers,
 # (H, KV, D, BS, MAXB), device and host pool sizes, table or None for
 # host ids drawn above the device pool's size)
 STAGE_CASES = {
@@ -159,7 +159,7 @@ STAGE_CASES = {
 
 @pytest.mark.parametrize("case", list(STAGE_CASES))
 def test_staged_host_blocks_one_pool_match_jax_two_pools(case):
-    """The staging kernel's plain version copies each live host block
+    """The staging's plain version copies each live host block
     (tier set, j < ceil(kv_len / BS)) to slot s * MAXB + j and nothing
     else; the one-pool plain version over [device pool | staged buffer]
     (host segments pointed at their slots, device ids clamped into the
@@ -176,10 +176,8 @@ def test_staged_host_blocks_one_pool_match_jax_two_pools(case):
                        r.randint(0, nbd, (len(specs), MAXB)))
     tab = np.asarray(tab, np.int32)
     t_tab, t_klen, t_tier = (torch.from_numpy(a) for a in (tab, klen, tier))
-    before = paged_prefill.launches_stage
-    staged = paged_prefill.stage_host_blocks(torch.from_numpy(hpool), t_tab,
-                                             t_klen, t_tier).numpy()
-    assert paged_prefill.launches_stage == before   # CPU: no launch
+    staged = paged_prefill.stage_host_blocks_plain(
+        torch.from_numpy(hpool), t_tab, t_klen, t_tier).numpy()
     nblk = -(-np.minimum(klen, MAXB * BS) // BS)
     live = tier[:, None] & (np.arange(MAXB)[None] < nblk[:, None])
     assert np.array_equal(paged_prefill.live_host_slots(
@@ -222,3 +220,99 @@ def test_paged_prefill_plain_rows_invariant_to_chunking(cut, H, KV, D):
         np.testing.assert_allclose(got[rows], pallas[rows], **TOL)
         outs[name] = got[rows]
     np.testing.assert_allclose(outs[cut], outs["one chunk"], **TOL)
+
+
+@pytest.mark.parametrize("case", list(STAGE_CASES))
+def test_host_block_runs_stage_the_live_host_slots(case):
+    """`host_block_runs` lists every live host slot once (runs consecutive
+    in the host pool and in the staging slots, ids clamped as the plain
+    staging clamps them); copying the runs (`stage_host_runs`, its plain
+    version on the CPU) gives `stage_host_blocks_plain`'s blocks on the
+    live slots and leaves every other slot as it was."""
+    specs, tiers, (H, KV, D, BS, MAXB), nbd, nbh, tab = STAGE_CASES[case]
+    hpool = torch.from_numpy(_pool(nbh, BS, KV, D, seed=4))
+    klen = np.asarray([off + n for off, n in specs], np.int32)
+    tier = np.asarray(tiers)
+    if tab is None:
+        r = np.random.RandomState(5)
+        tab = np.where(tier[:, None], r.randint(nbd, nbh, (len(specs), MAXB)),
+                       r.randint(0, nbd, (len(specs), MAXB)))
+    tab = np.asarray(tab, np.int32)
+    runs = paged_prefill.host_block_runs(tab, klen, tier, BS, nbh)
+    assert runs.dtype == np.int64 and runs.shape[1] == 3
+    assert (runs[:, 2] >= 1).all()
+    slots = np.concatenate([np.arange(d, d + n) for _, d, n in runs]
+                           or [np.zeros(0, np.int64)])
+    live = paged_prefill.live_host_slots(
+        *(torch.from_numpy(a) for a in (tab, klen, tier)), BS).reshape(-1)
+    assert np.array_equal(slots, np.flatnonzero(live.numpy()))
+    out = torch.full((len(specs) * MAXB, *hpool.shape[1:]), float("nan"))
+    before = paged_prefill.launches_stage
+    got = paged_prefill.stage_host_runs(hpool, runs, out)
+    assert paged_prefill.launches_stage == before   # CPU: no launch
+    want = paged_prefill.stage_host_blocks_plain(
+        hpool, *(torch.from_numpy(a) for a in (tab, klen, tier)))
+    assert torch.equal(got[live], want[live])
+    assert got[~live].isnan().all()
+
+
+# (chunk spec, other segments, tiers): the chunk is host-resident and its
+# first row lands mid-block, in a block an earlier chunk half filled
+PREFETCH_CASES = {
+    "chunk mid-block": ([(13, 11), (30, 1), (6, 9)], [True, False, True]),
+    "chunk ends mid-block": ([(5, 3), (21, 1)], [True, False]),
+    "chunk on a block edge": ([(16, 8), (0, 0), (9, 4)], [True, False, True]),
+}
+
+
+@pytest.mark.parametrize("case", list(PREFETCH_CASES))
+def test_prefetched_staging_with_chunk_rows_matches_two_pools(case):
+    """The fused step's prefetch: the host blocks are staged BEFORE the
+    chunk's own K/V reach the host pool (the staged copy of each block
+    the chunk fills holds stale rows there), then the chunk's rows are
+    scattered into their staged slots (s * MAXB + pos // BS, pos % BS).
+    The body over that buffer (`staged=`) gives the plain two-pool output
+    over the host pool that holds the chunk's rows, and the JAX two-pool
+    reference's, at f32 atol = rtol = 2e-5 on live rows; without the
+    scatter it does not."""
+    specs, tiers = PREFETCH_CASES[case]
+    H, KV, D, BS, MAXB, nbd, nbh = 4, 2, 32, 8, 5, 12, 48
+    dpool = _pool(nbd, BS, KV, D, seed=3)
+    stale = _pool(nbh, BS, KV, D, seed=4)
+    q, _, seg, pos, klen = _segments(specs, H, D, MAXB, len(specs) * MAXB,
+                                     seed=6)
+    tier = np.asarray(tiers)
+    r = np.random.RandomState(7)
+    tab = np.where(tier[:, None],
+                   r.permutation(nbh)[:len(specs) * MAXB]
+                   .reshape(len(specs), MAXB),
+                   r.randint(0, nbd, (len(specs), MAXB))).astype(np.int32)
+    off, n = specs[0]
+    chunk_pos = off + np.arange(n)
+    kv_new = r.randn(n, 2, KV, D).astype(np.float32)
+    fresh = stale.copy()                 # the host pool after the writes
+    fresh[tab[0, chunk_pos // BS], chunk_pos % BS] = kv_new
+
+    runs = paged_prefill.host_block_runs(tab, klen, tier, BS, nbh)
+    S = len(specs)
+    staged = torch.zeros((S * MAXB + 1, BS, 2, KV, D))
+    paged_prefill.stage_host_runs(torch.from_numpy(stale), runs, staged)
+    t = [torch.from_numpy(np.ascontiguousarray(a))
+         for a in (q, dpool, tab, seg, pos, klen)]
+    t_tier = torch.from_numpy(tier)
+    missing = paged_prefill.paged_prefill(*t, staged=staged.clone(),
+                                          tier=t_tier, tq=TQ).numpy()
+    rows = torch.from_numpy(chunk_pos // BS * BS + chunk_pos % BS)
+    staged.view(-1, 2, KV, D).index_copy_(0, rows, torch.from_numpy(kv_new))
+    got = paged_prefill.paged_prefill(*t, staged=staged, tier=t_tier,
+                                      tq=TQ).numpy()
+    plain = paged_prefill.paged_prefill_plain(
+        *t, host_pool=torch.from_numpy(fresh), tier=t_tier, tq=TQ).numpy()
+    want = np.asarray(jref.paged_prefill_reference(
+        *[jnp.asarray(a) for a in (q, dpool, tab, seg, pos, klen)],
+        host_pool=jnp.asarray(fresh), tier=jnp.asarray(tier), tq=TQ))
+    live = klen[seg] > 0
+    np.testing.assert_allclose(got[live], plain[live], **TOL)
+    np.testing.assert_allclose(got[live], want[live], **TOL)
+    chunk_rows = seg == 0
+    assert not np.allclose(missing[chunk_rows], want[chunk_rows], **TOL)

@@ -1,24 +1,21 @@
 #!/usr/bin/env python3
 """Sweep the tuning constants of the paged kernels on one NVIDIA GPU.
 
-    python3 tools/paged_sweep.py [--only decode,stage,body] [OUT_JSON]
+    python3 tools/paged_sweep.py [--only decode,body] [OUT_JSON]
 
 Writes variants of `csrc/paged_attention.cu` (SPLIT tokens per block, NW
-warps, STAGES of the cp.async ring), of the staging kernel in
-`csrc/paged_prefill.cu` (ST_UNROLL loads in flight per thread,
-ST_MAX_PARTS blocks per pool block) and of its tensor-core body (BK keys
-per step, STAGES of its ring, MAX_NWR warps per block) under the
-gitignored `build/sweep/`, with the constants substituted, builds them
-with one `nvcc` each, in parallel, loads them with ctypes and times, with
-`chip_smoke._time_ms`:
+warps, STAGES of the cp.async ring) and of the tensor-core body in
+`csrc/paged_prefill.cu` (BK keys per step, STAGES of its ring, MAX_NWR
+warps per block) under the gitignored `build/sweep/`, with the constants
+substituted, builds them with one `nvcc` each, in parallel, loads them
+with ctypes and times, with `chip_smoke._time_ms`:
 
-  - paged decode (split kernel + combine), llama2-7b heads, bf16, BS 16:
-    the serve path's batch (8 rows at prompt + 16), B 1 at ctx 4096 and
-    B 32 at ctx 256-2047, each variant checked against the plain version;
-  - the staging of the fused path's timed shape (64 live host blocks of
-    256 KB from the pinned pool), checked bit for bit;
-  - the one-pool body at that shape (a 512-token chunk at offset 512,
-    llama2-7b heads) and at granite-3-2b's (H 32, KV 8, D 64), bf16,
+  - paged decode (one launch: the split kernel merges a row's splits),
+    llama2-7b heads, bf16, BS 16: the serve path's batch (8 rows at
+    prompt + 16), B 1 at ctx 4096 and B 32 at ctx 256-2047, each variant
+    checked against the plain version;
+  - the one-pool body at the fused path's timed shape (a 512-token chunk
+    at offset 512, llama2-7b heads) and at granite-3-2b's (H 32, KV 8, D 64), bf16,
     each variant checked against the plain version;
   - the copy engine on the same bytes, pinned to device and back
     (`copy_`, non-blocking).
@@ -39,8 +36,6 @@ OUT = os.path.join(ROOT, "build", "sweep")
 # (SPLIT, NW, STAGES); the first is the committed kernel's
 DECODE = [(256, 4, 3), (256, 4, 4), (256, 4, 2), (512, 4, 3), (128, 4, 3),
           (256, 8, 3)]
-# (ST_UNROLL, ST_MAX_PARTS); the first is the committed kernel's
-STAGE = [(4, 16), (8, 16), (4, 64), (16, 8)]
 # the tensor-core body's (BK, STAGES, MAX_NWR); the first is the
 # committed kernel's (Q passes through one ring slot: MAX_NWR * 8 <= BK)
 BODY = [(64, 2, 4), (64, 3, 4), (32, 3, 4), (32, 2, 4), (64, 2, 8),
@@ -68,7 +63,7 @@ def _variant(name, src, repl):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    kinds = {"decode", "stage", "body"}
+    kinds = {"decode", "body"}
     if argv[:1] == ["--only"]:
         kinds, argv = set(argv[1].split(",")), argv[2:]
     sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
@@ -84,12 +79,6 @@ def main(argv=None) -> int:
             [("constexpr int SPLIT = 256;", f"constexpr int SPLIT = {s};"),
              ("constexpr int NW = 4;", f"constexpr int NW = {w};"),
              ("constexpr int STAGES = 3;", f"constexpr int STAGES = {st};")])
-    for u, p in STAGE if "stage" in kinds else ():
-        builds[("stage", u, p)] = _variant(
-            f"stage_u{u}_p{p}", "paged_prefill.cu",
-            [("constexpr int ST_UNROLL = 4;", f"constexpr int ST_UNROLL = {u};"),
-             ("constexpr int ST_MAX_PARTS = 16;",
-              f"constexpr int ST_MAX_PARTS = {p};")])
     for bk, st, nw in BODY if "body" in kinds else ():
         builds[("body", bk, st, nw)] = _variant(
             f"body_bk{bk}_st{st}_nwr{nw}", "paged_prefill.cu",
@@ -106,7 +95,7 @@ def main(argv=None) -> int:
         libs[key] = ctypes.CDLL(so)
     smi = cs._smi()
     print(smi, flush=True)
-    res = {"nvidia_smi": smi, "decode": [], "stage": []}
+    res = {"nvidia_smi": smi, "decode": []}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     H, KV, D = cs.FLASH_SHAPES["llama2-7b"]
@@ -126,22 +115,19 @@ def main(argv=None) -> int:
                 continue
             split = key[1]
             ns = -(-MAXB * 16 // split)
-            f, g = lib.paged_attention_fwd, lib.paged_decode_combine_fwd
-            f.argtypes = [vp] * 7 + [ci] * 8 + [ctypes.c_float, ci, vp]
-            g.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+            f = lib.paged_attention_fwd
+            f.argtypes = [vp] * 8 + [ci] * 8 + [ctypes.c_float, ci, vp]
             out = torch.empty_like(q)
             po = torch.empty(B, H, ns, D, device="cuda")
             pm = torch.empty(B, H, ns, 2, device="cuda")
+            tk = torch.zeros(B * KV, dtype=torch.int32, device="cuda")
 
             def call():
                 st = torch.cuda.current_stream().cuda_stream
                 err = f(q.data_ptr(), pool.data_ptr(), tab.data_ptr(),
                         lens.data_ptr(), out.data_ptr(), po.data_ptr(),
-                        pm.data_ptr(), B, H, KV, D, 16, MAXB, split, ns,
-                        D ** -0.5, 1, st)
-                if not err and ns > 1:
-                    err = g(po.data_ptr(), pm.data_ptr(), lens.data_ptr(),
-                            out.data_ptr(), B, H, D, MAXB * 16, ns, 1, st)
+                        pm.data_ptr(), tk.data_ptr(), B, H, KV, D, 16, MAXB,
+                        split, ns, D ** -0.5, 1, st)
                 if err:
                     raise RuntimeError(f"{key}: cudaError_t {err}")
             call()
@@ -157,39 +143,8 @@ def main(argv=None) -> int:
                   f"{key[3]} {shape}: {ms:.4f} ms (bound "
                   f"{row['bound_ms']:.4f})", flush=True)
         del q, pool, tab, lens, want
-    q, seg, pos, klen, _, maxb = cs._pp_batch(gen, H, KV, D, bf16,
-                                              [(512, 512)])
-    pool = torch.randn(4 * maxb, 16, 2, KV, D, generator=gen,
-                       device="cuda").to(bf16)
-    tab = torch.randperm(4 * maxb, generator=gen, device="cuda")[:maxb] \
-        .reshape(1, maxb).int()
-    hpool = pool.cpu().pin_memory()
-    tier = torch.ones(1, dtype=torch.int32, device="cuda")
-    staged = torch.empty((maxb, 16, 2, KV, D), dtype=bf16, device="cuda")
-    bb = staged[0].numel() * staged.element_size()
-    nbytes = (512 + 512) // 16 * bb
-    want = hpool[tab[0].long().cpu()]
-    for key, lib in libs.items():
-        if key[0] != "stage":
-            continue
-        f = lib.stage_host_blocks_fwd
-        f.argtypes = [vp] * 5 + [ci] * 4 + [ctypes.c_longlong, vp]
-
-        def call():
-            err = f(hpool.data_ptr(), tab.data_ptr(), klen.data_ptr(),
-                    tier.data_ptr(), staged.data_ptr(), 1, maxb, 16,
-                    hpool.shape[0], bb, torch.cuda.current_stream()
-                    .cuda_stream)
-            if err:
-                raise RuntimeError(f"{key}: cudaError_t {err}")
-        call()
-        if not torch.equal(staged.cpu(), want):
-            raise AssertionError(f"{key}: staged blocks differ")
-        ms = cs._time_ms(call, reps=30)
-        res["stage"].append({"unroll": key[1], "parts": key[2], "ms": ms,
-                             "gb_per_s": nbytes / ms / 1e6})
-        print(f"[sweep] staging ST_UNROLL {key[1]} ST_MAX_PARTS {key[2]}: "
-              f"{ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s", flush=True)
+    # the copy engine's rate on the fused path's live K/V (64 blocks)
+    nbytes = (512 + 512) // 16 * 16 * 2 * KV * D * 2
     res["body"] = []
     for arch in ("llama2-7b", "granite-3-2b"):
         Hb, KVb, Db = cs.FLASH_SHAPES[arch]
@@ -205,15 +160,15 @@ def main(argv=None) -> int:
             if key[0] != "body":
                 continue
             f = lib.paged_prefill_fwd
-            f.argtypes = [vp] * 10 + [ci] * 10 + [ctypes.c_float, ci, vp]
+            f.argtypes = [vp] * 9 + [ci] * 9 + [ctypes.c_float, ci, vp]
             outb = torch.empty_like(qb)
 
             def call():
-                err = f(qb.data_ptr(), poolb.data_ptr(), None, None,
+                err = f(qb.data_ptr(), poolb.data_ptr(), None,
                         tabb.data_ptr(), segb.data_ptr(), posb.data_ptr(),
                         klenb.data_ptr(), None, outb.data_ptr(),
                         qb.shape[0], Hb, KVb, Db, 16, 1, mb, 32,
-                        poolb.shape[0], 0, Db ** -0.5, 1,
+                        poolb.shape[0], Db ** -0.5, 1,
                         torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{key}: cudaError_t {err}")
