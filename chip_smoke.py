@@ -110,6 +110,24 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            a host-tier chunk. Each prints the agreement share of the full
            token streams and wall-clock TTFT / TPOT / decode tokens per
            second.
+  cluster  llama2-7b (the serve phase's weights, shared by both
+           replicas: each engine gets the same tensors) served by a
+           ClusterSession of two port engines behind the slo_aware router,
+           in the fused mode with the fused path's prompts, each replica on
+           a device pool tight enough to offload and read the host tier,
+           with a FaultPlan that crashes replica 0 while it streams and
+           revives it. Asserts every request finishes with all its tokens,
+           every stream read with take_new equals the request's whole
+           output (no gap, no repeat), one kill, a recovery and a
+           re-dispatch, both replicas dispatched, offloaded and ran a
+           host-tier chunk, the pools are back at baseline after
+           drop_cache, the path's kernels launched, the first token of
+           each request that started before the kill equals the fused
+           run's, and the revived replica 0 serves one more request alone
+           with the fused run's first token; prints the stream agreement
+           with the fused run, wall TTFT / TPOT and decode tokens per
+           second per replica. Launch counts are zeroed just before the
+           cluster run and read just after it.
   train    granite-3-2b (hf:ibm-granite/granite-3.0-2b-base) at full
            width and depth, bf16, random weights from a seeded generator
            on the card, trained by the port's `train_loop.train` for a
@@ -120,6 +138,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            backward; prints the launches per step, step time, tokens/s
            and peak device memory. The serve, fused and moe paths also
            assert RMSNorm launches (every norm of the model runs it).
+  train-moe  deepseek-moe-16b (arXiv:2401.06066) at full width (d 2048,
+           16 heads of 128, 64 routed experts top-6 + 2 shared, d_expert
+           1408, vocab 102400) with its depth cut to 4 of 28 layers
+           (TRAIN_MOE), bf16, 5 AdamW steps of 4 x 1024 tokens through the
+           MoE capacity-factor dispatch (capacity factor 1.25, C = 480),
+           every block checkpointed. Asserts finite losses, grad norms and
+           lb_loss, a step-0 ce within 1 of ln(vocab), 0 <= dropped_frac
+           < 1, and the RMSNorm and flash kernels forward and backward
+           (flash at D = 128, G = 1); prints step time, tokens/s, peak
+           memory, lb_loss and dropped_frac. The kernels phase times the
+           two flash kernels at this shape too (at_moe_train_shape).
   profile  (only with --profile) torch.profiler over a few decode-only
            steps of an exclusive vllm llama2-7b run at B = 8, over one
            more layerkv run of the fused path (the paged kernels' device
@@ -127,8 +156,8 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            stream's staging copies with the share that overlaps compute
            kernels, and staging host calls, runs and host time per
            step), and over one
-           train step after the train phase: wall and device-busy time,
-           device ops, top device ops.
+           train step after each of the train and train-moe phases: wall
+           and device-busy time, device ops, top device ops.
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -164,6 +193,14 @@ SMOKE_SHAPES = {"granite-3-2b smoke": (8, 2, 32),
                 "deepseek-moe-16b smoke": (4, 4, 32)}
 # the train path: model, steps, batch x sequence (tokens per step)
 TRAIN = dict(arch="granite-3-2b", steps=5, batch=4, seq=1024)
+# the MoE train path: deepseek-moe-16b at full width, its depth cut from
+# 28 layers to `layers`, through the capacity-factor dispatch at the
+# model's factor (moe.CAPACITY_FACTOR: C = 480 slots per expert at
+# 4 x 1024 tokens)
+TRAIN_MOE = dict(arch="deepseek-moe-16b", layers=4, steps=5, batch=4,
+                 seq=1024)
+# its attention (H = KV = 16, D = 128: G = 1)
+MOE_TRAIN_ATTN = (16, 16, 128)
 # RMSNorm shapes: the train path's activations, llama2-7b prefill / decode
 NORM_SHAPES = {"train": (TRAIN["batch"], TRAIN["seq"], 2048),
                "llama2-7b prefill": (1, 1024, 4096),
@@ -282,7 +319,8 @@ def check_flash(gen, sizes=None):
     at both serving shapes, and the edges of the kernel's tiling (128
     query rows x 128 keys) at G = H / KV in {1, 4, 8} and D in {64, 128}:
     Sq and Skv off the tile grid, kv_len below one tile, per-row q_offset
-    with kv_len across a tile boundary, and a sliding window. With
+    with kv_len across a tile boundary, and a sliding window; and the
+    train-moe path's shape (B 4, S 1024, H = KV = 16, D 128). With
     `sizes` ({name: (H, KV, D)}), every case at those shapes only."""
     import torch
     from repro_torch.kernels import flash_prefill as fp
@@ -300,11 +338,14 @@ def check_flash(gen, sizes=None):
          [104, 250], 0),
         ("window 200", 1, 1000, 1037, [1037], 37, 200),
     ]
+    B, S = TRAIN_MOE["batch"], TRAIN_MOE["seq"]
+    moe_train = [(f"train B {B} S {S}", B, S, S, [S] * B, 0, 0)]
     shapes = [(arch, hkd, engine_cases + edge_cases)
               for arch, hkd in (sizes or FLASH_SHAPES).items()]
     if sizes is None:
         shapes += [(f"G={H // KV} D={D}", (H, KV, D), edge_cases)
                    for H, KV, D in FLASH_GQA_SHAPES]
+        shapes += [(TRAIN_MOE["arch"], MOE_TRAIN_ATTN, moe_train)]
     for arch, (H, KV, D), cases in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
@@ -446,8 +487,9 @@ def time_flash(gen):
     the main path's largest bucket (one prompt of 1024 tokens) and at the
     train path's shape (granite-3-2b, B 4, S 1024, GQA 4:1), each beside
     its plain version and scaled_dot_product_attention (enable_gqa at the
-    train shape). Returns the serve shape's row with the train shape's
-    under "at_train_shape"."""
+    train shape), and at the MoE train path's (deepseek-moe-16b, B 4,
+    S 1024, H = KV = 16, D 128). Returns the serve shape's row with the
+    train shapes' under "at_train_shape" and "at_moe_train_shape"."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill as fp
@@ -455,7 +497,9 @@ def time_flash(gen):
     rows = []
     for (H, KV, D), B, lens_arg in ((FLASH_SHAPES["llama2-7b"], 1, True),
                                     (FLASH_SHAPES["granite-3-2b"],
-                                     TRAIN["batch"], False)):
+                                     TRAIN["batch"], False),
+                                    (MOE_TRAIN_ATTN, TRAIN_MOE["batch"],
+                                     False)):
         q, k, v, lens, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, S,
                                        S, [S] * B, 0)
         lens = lens if lens_arg else None   # the train path passes none
@@ -473,6 +517,7 @@ def time_flash(gen):
                            f"causal"))
         del q, k, v, qt, kt, vt
     rows[0]["at_train_shape"] = rows[1]
+    rows[0]["at_moe_train_shape"] = rows[2]
     return rows[0]
 
 
@@ -956,7 +1001,8 @@ def _flash_grads(fn, q, k, v, do, **kw):
 def check_flash_bwd(gen, sizes=None):
     """The flash backward (dq, dk, dv) against autograd through the plain
     flash attention, causal: at the train path's shape (B 4, S 1024,
-    granite-3-2b heads, GQA 4:1) and llama2-7b's (B 1, S 1024), and at
+    granite-3-2b heads, GQA 4:1), the train-moe path's (B 4, S 1024,
+    H = KV = 16, D 128) and llama2-7b's (B 1, S 1024), and at
     the edges of the kernels' tiling: Sq and Skv off the 64-row grid (a
     chunk at q_offset 37), a sliding window, and G in {1, 4, 8} at D in
     {64, 128}; bf16 and f32. With `sizes` ({name: (H, KV, D)}), B 1 S
@@ -967,7 +1013,10 @@ def check_flash_bwd(gen, sizes=None):
     worst = {}
     S = TRAIN["seq"]
     gran, llama = FLASH_SHAPES["granite-3-2b"], FLASH_SHAPES["llama2-7b"]
+    Sm = TRAIN_MOE["seq"]
     cases = [("train granite-3-2b", TRAIN["batch"], gran, S, S, 0, 0),
+             ("train-moe deepseek-moe-16b", TRAIN_MOE["batch"],
+              MOE_TRAIN_ATTN, Sm, Sm, 0, 0),
              ("llama2-7b", 1, llama, S, S, 0, 0),
              ("Sq 1000 Skv 1037 q_offset 37", 1, gran, 1000, 1037, 37, 0),
              ("window 200", 1, llama, 1000, 1037, 37, 200)]
@@ -1066,12 +1115,21 @@ def time_rmsnorm(gen):
 def time_flash_bwd(gen):
     """The flash backward at the train path's shape (B 4, S 1024, H 32,
     KV 8, D 64, bf16, causal), beside autograd through the plain version
-    and the backward of scaled_dot_product_attention with enable_gqa."""
+    and the backward of scaled_dot_product_attention with enable_gqa;
+    the same at the MoE train path's shape (H = KV = 16, D 128) under
+    "at_moe_train_shape"."""
+    rows = [_time_flash_bwd_at(gen, *FLASH_SHAPES["granite-3-2b"],
+                               TRAIN["batch"], TRAIN["seq"]),
+            _time_flash_bwd_at(gen, *MOE_TRAIN_ATTN, TRAIN_MOE["batch"],
+                               TRAIN_MOE["seq"])]
+    rows[0]["at_moe_train_shape"] = rows[1]
+    return rows[0]
+
+
+def _time_flash_bwd_at(gen, H, KV, D, B, S):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill as fp
-    H, KV, D = FLASH_SHAPES["granite-3-2b"]
-    B, S = TRAIN["batch"], TRAIN["seq"]
     q, k, v, _, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, S, S,
                                 [S] * B, 0)
     do = torch.randn(q.shape, generator=gen, device="cuda") \
@@ -1087,7 +1145,7 @@ def time_flash_bwd(gen):
             y, leaves, g, retain_graph=True), reps=reps)
     plain = grad_ms(fp.flash_attention_plain, (q, k, v), do, 3)
     lib = grad_ms(lambda a, b, c: F.scaled_dot_product_attention(
-        a, b, c, is_causal=True, enable_gqa=True),
+        a, b, c, is_causal=True, enable_gqa=KV != H),
         [t.transpose(1, 2).contiguous() for t in (q, k, v)],
         do.transpose(1, 2).contiguous(), 20)
     nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
@@ -1155,8 +1213,8 @@ def phase_kernels():
              f"kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} "
              f"library_ms {lib(t)} bound_ms {t['bound_ms']:.4f} "
              f"({t['bound_by']})")
-        for also in ([t["at_train_shape"]] if "at_train_shape" in t
-                     else []) + t.get("at_serve_shapes", []) \
+        for also in [t[k] for k in ("at_train_shape", "at_moe_train_shape")
+                     if k in t] + t.get("at_serve_shapes", []) \
                 + t.get("at_other_shapes", []):
             _say(f"[kernels] {name} [{also['shape']}]: kernel_ms "
                  f"{also['ms']:.4f} plain_ms {also['plain_ms']:.4f} "
@@ -1541,6 +1599,225 @@ def phase_moe():
     return res
 
 
+# The cluster path: llama2-7b at full width and depth, the fused path's
+# prompts and mode, `replicas` engines sharing one set of weights behind
+# the `router`, each with a device pool of `ndb` blocks (tight: each
+# replica offloads and runs host-tier chunks; a 1024-token request needs
+# 66 x 32 = 2112 blocks to decode, so half the fused path's 4096 would
+# wedge) and `nhb` host blocks (the replica that takes the whole load
+# runs its host pool short mid-eviction: the partial eviction of ROADMAP
+# C6), and a crash of replica 0 at a virtual time when it has streamed
+# tokens of live requests, revived `recover` seconds later (the
+# FaultPlan grammar of serving/faults.py).
+# tests/test_torch_chip_smoke.py dry-runs it on the CPU.
+CLUSTER = dict(arch="llama2-7b", prompts="fused", replicas=2,
+               router="slo_aware", ndb=2304, nhb=8192,
+               fault="crash@0.06:r0:recover=0.05",
+               kernels=PATHS["fused"]["kernels"])
+
+
+def _run_cluster(cfg, params, device, ref_tokens=None):
+    """Drive the cluster path (settings from CLUSTER) through a
+    `ClusterSession` of port engines that share `params` (or the first
+    engine's seeded weights), with every kernel launch count zeroed just
+    before the run and read just after it. Asserts every request
+    finishes with all its tokens; every stream read with `take_new`
+    equals the request's whole output (the tokens a restart folded into
+    its prompt, then `generated`); one kill, a recovery and a
+    re-dispatch, the kill hitting replica 0 while it held streamed
+    tokens; every replica dispatched work, offloaded, and ran a fused
+    step with a host-tier chunk; no logits went non-finite; after
+    `drop_cache` every pool is back at its baseline; on CUDA the path's
+    kernels launched; and, given `ref_tokens` (the single-engine fused
+    run's), each request whose first token came before the kill has the
+    reference's first token. Then one more request goes through the
+    cluster, whose router must place it on the revived, idle replica 0;
+    it must finish there with a whole stream, every replica must have
+    served a request, and its first token must equal the reference's.
+    Prints the stream agreement with `ref_tokens` (not asserted) and
+    wall TTFT / TPOT and decode tokens per second per replica. Returns a
+    result dict."""
+    import torch
+    from repro_torch.core import DEVICE, HOST
+    from repro_torch.serving.cluster import ClusterSession
+    from repro_torch.serving.engine import LayerKVEngine
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import ServeConfig
+    pc = CLUSTER
+    prompts = _path_prompts(pc["prompts"], cfg)
+    out_len = PATHS[pc["prompts"]]["out_len"]
+    R = pc["replicas"]
+    ec = ServeConfig.for_engine(policy="layerkv", slo_aware=False,
+                                block_size=16, num_device_blocks=pc["ndb"],
+                                num_host_blocks=pc["nhb"],
+                                **PATHS[pc["prompts"]]["mode"])
+    engines = [LayerKVEngine(cfg, params, ec, device=device, seed=0)]
+    engines += [LayerKVEngine(cfg, engines[0].ex.params, ec, device=device)
+                for _ in range(R - 1)]
+    plan = FaultPlan.parse(pc["fault"], n_replicas=R)
+    cl = ClusterSession(engines, router=pc["router"], fault_plan=plan)
+    handles = [cl.submit(Request(rid=f"r{i}", prompt_len=len(p),
+                                 output_len=out_len, arrival=0.0, prompt=p))
+               for i, p in enumerate(prompts)]
+    _sync(device)
+    streams = {h.rid: [] for h in handles}
+    first, last, before_kill = {}, {}, set()
+    dec_wall, dec_tok = [0.0] * R, [0] * R
+    _zero_launches()
+    t0 = time.perf_counter()
+    while True:
+        steps = [s.steps for s in cl.stats]
+        ts = time.perf_counter()
+        n_first = len(first)
+        if not cl.step():
+            break
+        _sync(device)
+        now = time.perf_counter()
+        stepped = [i for i in range(R) if cl.stats[i].steps != steps[i]]
+        n_new = 0
+        for h in handles:
+            new = h.take_new()
+            if new:
+                if h.rid not in first and not cl.n_kills:
+                    before_kill.add(h.rid)
+                first.setdefault(h.rid, now)
+                last[h.rid] = now
+                streams[h.rid] += new
+                n_new += len(new)
+        if len(stepped) == 1 and len(first) == n_first and n_new:
+            dec_wall[stepped[0]] += now - ts    # a step that only decoded
+            dec_tok[stepped[0]] += n_new
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    done = cl.drain()
+    _say(f"[cluster] {len(done)} done in {wall:.2f}s wall, launches "
+         f"{launches}")
+    for line in cl.recovery_log:
+        _say(f"[cluster]   {line}")
+    if len(done) != len(prompts):
+        raise AssertionError(f"only {len(done)} of {len(prompts)} finished")
+    for h, p in zip(handles, prompts):
+        # a restart folds the tokens its dead incarnation streamed into
+        # the prompt: the request's whole output is that tail + generated
+        r = h.request
+        whole = r.prompt[len(p):] + r.generated
+        if len(whole) != out_len or streams[h.rid] != whole:
+            raise AssertionError(
+                f"{h.rid}: streamed {len(streams[h.rid])} tokens, "
+                f"generated {len(whole)} of {out_len}, equal "
+                f"{streams[h.rid] == whole}")
+    n_red = len(cl.redispatch_priorities)
+    if not (cl.n_kills == 1 and cl.n_recoveries >= 1 and n_red >= 1):
+        raise AssertionError(f"kills {cl.n_kills}, recoveries "
+                             f"{cl.n_recoveries}, re-dispatched {n_red}")
+    salvaged = {h.rid: h.request.tokens_salvaged for h in handles
+                if h.request.tokens_salvaged}
+    if not salvaged:
+        raise AssertionError("the crash hit no streamed tokens")
+    per = []
+    for i, (eng, st) in enumerate(zip(engines, cl.stats)):
+        kinds = [x.kind for x in eng.off.ledger.log]
+        host = sum(1 for fn, sig in eng.ex._jit_sigs
+                   if fn == "mixed" and sig[-1])
+        per.append({"dispatched": st.dispatched, "served": len(eng.core.done),
+                    "steps": st.steps, "offloads": kinds.count("offload"),
+                    "reloads": kinds.count("reload"),
+                    "host_tier_signatures": host,
+                    "partial_evictions":
+                        eng.core.registry.total("partial_evictions"),
+                    "decode_tokens": dec_tok[i], "decode_wall_s": dec_wall[i],
+                    "decode_tok_per_s": dec_tok[i] / dec_wall[i]
+                    if dec_wall[i] else float("nan")})
+        _say(f"[cluster] replica {i}: {per[-1]}")
+        if not (st.dispatched and per[-1]["offloads"] and host):
+            raise AssertionError(f"replica {i} did not dispatch, offload "
+                                 f"and run a host-tier chunk: {per[-1]}")
+        if eng.ex.nonfinite_logits():
+            raise AssertionError(f"non-finite logits on replica {i}")
+    if torch.device(device).type == "cuda" \
+            and not all(launches[k] > 0 for k in pc["kernels"]):
+        raise AssertionError(f"a kernel was never launched: {launches}")
+    for eng in engines:
+        eng.bm.drop_cache()
+        eng.bm.check()
+        for tier in (DEVICE, HOST):
+            if eng.bm.num_free(tier) != eng.bm.pools[tier].num_blocks:
+                raise AssertionError(f"{tier} pool not back at baseline")
+    res = {"wall_s": wall, "launches": launches, "replicas": per,
+           "n_kills": cl.n_kills, "n_recoveries": cl.n_recoveries,
+           "redispatched": n_red, "salvaged": salvaged,
+           "recovery_log": list(cl.recovery_log),
+           "first_before_kill": sorted(before_kill),
+           "routed": {h.rid: h.replica for h in handles},
+           "tokens": dict(streams),
+           "ttft_s": {rid: first[rid] - t0 for rid in first},
+           "tpot_s": {rid: (last[rid] - first[rid])
+                      / max(len(streams[rid]) - 1, 1) for rid in first}}
+    _say(f"[cluster] wall-clock: TTFT s "
+         f"{[round(x, 4) for x in sorted(res['ttft_s'].values())]}; TPOT "
+         f"ms {[round(x * 1e3, 2) for x in sorted(res['tpot_s'].values())]}")
+    # the revived replica's executor serves again through the cluster
+    # (its pools and staging buffers survived; only its block manager
+    # state was reset): with both replicas idle, slo_aware breaks the tie
+    # toward replica 0
+    late = min(range(len(prompts)), key=lambda i: len(prompts[i]))
+    hl = cl.submit(Request(rid="late", prompt_len=len(prompts[late]),
+                           output_len=2, arrival=0.0, prompt=prompts[late]))
+    cl.drain()
+    late_tok = hl.take_new()
+    served = [len(eng.core.done) for eng in engines]
+    _say(f"[cluster] late request on replica {hl.replica}: tokens "
+         f"{late_tok}; served per replica {served}")
+    if hl.replica != 0 or late_tok != hl.request.generated \
+            or len(late_tok) != 2 or not all(served):
+        raise AssertionError(f"the revived replica 0 did not serve the late"
+                             f" request: replica {hl.replica}, tokens "
+                             f"{late_tok}, served per replica {served}")
+    for eng in engines:
+        eng.bm.drop_cache()
+        eng.bm.check()
+    res["revived_first_token"] = late_tok[0]
+    res["late_replica"] = hl.replica
+    res["served"] = served
+    if ref_tokens is not None:
+        bad = [rid for rid in before_kill
+               if streams[rid][0] != ref_tokens[rid][0]]
+        if late_tok[0] != ref_tokens[f"r{late}"][0]:
+            bad.append(f"late (r{late} on the revived replica 0)")
+        if bad:
+            raise AssertionError(f"first tokens differ from the fused "
+                                 f"run's for {bad}")
+        agree = sum(a == b for rid, t in streams.items()
+                    for a, b in zip(t, ref_tokens[rid]))
+        total = sum(len(t) for t in streams.values())
+        res["agreement_fused"] = agree / total
+        _say(f"[cluster] first tokens equal the fused run's for the "
+             f"{len(before_kill)} requests that started before the kill "
+             f"and for r{late} served again by the revived replica 0; "
+             f"full-stream agreement {agree}/{total} = {agree / total:.3f}"
+             f" (not asserted: bf16, another batch mix)")
+    return res
+
+
+def phase_cluster(params, fused_tokens):
+    """llama2-7b served by two replicas that share the serve phase's
+    weights, the fused mode and prompts, a crash of replica 0 mid-stream
+    and its recovery (`_run_cluster`)."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(CLUSTER["arch"])
+    pc = CLUSTER
+    _say(f"[cluster] {cfg.arch_id} L={cfg.n_layers} d={cfg.d_model} "
+         f"{cfg.dtype}, {pc['replicas']} replicas sharing one set of "
+         f"weights, router {pc['router']}, {pc['ndb']} device / "
+         f"{pc['nhb']} host blocks each, fault plan {pc['fault']!r}, the "
+         f"{pc['prompts']} path's prompts and mode")
+    _say(f"[cluster] device memory in use before: "
+         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return _run_cluster(cfg, params, "cuda", ref_tokens=fused_tokens)
+
+
 def _dense_params(cfg):
     """Parameter count of a dense decoder (`DecoderModel._init`)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
@@ -1601,6 +1878,91 @@ def phase_train(profile=False):
            "step_s": res.step_s, "steady_step_s": steady,
            "tokens_per_s": B * S / steady, "peak_bytes": peak,
            "n_params": n_params, "launches": launches,
+           "launches_per_step": per_step}
+    if profile:
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["profile"] = _profile_train(cfg, B, S)
+    return out
+
+
+def phase_train_moe(profile=False):
+    """deepseek-moe-16b at full width (d 2048, 16 heads of 128, 64 routed
+    experts top-6 + 2 shared, d_expert 1408, vocab 102400) with its depth
+    cut to TRAIN_MOE["layers"] of 28, bf16, trained for
+    TRAIN_MOE["steps"] AdamW steps by the port's `train_loop.train` from
+    random weights on SyntheticLM batches through the capacity-factor
+    dispatch, every block checkpointed: launch counts zeroed just before
+    and read just after. Asserts finite losses, grad norms and
+    `lb_loss`, a step-0 `ce` near ln(vocab), 0 <= dropped_frac < 1, and
+    the RMSNorm and flash kernels launched forward and backward. With
+    `profile`, one more step under torch.profiler (`_profile_train`)."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import CAPACITY_FACTOR as cf
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import train
+    full = get_config(TRAIN_MOE["arch"])
+    cfg = dataclasses.replace(full, n_layers=TRAIN_MOE["layers"])
+    m = cfg.moe
+    steps, B, S = TRAIN_MOE["steps"], TRAIN_MOE["batch"], TRAIN_MOE["seq"]
+    # the factor the model's capacity path runs at, and its slots
+    C = max(1, int(B * S * m.top_k / m.n_experts * cf))
+    n_params = cfg.param_count()
+    # bf16 weights and gradients, f32 AdamW moments: 12 bytes a parameter
+    # before activations and the optimizer's per-leaf f32 temporaries
+    reckon = 12 * n_params
+    _say(f"[train-moe] {cfg.arch_id} L={cfg.n_layers} (cut from "
+         f"{full.n_layers}) d={cfg.d_model} H={cfg.n_heads} "
+         f"KV={cfg.n_kv_heads} D={cfg.resolved_head_dim}, {m.n_experts} "
+         f"routed experts top-{m.top_k} + {m.n_shared} shared, d_expert "
+         f"{m.d_expert}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+         f"{n_params / 1e9:.3f} B parameters ({reckon / 2**30:.1f} GiB of "
+         f"weights, gradients and moments); {steps} AdamW steps of {B} x "
+         f"{S} tokens, capacity factor {cf} (C = {C}), remat on")
+    _say(f"[train-moe] device memory in use before: "
+         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    res = train(cfg, steps=steps, dc=DataConfig(batch_size=B, seq_len=S),
+                seed=0, device="cuda", log_every=1)
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    steady = sorted(res.step_s[1:])[len(res.step_s[1:]) // 2]
+    _say(f"[train-moe] launches {launches}; per step {per_step}")
+    _say(f"[train-moe] step wall s {[round(t, 4) for t in res.step_s]}; "
+         f"steady (median of steps 1..) {steady:.4f} s = "
+         f"{B * S / steady:.0f} tokens/s; peak device memory "
+         f"{peak / 2**30:.2f} GiB; lb_loss {res.lb_losses}; dropped_frac "
+         f"{res.dropped_fracs}")
+    vals = res.losses + res.grad_norms + res.lb_losses
+    if not all(math.isfinite(x) for x in vals):
+        raise AssertionError(f"non-finite loss, grad norm or lb_loss: "
+                             f"{vals}")
+    # the step-0 loss is ce + 0.01 * lb_loss
+    ce0 = res.losses[0] - 0.01 * res.lb_losses[0]
+    ln_v = math.log(cfg.vocab_size)
+    if abs(ce0 - ln_v) > 1.0:
+        raise AssertionError(f"step-0 ce {ce0} is not near ln(vocab) = "
+                             f"{ln_v:.3f}")
+    if not all(0.0 <= f < 1.0 for f in res.dropped_fracs):
+        raise AssertionError(f"dropped_frac out of [0, 1): "
+                             f"{res.dropped_fracs}")
+    missing = [k for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                           "flash_attention_bwd") if not launches[k]]
+    if missing:
+        raise AssertionError(f"kernels never launched in MoE training: "
+                             f"{missing}")
+    out = {"losses": res.losses, "grad_norms": res.grad_norms,
+           "lb_losses": res.lb_losses, "dropped_fracs": res.dropped_fracs,
+           "step_s": res.step_s, "steady_step_s": steady,
+           "tokens_per_s": B * S / steady, "peak_bytes": peak,
+           "n_params": n_params, "n_layers": cfg.n_layers,
+           "capacity": C, "launches": launches,
            "launches_per_step": per_step}
     if profile:
         del res
@@ -1947,8 +2309,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace a few decode steps of the serve phase, "
                          "one layerkv run of the fused phase and one step "
-                         "of the train phase with torch.profiler and print "
-                         "where they go")
+                         "of each train phase with torch.profiler and "
+                         "print where they go")
     args = ap.parse_args(argv)
 
     import torch
@@ -1976,8 +2338,10 @@ def main(argv=None) -> int:
     params = paths["serve"].pop("params")
     paths["fused"] = phase_fused(params, paths["serve"]["tokens"],
                                  profile=args.profile)
-    del params
     paths["fused"].pop("params")
+    paths["cluster"] = phase_cluster(params, paths["fused"]["tokens"])
+    del params
+    gc.collect()                     # the cluster's engines hold cycles
     torch.cuda.empty_cache()         # llama2-7b's weights go before MoE's
     torch.cuda.reset_peak_memory_stats()
     paths["moe"] = phase_moe()
@@ -1985,6 +2349,9 @@ def main(argv=None) -> int:
     gc.collect()        # the engines hold reference cycles: free the MoE
     torch.cuda.empty_cache()     # weights and pools before training
     paths["train"] = phase_train(profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train-moe"] = phase_train_moe(profile=args.profile)
     torch.cuda.empty_cache()
 
     rows = []
@@ -2001,7 +2368,8 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
-        for extra in ("at_train_shape", "at_serve_shapes", "at_other_shapes",
+        for extra in ("at_train_shape", "at_moe_train_shape",
+                      "at_serve_shapes", "at_other_shapes",
                       "at_b1_ctx4096", "bound_ms_pcie", "copy_engine_ms",
                       "by_kernel_ms", "staged_bytes", "library_note",
                       "one_run_ms", "runs"):

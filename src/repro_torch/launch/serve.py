@@ -1,20 +1,26 @@
 """Serving driver CLI for the PyTorch port: run the port's LayerKV engine
-on a synthetic workload through a live `ServingSession` — requests are
+on a synthetic workload through a live `ClusterSession` — requests are
 submitted online and every generated token is printed as its iteration
 produces it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --smoke --policy layerkv --requests 16 --device-blocks 64
 
-The flags are `repro.launch.serve`'s, for one replica: --policy,
---no-slo-aware, --chunked, --fused (implies --chunked: one forward per
-iteration, chunks attending straight over the paged pools),
---prefix-cache, --preemption, --admission, --interactive-every,
---shed-overload, --trace. Not yet ported, and rejected: --replicas > 1,
---fault-plan and --liveness-timeout. `--device` (default cuda) selects
-where it runs; without a CUDA device it raises unless given
-`--device cpu`. Prints the per-token stream, per-request TTFT, and the
-offload-ledger summary.
+The flags are `repro.launch.serve`'s: --policy, --no-slo-aware,
+--chunked, --fused (implies --chunked: one forward per iteration, chunks
+attending straight over the paged pools), --prefix-cache, --preemption,
+--admission, --interactive-every, --shed-overload, --trace, and the
+cluster's: `--replicas N` engines behind a router (--router
+round_robin|least_loaded|prefix_affinity|slo_aware; a cluster of 1 runs
+the same code and streams the bare engine's tokens), `--fault-plan SPEC`
+(deterministic failures on the shared virtual clock, grammar in
+serving/faults.py) and `--liveness-timeout` (missing-heartbeat
+detection). Every replica computes with the same weights, made once on
+the device and shared: each engine gets the same tensors. `--device`
+(default cuda) selects where it runs; without a CUDA device it raises
+unless given `--device cpu`. Prints the per-token stream with its
+replica, per-request TTFT, the fault summary and recovery log, a
+per-replica line, and the offload-ledger summary summed over replicas.
 """
 from __future__ import annotations
 
@@ -55,10 +61,19 @@ def main(argv=None):
                          "TTFT SLO (and deadline) tightened 4x (0 = all "
                          "batch)")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="engine replicas (only 1 is ported)")
-    ap.add_argument("--fault-plan", default=None, help="not yet ported")
+                    help="engine replicas behind the cluster router")
+    ap.add_argument("--router", default="round_robin",
+                    choices=["round_robin", "least_loaded",
+                             "prefix_affinity", "slo_aware"],
+                    help="cluster dispatch policy (--replicas > 1)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="deterministic fault injection, e.g. "
+                         "'crash@0.5:r0:recover=1.0;wedge@0.2:r1:dur=0.3' "
+                         "or 'random:SEED[:n=N]' (serving/faults.py)")
     ap.add_argument("--liveness-timeout", type=float, default=None,
-                    help="not yet ported")
+                    help="kill any replica whose next due event lags the "
+                         "shared clock by more than this many seconds "
+                         "while frozen (heartbeat failure detection)")
     ap.add_argument("--shed-overload", action="store_true",
                     help="graceful degradation: shed blocked requests "
                          "with a typed reason instead of wedging")
@@ -80,13 +95,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    for flag, on in (("--replicas > 1", args.replicas > 1),
-                     ("--fault-plan", args.fault_plan is not None),
-                     ("--liveness-timeout",
-                      args.liveness_timeout is not None)):
-        if on:
-            ap.error(f"{flag} is not yet ported to the PyTorch engine "
-                     "(use repro.launch.serve)")
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
     if not 0 <= args.shared_len < args.prompt_len:
@@ -95,10 +103,11 @@ def main(argv=None):
                  "needs at least one unique token")
 
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.serving.cluster import ClusterSession
     from repro_torch.serving.engine import LayerKVEngine
+    from repro_torch.serving.faults import FaultPlan
     from repro_torch.serving.request import Request
     from repro_torch.serving.scheduler import ServeConfig
-    from repro_torch.serving.session import ServingSession
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = dataclasses.replace(cfg, dtype="float32")
@@ -134,50 +143,87 @@ def main(argv=None):
         block_size=args.block_size,
         shed_overload=args.shed_overload,
         trace=bool(args.trace))
-    engine = LayerKVEngine(cfg, None, sc, device=args.device,
-                           seed=args.seed)
+    plan = FaultPlan.parse(args.fault_plan, n_replicas=args.replicas) \
+        if args.fault_plan else None
+    if plan is not None:
+        print("fault plan:")
+        for line in plan.describe():
+            print(f"  {line}")
+    # every replica computes with the SAME weights (one seed, as the
+    # reference's one PRNG key): the first engine makes them on the
+    # device, the others get the same tensors — the executor never
+    # writes its weights, so one copy serves the whole cluster
+    engines = [LayerKVEngine(cfg, None, sc, device=args.device,
+                             seed=args.seed)]
+    engines += [LayerKVEngine(cfg, engines[0].ex.params, sc,
+                              device=args.device)
+                for _ in range(args.replicas - 1)]
 
-    session = ServingSession(engine)
+    # submit everything up front (arrivals dispatch as the shared clock
+    # reaches them) and pump the cluster one event at a time, printing
+    # the token stream live as each iteration produces it
+    session = ClusterSession(engines, router=args.router,
+                             fault_plan=plan,
+                             liveness_timeout=args.liveness_timeout)
     handles = [session.submit(r, arrival=r.arrival) for r in reqs]
     while session.step():
         for h in handles:
             new = h.take_new()
             if new and not args.quiet:
                 star = "*" if h.request.cached_prompt_len else " "
-                print(f"[t={engine.clock() * 1e3:9.3f}ms] {h.rid:>4}{star}"
-                      f" +{len(new)} -> {new}")
+                where = "?" if h.replica is None else h.replica
+                print(f"[t={session.clock() * 1e3:9.3f}ms] {h.rid:>4}{star}"
+                      f"@{where} +{len(new)} -> {new}")
     done = session.drain()
 
     ttfts = [r.ttft for r in done]
     print(f"policy={args.policy} chunked={args.chunked or args.fused} "
-          f"fused={args.fused} "
-          f"prefix_cache={args.prefix_cache} "
+          f"fused={args.fused} prefix_cache={args.prefix_cache} "
           f"preemption={args.preemption} admission={args.admission} "
-          f"device={engine.ex.device}")
+          f"replicas={args.replicas} router={args.router} "
+          f"device={engines[0].ex.device}")
     if args.preemption:
-        print(f"preemptions={engine.core.n_preempted} "
-              f"resumes={engine.core.n_resumed}")
+        print(f"preemptions={sum(e.core.n_preempted for e in engines)} "
+              f"resumes={sum(e.core.n_resumed for e in engines)}")
     if ttfts:
         print(f"requests={len(done)} "
               f"mean_ttft={statistics.mean(ttfts)*1e3:.1f}ms "
               f"p99_ttft={sorted(ttfts)[-1]*1e3:.1f}ms (virtual clock)")
-    hit = f"{engine.bm.cache.hit_rate:.2f}" \
-        if engine.bm.cache is not None else "-"
-    print(f"served={len(engine.core.done)} prefix_hit_rate={hit}")
-    off = [x for x in engine.off.ledger.log if x.kind == "offload"]
-    rel = [x for x in engine.off.ledger.log if x.kind == "reload"]
+    if session.recovery_log or plan is not None:
+        shed = len(session.shed) \
+            + sum(len(e.core.shed) for e in engines)
+        print(f"faults: kills={session.n_kills} "
+              f"recoveries={session.n_recoveries} "
+              f"redispatched={len(session.redispatch_priorities)} "
+              f"dispatch_retries={session.n_retries} shed={shed}")
+        for line in session.recovery_log:
+            print(f"  {line}")
+    print(f"served={sum(len(e.core.done) for e in engines)}")
+    for i, (eng, st) in enumerate(zip(engines, session.stats)):
+        served = len(eng.core.done)
+        hit = f"{eng.bm.cache.hit_rate:.2f}" \
+            if eng.bm.cache is not None else "-"
+        print(f"replica {i}: dispatched={st.dispatched} served={served} "
+              f"iterations={st.steps} "
+              f"peak_occupancy={st.peak_occupancy:.2f} "
+              f"prefix_hit_rate={hit}")
+    off = [x for eng in engines for x in eng.off.ledger.log
+           if x.kind == "offload"]
+    rel = [x for eng in engines for x in eng.off.ledger.log
+           if x.kind == "reload"]
     print(f"layer-wise transfers: {len(off)} offloads "
           f"({sum(x.nbytes for x in off)/2**20:.2f} MiB), "
           f"{len(rel)} reloads "
           f"({sum(x.nbytes for x in rel)/2**20:.2f} MiB)")
     if args.trace:
         session.write_trace(args.trace)
-        print(f"trace: {len(engine.core.tracer.events)} events -> "
-              f"{args.trace} (load at ui.perfetto.dev)")
+        n_ev = sum(len(e.core.tracer.events) for e in engines) \
+            + len(session.tracer.events)
+        print(f"trace: {n_ev} events -> {args.trace} "
+              "(load at ui.perfetto.dev)")
     if done:
         sample = done[0]
         print(f"sample output ({sample.rid}): {sample.generated[:8]}...")
-
 
 if __name__ == "__main__":
     main()

@@ -10,12 +10,14 @@
     loss, metrics = model.loss(batch)             # teacher forcing, remat
 
 Layers run as a Python loop over the layer-stacked params (the
-reference's `lax.scan`). MoE blocks run `moe.moe_ffn`; the port serves
-them dropless only and trains dense models only (the MoE capacity path
-with its load-balance loss is not ported yet). Dense-cache `decode`,
-`kv_quant` and the other families wait for later slices; the
-constructor raises for them. Weights are frozen (`requires_grad=False`)
-until `requires_grad_(True)`; the serving paths never turn it on.
+reference's `lax.scan`). MoE blocks run `moe.moe_ffn`: dropless on the
+serving paths, through the capacity buffer in training, where each
+block's load-balance terms come out of its checkpoint and are averaged
+over layers, and `loss` adds `0.01 * lb_loss` to the cross-entropy as
+the reference's does. Dense-cache `decode`, `kv_quant` and the other
+families wait for later slices; the constructor raises for them.
+Weights are frozen (`requires_grad=False`) until `requires_grad_(True)`;
+the serving paths never turn it on.
 """
 from __future__ import annotations
 
@@ -104,23 +106,25 @@ def cross_entropy(logits, labels, mask=None):
 
 
 def ffn(cfg: ModelConfig, p, h, *, dropless=True):
-    """The block's feed-forward: dense MLP, or the MoE FFN (dropless on
-    every serving path, as in the reference's executor)."""
+    """The block's feed-forward and its aux terms: dense MLP ({}), or the
+    MoE FFN (dropless on every serving path, as in the reference's
+    executor, with no aux; the capacity path in training)."""
     if cfg.family == "moe":
         return moe.moe_ffn(cfg, p["moe"], h, dropless=dropless)
-    return layers.mlp(cfg, p["mlp"], h)
+    return layers.mlp(cfg, p["mlp"], h), {}
 
 
 def block_forward(cfg: ModelConfig, p, x, positions, *, window=0,
                   kv_len=None, dropless=False):
-    """Full-sequence transformer block. Returns (x, (k, v))."""
+    """Full-sequence transformer block. Returns (x, (k, v), aux)."""
     h = layers.apply_norm(cfg, p["attn_norm"], x)
     attn, kv = layers.self_attention(cfg, p["attn"], h, positions,
                                      causal=True, window=window,
                                      kv_len=kv_len)
     x = x + attn
     h = layers.apply_norm(cfg, p["mlp_norm"], x)
-    return x + ffn(cfg, p, h, dropless=dropless), kv
+    f, aux = ffn(cfg, p, h, dropless=dropless)
+    return x + f, kv, aux
 
 
 class DecoderModel(nn.Module):
@@ -200,34 +204,54 @@ class DecoderModel(nn.Module):
     # --------------------------------------------------------------- forward
     def train_logits(self, batch, remat=True):
         """Full-sequence teacher-forcing logits (B, S, padded_vocab),
-        pad-vocab masked. batch: tokens (B, S) int. With `remat` each
-        block runs under `torch.utils.checkpoint` (the reference's
-        `jax.checkpoint`): only its input is kept, and the backward runs
-        its forward again."""
+        pad-vocab masked. batch: tokens (B, S) int."""
+        return self.train_logits_aux(batch, remat)[0]
+
+    def train_logits_aux(self, batch, remat=True):
+        """(logits, aux): `train_logits` and, for MoE, the load-balance
+        terms (`lb_loss`, `dropped_frac`) averaged over layers, as the
+        reference's `train_logits` returns them ({} for dense). With
+        `remat` each block runs under `torch.utils.checkpoint` (the
+        reference's `jax.checkpoint`): only its input is kept, the
+        backward runs its forward again, and the aux terms come out of
+        the checkpoint with the block's output."""
         cfg, p = self.cfg, self.params
-        if cfg.family == "moe":
-            raise NotImplementedError(
-                "MoE training: the capacity path (dropless=False, with its "
-                "load-balance loss) is not yet ported")
         x = p["embed"][batch["tokens"]]
         B, S = x.shape[:2]
         positions = positions_for(cfg, B, S, self.device)
 
         def block(x, lp):
-            return block_forward(cfg, lp, x, positions)[0]
+            x, _, aux = block_forward(cfg, lp, x, positions)
+            return x, aux.get("lb_loss"), aux.get("dropped_frac")
 
+        lbs, drops = [], []
         for lp in unbind_layers(p["layers"]):
-            x = (checkpoint(block, x, lp, use_reentrant=False) if remat
-                 else block(x, lp))
+            x, lb, dropped = (checkpoint(block, x, lp, use_reentrant=False)
+                              if remat else block(x, lp))
+            lbs.append(lb)
+            drops.append(dropped)
+        aux = {}
+        if cfg.family == "moe":
+            aux = {"lb_loss": torch.stack(lbs).mean(),
+                   "dropped_frac": torch.stack(drops).mean()}
         x = layers.apply_norm(cfg, p["final_norm"], x)
-        return self.unembed(x)
+        return self.unembed(x), aux
 
     def loss(self, batch):
         """(total, metrics): mean next-token cross-entropy over
-        batch["labels"] (B, S), masked by batch["loss_mask"] if given."""
-        ce = cross_entropy(self.train_logits(batch), batch["labels"],
-                           batch.get("loss_mask"))
-        return ce, {"ce": ce.detach(), "loss": ce.detach()}
+        batch["labels"] (B, S), masked by batch["loss_mask"] if given,
+        plus `0.01 * lb_loss` for MoE (`lb_loss` and `dropped_frac` in
+        the metrics), as the reference's `Model.loss`."""
+        logits, aux = self.train_logits_aux(batch)
+        ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        total = ce
+        metrics = {"ce": ce.detach()}
+        if "lb_loss" in aux:
+            total = total + 0.01 * aux["lb_loss"]
+            metrics.update(lb_loss=aux["lb_loss"].detach(),
+                           dropped_frac=aux["dropped_frac"].detach())
+        metrics["loss"] = total.detach()
+        return total, metrics
 
     def unembed(self, x):
         """Final-norm features -> logits, pad-vocab masked (prefill side)."""
@@ -250,9 +274,9 @@ class DecoderModel(nn.Module):
         S_buf = cache["k"].shape[2]
         W = min(S, S_buf)   # sliding-window cache keeps the trailing W
         for l in range(cfg.n_layers):
-            x, (k, v) = block_forward(cfg, layer_params(p["layers"], l), x,
-                                      positions, kv_len=kv_len,
-                                      dropless=dropless)
+            x, (k, v), _ = block_forward(cfg, layer_params(p["layers"], l),
+                                         x, positions, kv_len=kv_len,
+                                         dropless=dropless)
             cache["k"][l, :, :W] = k[:, S - W:]
             cache["v"][l, :, :W] = v[:, S - W:]
         new_len = (kv_len.to(torch.int32) if kv_len is not None

@@ -1,20 +1,36 @@
-"""Mixture-of-experts FFN — the port of `repro.models.moe` for serving:
-shared experts plus routed top-k (deepseek-moe-16b: 64 experts top-6 + 2
-shared; llama4-scout: 16 top-1 + 1 shared).
+"""Mixture-of-experts FFN — the port of `repro.models.moe`: shared experts
+plus routed top-k (deepseek-moe-16b: 64 experts top-6 + 2 shared;
+llama4-scout: 16 top-1 + 1 shared), with the reference's load-balance
+terms.
 
-The reference dispatches through a capacity buffer of `(E, C, d)` rows;
-with `dropless=True` (the serving path) C = T*K, so no token is ever
-dropped and each routed expert sees exactly the tokens that picked it.
-`moe_ffn` computes that same function without building the buffer: the
-T*K (token, expert) assignments are grouped by expert and each expert
-runs one `torch.matmul` chain over its own rows. At full width the
-buffer would be (64, 6T, 2048) and cost 64x the useful expert FLOPs.
-Grouping needs the per-expert counts on the host (one device sync per
-layer). The routed outputs are combined in the reference's order
-(`for kk in range(K)`, `moe.py:105-112`) so f32 results match it to
-matmul rounding.
+`moe_ffn` returns `(out, aux)` as the reference does, on two paths:
 
-The capacity-factor path (`dropless=False`, training) is not ported yet.
+  dropless=True   (serving) computes the reference's function with
+                  C = T*K without building the (E, C, d) buffer: the T*K
+                  (token, expert) assignments are grouped by expert and
+                  each expert runs one `torch.matmul` chain over its own
+                  rows. At full width the buffer would be (64, 6T, 2048)
+                  and cost 64x the useful expert FLOPs. Grouping needs the
+                  per-expert counts on the host (one device sync per
+                  layer).
+  dropless=False  (training) is the reference's capacity-factor dispatch
+                  (`moe.py:44-119`): C = max(1, int(T*K/E*capacity_factor))
+                  slots per expert, each (token, k) pair's position within
+                  its expert counted in the flat token-major (T*K) order,
+                  pairs at position >= C dropped, an (E, C, d) buffer
+                  gathered through a slot -> token map and the experts run
+                  as batched products. C is fixed by the shape, so this
+                  path never waits for the device.
+
+Both combine the routed outputs in the reference's order
+(`for kk in range(K)`) so f32 results match it to matmul rounding. On
+the capacity path `aux` holds `lb_loss` = E * sum(mean router prob x
+fraction dispatched) and `dropped_frac`, the share of (token, k) pairs
+past their expert's capacity. The dropless path returns an empty `aux`:
+serving never reads the load-balance terms, and eager PyTorch would
+launch their ops on every layer of every step. On CUDA the backward of
+the buffer's gathers accumulates with atomics, so MoE gradients are not
+bitwise repeatable from run to run.
 """
 from __future__ import annotations
 
@@ -54,13 +70,24 @@ def init_moe(cfg: ModelConfig, gen, dtype, device):
     return p
 
 
-def moe_ffn(cfg: ModelConfig, p, x, *, dropless=False):
-    """x: (B, S, d) -> (B, S, d). The reference's load-balance terms
-    (its `aux`) serve training only and come with the capacity path."""
-    if not dropless:
-        raise NotImplementedError(
-            "moe_ffn(dropless=False), the capacity-factor training path, "
-            "is not yet ported")
+def _load_balance(probs, counts, T, K, E, dropped_frac):
+    """The reference's aux terms: E * sum(mean router prob x fraction of
+    the T*K assignments dispatched to each expert)."""
+    me = probs.mean(0)
+    ce = counts / (T * K)
+    return {"lb_loss": E * torch.sum(me * ce), "dropped_frac": dropped_frac}
+
+
+# slots per expert on the capacity path, as a multiple of the even share
+# T*K/E (the reference's default)
+CAPACITY_FACTOR = 1.25
+
+
+def moe_ffn(cfg: ModelConfig, p, x, *, capacity_factor=CAPACITY_FACTOR,
+            dropless=False):
+    """x: (B, S, d) -> ((B, S, d), aux) — the routed experts dropless
+    (serving) or through the capacity buffer (training); module
+    docstring."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -72,11 +99,31 @@ def moe_ffn(cfg: ModelConfig, p, x, *, dropless=False):
     gate_vals, expert_idx = torch.topk(probs, K, dim=-1)     # (T, K)
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)
-
-    # group the T*K assignments by expert (stable: token order inside one)
     flat_e = expert_idx.reshape(T * K)
-    order = torch.argsort(flat_e, stable=True)
     counts = torch.bincount(flat_e, minlength=E)
+    gate2 = gate_vals.to(x.dtype)
+    if dropless:
+        routed = _routed_grouped(p, xf, flat_e, counts, gate2, T, K)
+        aux = {}
+    else:
+        C = max(1, int(T * K / E * capacity_factor))
+        routed, keep = _routed_capacity(p, xf, flat_e, counts, gate2, T, K,
+                                        E, C)
+        aux = _load_balance(probs, counts, T, K, E,
+                            1.0 - keep.float().mean())
+
+    out = routed
+    if m.n_shared:
+        sp = p["shared"]
+        out = out + (F.silu(xf @ sp["wg"]) * (xf @ sp["wu"])) @ sp["wd"]
+    return out.reshape(B, S, d), aux
+
+
+def _routed_grouped(p, xf, flat_e, counts, gate2, T, K):
+    """Dropless: group the T*K assignments by expert (stable: token order
+    inside one), one matmul chain per expert over its own rows."""
+    d = xf.shape[1]
+    order = torch.argsort(flat_e, stable=True)
     tok = order // K                                         # token of each
     out_assign = xf.new_empty((T * K, d))
     start = 0
@@ -91,13 +138,51 @@ def moe_ffn(cfg: ModelConfig, p, x, *, dropless=False):
 
     # combine in the reference's kk order, in x.dtype
     out_assign = out_assign.reshape(T, K, d)
-    gate2 = gate_vals.to(x.dtype)
-    routed = torch.zeros((T, d), dtype=x.dtype, device=x.device)
+    routed = torch.zeros((T, d), dtype=xf.dtype, device=xf.device)
     for kk in range(K):
         routed = routed + out_assign[:, kk] * gate2[:, kk, None]
+    return routed
 
-    out = routed
-    if m.n_shared:
-        sp = p["shared"]
-        out = out + (F.silu(xf @ sp["wg"]) * (xf @ sp["wu"])) @ sp["wd"]
-    return out.reshape(B, S, d)
+
+def _routed_capacity(p, xf, flat_e, counts, gate2, T, K, E, C):
+    """Capacity-factor dispatch (the reference's, `moe.py:70-112`).
+    Returns (routed (T, d), keep (T*K,) bool)."""
+    d = xf.shape[1]
+    n = T * K
+    # each pair's exclusive position within its expert in flat (T*K)
+    # order: a stable sort by expert keeps that order inside an expert,
+    # so position = rank in the sort - the expert's first rank
+    order = torch.argsort(flat_e, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=xf.device)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = rank - starts[flat_e]
+    keep = pos < C
+
+    # an int slot -> token map (T = empty), then the payload by gathers;
+    # dropped pairs scatter into one spare slot past the end
+    slot = flat_e * C + torch.clamp(pos, max=C - 1)          # (T*K,)
+    tok_idx = torch.arange(n, device=xf.device) // K
+    slot_src = torch.full((E * C + 1,), T, dtype=torch.long,
+                          device=xf.device)
+    slot_src[torch.where(keep, slot, E * C)] = tok_idx
+    slot_src = slot_src[:E * C]
+    # gathers by index_select: their backward is index_add_ (atomics);
+    # advanced indexing's sorts its indices first, and took 38 ms of a
+    # 276 ms deepseek-moe-16b train step on the H100 (chip_smoke.py
+    # --profile)
+    filled = (slot_src < T)[:, None].to(xf.dtype)
+    buf = (xf.index_select(0, torch.clamp(slot_src, max=T - 1))
+           * filled).reshape(E, C, d)
+
+    # expert compute: (E, C, d) x (E, d, f)
+    h = F.silu(torch.bmm(buf, p["we_gate"])) * torch.bmm(buf, p["we_up"])
+    flat_out = torch.bmm(h, p["we_down"]).reshape(E * C, d)
+
+    routed = torch.zeros((T, d), dtype=xf.dtype, device=xf.device)
+    slot2, keep2 = slot.reshape(T, K), keep.reshape(T, K)
+    for kk in range(K):  # K gathers of (T, d), never (T*K, d)
+        g = flat_out.index_select(0, slot2[:, kk])
+        routed = routed + g * (gate2[:, kk]
+                               * keep2[:, kk].to(xf.dtype))[:, None]
+    return routed, keep

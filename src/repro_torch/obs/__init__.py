@@ -31,5 +31,5 @@ _LAZY = {
 def __getattr__(name: str):
     mod = _LAZY.get(name)
     if mod is None:
-        raise AttributeError(f"module 'repro.obs' has no attribute {name!r}")
+        raise AttributeError(f"module 'repro_torch.obs' has no attribute {name!r}")
     return getattr(importlib.import_module(mod), name)

@@ -1,6 +1,7 @@
 """The LayerKV serving engine on PyTorch: continuous batching over real
 execution on the H100 — the port of `repro.serving.engine`, line by line
-with the executor swapped.
+with the executor swapped, and one repair: a partial eviction counts the
+layers it moved (`_evict_newest`).
 
 Wires the paper's decision components (block manager, offload plans, SLO
 scheduler, Eq.5 forecast) to the `PagedExecutor`. Two policies:
@@ -300,7 +301,11 @@ class LayerKVEngine(CoreDelegateMixin):
     def _evict_newest(self, exclude=()) -> bool:
         """Push the newest request's device layers to host to make room.
         Shared prefix blocks are copied out (detach), never pulled from
-        under the requests still mapping them."""
+        under the requests still mapping them. When the host pool runs
+        short part-way, the layers already moved stay on the host and
+        `host_layers` counts them, so the request is promoted before it
+        decodes again (the reference returns before the count, and its
+        next decode finds a host layer; ROADMAP C6)."""
         excl = set(exclude)
         for r in sorted(self.decoding, key=lambda q: -q.prefill_start):
             if r.rid in excl:
@@ -308,9 +313,13 @@ class LayerKVEngine(CoreDelegateMixin):
             dev = self.bm.layers_on(r.rid, DEVICE)
             if not dev:
                 continue
-            for l in dev:
+            for n_moved, l in enumerate(dev):
                 a = self.bm.allocation(r.rid, l)
                 if self.core.host_free() < len(a.blocks):
+                    self.host_layers[r.rid] = len(
+                        self.bm.layers_on(r.rid, HOST))
+                    if n_moved:
+                        self.core.registry.inc("partial_evictions")
                     return False
                 src, dst = self.bm.move_layer(r.rid, l, HOST, detach=True)
                 self.ex.copy_blocks("device", "host", src, dst)

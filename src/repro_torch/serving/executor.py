@@ -417,7 +417,7 @@ class PagedExecutor:
                                     q_offset=offset)
             x = x + layers.attn_out(cfg, lp["attn"], o)
             h = layers.apply_norm(cfg, lp["mlp_norm"], x)
-            x = x + ffn(cfg, lp, h)
+            x = x + ffn(cfg, lp, h)[0]
             ks_out.append(k[0])
             vs_out.append(v[0])
         x = layers.apply_norm(cfg, params["final_norm"], x)
@@ -525,7 +525,7 @@ class PagedExecutor:
             o = torch.cat(parts) if len(parts) > 1 else parts[0]
             x = x + layers.attn_out(cfg, lp["attn"], o[None])
             h = layers.apply_norm(cfg, lp["mlp_norm"], x)
-            x = x + ffn(cfg, lp, h)
+            x = x + ffn(cfg, lp, h)[0]
         x = layers.apply_norm(cfg, params["final_norm"], x)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         logits = x[0][sample_idx] @ w                      # (Sb, V)
@@ -665,7 +665,7 @@ class PagedExecutor:
             o = ops.paged_attention(q[:, 0], dpool, tables[l], attend)
             x = x + layers.attn_out(cfg, lp["attn"], o[:, None])
             h = layers.apply_norm(cfg, lp["mlp_norm"], x)
-            x = x + ffn(cfg, lp, h)
+            x = x + ffn(cfg, lp, h)[0]
         x = layers.apply_norm(cfg, params["final_norm"], x)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return x[:, 0] @ w

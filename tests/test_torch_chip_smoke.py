@@ -69,3 +69,62 @@ def test_chip_smoke_path_forces_offload_at_full_config(tag, monkeypatch):
     assert res["offloads"] > 0 and res["reloads"] > 0
     if "paged_prefill_tiered" in pc["kernels"]:
         assert res["host_tier_signatures"] > 0
+
+
+def test_chip_smoke_cluster_path_at_full_config(monkeypatch):
+    monkeypatch.setattr(engine_mod, "PagedExecutor", _StubExecutor)
+    pc = chip_smoke.CLUSTER
+    cfg = chip_smoke.path_config(pc["prompts"])
+    assert cfg.arch_id == pc["arch"]
+    # the script's own driver and assertions (every stream whole, one
+    # kill with streamed tokens salvaged, a recovery and a re-dispatch,
+    # each replica offloading and reading the host tier, pools back at
+    # baseline, the revived replica serving again)
+    res = chip_smoke._run_cluster(cfg, None, "cpu")
+    assert len(res["tokens"]) == chip_smoke.PATHS[pc["prompts"]]["n"]
+    assert res["n_kills"] == 1 and res["n_recoveries"] == 1
+    # the crash hit replica 0's live, streaming requests: each salvaged
+    # one had been routed there and is re-dispatched to replica 1
+    assert res["salvaged"] and res["redispatched"] >= len(res["salvaged"])
+    assert all(res["routed"][rid] == 1 for rid in res["salvaged"])
+    assert res["recovery_log"][0].endswith("kill r0 (fault)")
+    assert "unwound r0" in res["recovery_log"][1]
+    for rep in res["replicas"]:
+        assert rep["dispatched"] and rep["offloads"]
+        assert rep["host_tier_signatures"] > 0
+    assert sum(rep["reloads"] for rep in res["replicas"]) > 0
+    # the late request went through the router to the revived replica 0
+    assert res["late_replica"] == 0 and all(res["served"])
+
+
+def test_partial_eviction_counts_its_host_layers(monkeypatch):
+    """ROADMAP C6, fixed in the port: on the cluster path at 8192 host
+    blocks a replica that takes its dead peer's load runs the host pool
+    short part-way through an eviction. The layers already moved must be
+    counted in `host_layers`, so the request is promoted before it
+    decodes again; uncounted, the next decode met a host layer and
+    asserted."""
+    from repro_torch.core import HOST
+    monkeypatch.setattr(engine_mod, "PagedExecutor", _StubExecutor)
+    monkeypatch.setitem(chip_smoke.CLUSTER, "nhb", 8192)
+    partial = []
+    evict = engine_mod.LayerKVEngine._evict_newest
+
+    def spy(self, exclude=()):
+        on_host = {r.rid: len(self.bm.layers_on(r.rid, HOST))
+                   for r in self.decoding}
+        ok = evict(self, exclude)
+        for r in self.decoding:
+            n = len(self.bm.layers_on(r.rid, HOST))
+            if not ok and n != on_host[r.rid]:
+                partial.append(r.rid)
+                assert self.host_layers[r.rid] == n
+        return ok
+
+    monkeypatch.setattr(engine_mod.LayerKVEngine, "_evict_newest", spy)
+    cfg = chip_smoke.path_config(chip_smoke.CLUSTER["prompts"])
+    res = chip_smoke._run_cluster(cfg, None, "cpu")
+    assert partial
+    assert sum(rep["partial_evictions"] for rep in res["replicas"]) \
+        == len(partial)
+    assert len(res["tokens"]) == chip_smoke.PATHS["fused"]["n"]

@@ -735,3 +735,167 @@ def test_backward_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="kv_len"):
         flash_prefill.flash_attention(q, q, q, kv_len=torch.ones(
             1, dtype=torch.int32, device="cuda"))
+
+
+# ------------------------------------------------- replicas on one card --
+
+def _smoke_prompts(n, seed, lo=40, hi=160):
+    from repro_torch.configs import get_smoke_config
+    vocab = get_smoke_config("granite-3-2b").vocab_size
+    r = np.random.RandomState(seed)
+    return [[int(t) for t in r.randint(0, vocab, int(L))]
+            for L in r.randint(lo, hi + 1, n)]
+
+
+def _fused_engine(params=None, seed=0):
+    """granite-3-2b smoke (bf16, D 32) through the fused step on a device
+    pool tight enough that chunks read host-resident layers (the
+    fused-smoke path of chip_smoke.py)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.engine import LayerKVEngine
+    from repro_torch.serving.scheduler import ServeConfig
+    ec = ServeConfig.for_engine(policy="layerkv", slo_aware=False,
+                                block_size=16, num_device_blocks=24,
+                                num_host_blocks=1024, chunked=True,
+                                fused=True, max_prefill_tokens=64)
+    return LayerKVEngine(get_smoke_config("granite-3-2b"), params, ec,
+                         device="cuda", seed=seed)
+
+
+def _submit(session, prompts, tag, out_len=8):
+    from repro_torch.serving.request import Request
+    return [session.submit(Request(rid=f"{tag}{i}", prompt_len=len(p),
+                                   output_len=out_len, arrival=0.0,
+                                   prompt=p))
+            for i, p in enumerate(prompts)]
+
+
+def _host_steps(eng):
+    return sum(1 for fn, sig in eng.ex._jit_sigs if fn == "mixed" and sig[-1])
+
+
+def test_two_executors_interleaved_on_one_card_match_solo_runs():
+    """Two engines on one card, sharing one set of weights, one staging
+    side stream and the decode tickets, their fused steps interleaved one
+    by one, both reading the host tier: each replica's tokens equal, bit
+    for bit, the tokens it gives when it runs alone."""
+    _need_cuda()
+    from repro_torch.serving.session import ServingSession
+    a_prompts = _smoke_prompts(5, seed=11)
+    b_prompts = _smoke_prompts(5, seed=12)
+    solo = []
+    for prompts in (a_prompts, b_prompts):
+        eng = _fused_engine()
+        sess = ServingSession(eng)
+        _submit(sess, prompts, "r")
+        solo.append({r.rid: r.generated for r in sess.drain()})
+        assert _host_steps(eng) > 0
+    a = _fused_engine()
+    b = _fused_engine(params=a.ex.params)
+    assert b.ex.params["embed"].data_ptr() == a.ex.params["embed"].data_ptr()
+    sa, sb = ServingSession(a), ServingSession(b)
+    _submit(sa, a_prompts, "r")
+    _submit(sb, b_prompts, "r")
+    busy = [True, True]
+    while any(busy):
+        busy = [sa.step() if busy[0] else False,
+                sb.step() if busy[1] else False]
+    got = [{r.rid: r.generated for r in s.drain()} for s in (sa, sb)]
+    assert got == solo
+    assert _host_steps(a) > 0 and _host_steps(b) > 0
+    assert a.ex.nonfinite_logits() == b.ex.nonfinite_logits() == 0
+
+
+def test_cluster_kill_frees_and_revived_replica_serves_on_card():
+    """A two-replica cluster on one card: kill replica 0 while it streams
+    (its live requests re-dispatched, every stream whole), both pools
+    back at baseline after the drain, then replica 0, revived with its
+    pools and staging buffers kept, serves a second wave whose tokens
+    equal a fresh engine's."""
+    _need_cuda()
+    from repro_torch.core import DEVICE, HOST
+    from repro_torch.serving.cluster import ClusterSession
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.session import ServingSession
+    first = _fused_engine()
+    engines = [first, _fused_engine(params=first.ex.params)]
+    cl = ClusterSession(engines, router="round_robin")
+    wave1 = _smoke_prompts(6, seed=13)
+    hs = _submit(cl, wave1, "w")
+    streams = {h.rid: [] for h in hs}
+
+    def pump():
+        while cl.step():
+            for h in hs:
+                streams[h.rid] += h.take_new()
+    while not any(h.replica == 0 and streams[h.rid] for h in hs):
+        assert cl.step()
+        for h in hs:
+            streams[h.rid] += h.take_new()
+    cl.kill(0)
+    pump()
+    cl.drain()
+    assert cl.n_kills == 1 and cl.redispatch_priorities
+    for h, p in zip(hs, wave1):
+        assert streams[h.rid] == h.request.prompt[len(p):] \
+            + h.request.generated
+        assert len(streams[h.rid]) == 8
+    for eng in engines:
+        eng.bm.drop_cache()
+        eng.bm.check()
+        for tier in (DEVICE, HOST):
+            assert eng.bm.num_free(tier) == eng.bm.pools[tier].num_blocks
+    cl.revive(0)
+    wave2 = _smoke_prompts(4, seed=14)
+    hs = _submit(cl, wave2, "x")
+    cl.drain()
+    on0 = [(h.rid, p) for h, p in zip(hs, wave2) if h.replica == 0]
+    assert on0
+    sess = ServingSession(_fused_engine(params=first.ex.params))
+    for rid, p in on0:
+        sess.submit(Request(rid=rid, prompt_len=len(p), output_len=8,
+                            arrival=0.0, prompt=p))
+    want = {r.rid: r.generated for r in sess.drain()}
+    assert {h.rid: h.request.generated for h in hs if h.replica == 0} \
+        == want
+    assert engines[0].ex.nonfinite_logits() == 0
+
+
+# --------------------------------------------------- MoE capacity path --
+
+def test_moe_capacity_bf16_matches_f32_plain_run():
+    """The capacity-factor `moe_ffn` (training's) at deepseek-moe-16b's
+    full width (64 experts top-6 + 2 shared, d 2048, d_expert 1408) over
+    2 x 256 tokens in bf16 on the card, against the same function in f32
+    on the CPU from the same values (inputs and weights rounded to bf16
+    first, the router f32 in both): the same pairs are dropped, lb_loss
+    within 1e-5 (both from f32 router probabilities), the output within
+    atol = 2e-2 x max |out| and rtol = 2e-2 (bf16 rounds each of the
+    expert chain's products and the gate multiply)."""
+    _need_cuda()
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator().manual_seed(3)
+    p32 = moe.init_moe(dataclasses.replace(cfg, dtype="bfloat16"), gen,
+                       torch.bfloat16, "cpu")
+    p32 = {k: ({kk: vv.float() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.float())
+           for k, v in p32.items()}
+
+    def to_card(v):
+        return v.to("cuda", torch.float32 if v is p32["router"]
+                    else torch.bfloat16)
+    pbf = {k: ({kk: to_card(vv) for kk, vv in v.items()}
+               if isinstance(v, dict) else to_card(v))
+           for k, v in p32.items()}
+    x = torch.randn(2, 256, cfg.d_model, generator=gen).to(torch.bfloat16)
+    want, waux = moe.moe_ffn(cfg, p32, x.float())
+    got, aux = moe.moe_ffn(cfg, pbf, x.to("cuda"))
+    assert float(aux["dropped_frac"]) == float(waux["dropped_frac"]) > 0
+    torch.testing.assert_close(aux["lb_loss"].cpu(), waux["lb_loss"],
+                               atol=1e-5, rtol=1e-5)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.float().cpu(), want,
+                               atol=2e-2 * scale, rtol=2e-2)

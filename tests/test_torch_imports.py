@@ -112,15 +112,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         == "cpu"
 
 
-def test_serve_cli_raises_without_cuda_and_rejects_unported(no_cuda, capsys):
+def test_serve_cli_raises_without_cuda_and_rejects_unported(no_cuda):
+    """Without CUDA the CLI raises, with one replica or several (every
+    flag of the reference's CLI is ported, so none is rejected)."""
     from repro_torch.launch import serve
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        serve.main(["--arch", "granite-3-2b", "--smoke", "--requests", "1"])
-    for flags in (["--replicas", "2"], ["--fault-plan", "random:1"],
-                  ["--liveness-timeout", "1.0"]):
-        with pytest.raises(SystemExit):
-            serve.main(["--arch", "granite-3-2b", "--smoke", *flags])
-        assert "not yet ported" in capsys.readouterr().err
+    for flags in ([], ["--replicas", "2", "--fault-plan", "random:1"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main(["--arch", "granite-3-2b", "--smoke", "--requests",
+                        "1", *flags])
 
 
 def test_serve_cli_runs_on_cpu(capsys):

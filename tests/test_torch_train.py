@@ -1,6 +1,7 @@
 """Port parity, training: the port's training path (`repro_torch.models.
 model.DecoderModel.loss`, `repro_torch.training.*`, `launch/train.py`)
-against the JAX package on granite-3-2b smoke in f32, with the
+against the JAX package on granite-3-2b smoke in f32 (and on
+deepseek-moe-16b smoke, through the MoE capacity path), with the
 reference's own weights handed over by `weights.from_jax_params` and the
 same numpy-made inputs on both sides. On the CPU every norm and attention
 call runs the kernels' plain versions, differentiated by autograd — the
@@ -154,13 +155,61 @@ def test_masked_cross_entropy_matches_jax():
                                    rtol=1e-6)
 
 
-def test_moe_training_is_refused():
-    cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"),
-                              dtype="float32")
-    m = DecoderModel(cfg, device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="capacity path"):
-        m.loss({"tokens": toks, "labels": toks})
+MOE = "deepseek-moe-16b"
+
+
+def _moe_cfgs():
+    return (dataclasses.replace(jax_smoke(MOE), dtype="float32"),
+            dataclasses.replace(get_smoke_config(MOE), dtype="float32"))
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_moe_loss_and_grads_match_jax(remat):
+    """deepseek-moe-16b smoke through the capacity path: the total loss
+    (ce + 0.01 * lb_loss), `ce`, `lb_loss` (the mean over layers) and
+    `dropped_frac` against the reference's `Model.loss`, and every
+    gradient, at the dense test's tolerances; with and without per-block
+    checkpointing, whose forward carries the aux terms out."""
+    jcfg, tcfg = _moe_cfgs()
+    model = build_model(jcfg)
+    jp = model.init(jax.random.PRNGKey(1))
+    toks, labels = _batch(tcfg, B=2, S=24, seed=3)
+    (jloss, jm), jgrads = jax.value_and_grad(model.loss, has_aux=True)(
+        jp, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
+    tm = DecoderModel(tcfg, from_jax_params(_flat(jp), tcfg, "cpu"),
+                      device="cpu")
+    tm.requires_grad_(True)
+    batch = {"tokens": torch.from_numpy(toks).long(),
+             "labels": torch.from_numpy(labels).long()}
+    if remat:
+        loss, metrics = tm.loss(batch)
+    else:
+        logits, aux = tm.train_logits_aux(batch, remat=False)
+        ce = cross_entropy(logits, batch["labels"])
+        loss = ce + 0.01 * aux["lb_loss"]
+        metrics = {"ce": ce, "lb_loss": aux["lb_loss"],
+                   "dropped_frac": aux["dropped_frac"], "loss": loss}
+    assert float(jm["dropped_frac"]) > 0      # the capacity drops pairs
+    for key in ("ce", "lb_loss", "dropped_frac", "loss"):
+        np.testing.assert_allclose(float(metrics[key].detach()),
+                                   float(jm[key]), atol=1e-5, rtol=1e-5,
+                                   err_msg=key)
+    # the same pairs are dropped: the count over layers is equal (the
+    # reference's scanned, fused `1 - mean` rounds its last bit otherwise)
+    pairs = tcfg.n_layers * toks.size * tcfg.moe.top_k
+    assert round(float(metrics["dropped_frac"]) * pairs) \
+        == round(float(jm["dropped_frac"]) * pairs)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               atol=1e-5, rtol=1e-5)
+    loss.backward()
+    flat = flatten_params(tm.params)
+    jflat = _flat(jgrads)
+    assert sorted(flat) == sorted(jflat)
+    for key, p in flat.items():
+        want = jflat[key]
+        atol = 1e-5 * max(float(np.abs(want).max()), 1e-30)
+        np.testing.assert_allclose(p.grad.numpy(), want, atol=atol,
+                                   rtol=1e-4, err_msg=key)
 
 
 # -------------------------------------------------------------- AdamW ----
@@ -236,6 +285,26 @@ def test_train_losses_match_jax(capsys):
     assert [ln.split()[1] for ln in lines] == ["0", "2", "4"]
 
 
+def test_moe_train_losses_match_jax(capsys):
+    """Five AdamW steps of deepseek-moe-16b smoke: the port's losses
+    against the reference's `train()` from the same weights, and the
+    load-balance terms in the result and the log line."""
+    jcfg, tcfg = _moe_cfgs()
+    dc = dict(batch_size=2, seq_len=24)
+    want = jtrain(jcfg, steps=5, dc=jdata.DataConfig(**dc), verbose=False)
+    jp = build_model(jcfg).init(jax.random.PRNGKey(0))
+    got = ttrain(tcfg, steps=5, dc=tdata.DataConfig(**dc), device="cpu",
+                 params=from_jax_params(_flat(jp), tcfg, "cpu"), log_every=2)
+    np.testing.assert_allclose(got.losses, want.losses, atol=1e-4,
+                               rtol=1e-4)
+    assert len(got.lb_losses) == len(got.dropped_fracs) == 5
+    assert all(np.isfinite(got.lb_losses))
+    assert all(0 <= f < 1 for f in got.dropped_fracs)
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[1] for ln in lines] == ["0", "2", "4"]
+    assert all("lb_loss" in ln and "dropped_frac" in ln for ln in lines)
+
+
 # --------------------------------------------------------- checkpoints ---
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -283,6 +352,15 @@ def test_train_cli_runs_on_cpu(capsys):
                 "--batch", "2", "--seq", "16"])
     out = capsys.readouterr().out
     assert "final loss" in out and "step     1" in out
+
+
+def test_train_cli_runs_moe_on_cpu(capsys):
+    from repro_torch.launch import train
+    train.main(["--arch", MOE, "--smoke", "--device", "cpu", "--steps", "2",
+                "--batch", "2", "--seq", "16"])
+    out = capsys.readouterr().out
+    assert "final loss" in out and "step     1" in out
+    assert "lb_loss" in out and "dropped_frac" in out
 
 
 def test_train_cli_raises_without_cuda(monkeypatch):

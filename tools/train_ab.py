@@ -2,7 +2,10 @@
 """Compare checkouts of the repository on one NVIDIA GPU: the flash
 kernels' times and the train phase of each checkout's `chip_smoke.py`.
 
-    python3 tools/train_ab.py OUT_DIR TREE [TREE ...]
+    python3 tools/train_ab.py [--moe] OUT_DIR TREE [TREE ...]
+
+With `--moe` each tree runs its `phase_train_moe(profile=True)` (the
+MoE train path) in place of `phase_train`.
 
 Each TREE is a checkout of the repository, for instance the parent
 commit unpacked with `git archive` under the gitignored `build/`; `.` is
@@ -26,7 +29,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SMOKE = os.path.join(os.path.dirname(HERE), "chip_smoke.py")
 
 
-def _one(tree: str, out: str) -> None:
+def _one(tree: str, out: str, moe: bool = False) -> None:
     tree = os.path.abspath(tree)
     sys.path[:0] = [os.path.join(tree, "src"), tree]
     os.chdir(tree)
@@ -43,7 +46,7 @@ def _one(tree: str, out: str) -> None:
     gen.manual_seed(0)
     fwd, bwd = cs.time_flash(gen), cs.time_flash_bwd(gen)
     torch.cuda.empty_cache()
-    train = cs.phase_train(profile=True)
+    train = (cs.phase_train_moe if moe else cs.phase_train)(profile=True)
     res = {"tree": tree, "nvidia_smi": smi, "flash_fwd": fwd,
            "flash_bwd": bwd,
            **{k: train[k] for k in ("step_s", "steady_step_s",
@@ -63,8 +66,10 @@ def _one(tree: str, out: str) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    moe = argv[:1] == ["--moe"]
+    argv = argv[moe:]
     if argv[:1] == ["--one"]:
-        _one(argv[1], argv[2])
+        _one(argv[1], argv[2], moe)
         return 0
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -73,8 +78,9 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     for i, tree in enumerate(trees, 1):
         out = os.path.join(out_dir, f"train_ab_{i}.json")
-        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--one", tree, out]).returncode
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__)]
+                            + ["--moe"] * moe + ["--one", tree, out]
+                            ).returncode
         if rc:
             print(f"[ab] {tree} failed: exit {rc}", file=sys.stderr)
             return rc
