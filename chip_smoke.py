@@ -149,6 +149,40 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            (flash at D = 128, G = 1); prints step time, tokens/s, peak
            memory, lb_loss and dropped_frac. The kernels phase times the
            two flash kernels at this shape too (at_moe_train_shape).
+  generate llama2-7b (the serve phase's weights and 8 prompts, batched
+           with prompt_len) through the port's Model API with no engine:
+           `DecoderModel.prefill` into a dense (L, B, S, KV, hd) cache,
+           then 32 greedy `decode` steps, each attention call on the flash
+           forward kernel (one query row, non-causal, runtime kv_len:
+           `decode_attention`); again with kv_quant (int8 codes, bf16
+           scales) fed the bf16 run's tokens, whose logits must stay
+           within rel 5e-2 at every step; prints TTFT / TPOT (wall), the
+           launches, and the first-token and stream agreement with the
+           serve phase's engine (not gated). Then decode against teacher
+           forcing at full width, 2 layers, f32: prefill(200) + 8
+           decodes against prefill(208), rel < 5e-3. Launch counts are
+           zeroed just before each run and read just after; every flash
+           and decode launch is accounted for.
+  generate-vlm  qwen2-vl-7b (arXiv:2409.12191) at full width and depth
+           (28 layers, d 3584, 28 query heads over 4 KV heads of 128,
+           G = 7), bf16, random weights made on the card: 4 prompts of
+           256-1024 positions from stub embeds with mrope positions, 32
+           decode steps of text tokens.
+  train-vlm  qwen2-vl-7b at full width with its depth cut to 8 of 28
+           layers (TRAIN_VLM; 2.95 B parameters), 5 AdamW steps of 4 x
+           1024 positions on the data stream's vlm stub, every block
+           checkpointed: RMSNorm and flash (G = 7) forward and backward.
+  encdec   whisper-base (arXiv:2212.04356) at full width and depth (6 + 6
+           layers, d 512, H = KV = 8, D 64, 1500 encoder frames), bf16:
+           8 stub encoder inputs and a 4-token prompt, then 64 decode
+           steps over the cached cross K/V (flash non-causal: the encoder
+           over 1500 x 1500, cross-attention Sq != Skv, one decode row
+           over 1500 frames); decode against teacher forcing in f32; 5
+           AdamW steps of 8 x 448 tokens (flash forward and backward,
+           non-causal Sq != Skv included). The kernels phase also holds
+           the flash forward and backward at these shapes and at G = 7,
+           and decode_attention at every generate path's heads, against
+           their plain versions, and times them beside SDPA.
   profile  (only with --profile) torch.profiler over a few decode-only
            steps of an exclusive vllm llama2-7b run at B = 8, over one
            more layerkv run of the fused path (the paged kernels' device
@@ -201,10 +235,51 @@ TRAIN_MOE = dict(arch="deepseek-moe-16b", layers=4, steps=5, batch=4,
                  seq=1024)
 # its attention (H = KV = 16, D = 128: G = 1)
 MOE_TRAIN_ATTN = (16, 16, 128)
-# RMSNorm shapes: the train path's activations, llama2-7b prefill / decode
+# The Model-API paths (no engine: `prefill` + `decode` over a dense cache,
+# and training), random weights from a seed:
+# generate: llama2-7b on the serve phase's weights and prompts (batched
+#   with prompt_len, a cache of the longest prompt + `steps`), `steps`
+#   greedy decode steps, with a bf16 cache and again with an int8 one
+#   (fed the bf16 run's tokens); and decode held against teacher forcing
+#   at full width, `tf_layers` layers, f32: prefill(S) + N decodes
+#   against prefill(S + N)
+GENERATE = dict(arch="llama2-7b", steps=32, tf_layers=2, tf_batch=2,
+                tf_prompt=200, tf_steps=8)
+# generate-vlm: qwen2-vl-7b at full width and depth, `n` prompts of
+#   256-1024 positions (lengths from `seed`) from stub embeds with
+#   text-stream mrope positions, `steps` decode steps
+GENERATE_VLM = dict(arch="qwen2-vl-7b", n=4, seed=3, steps=32)
+# encdec: whisper-base at full width and depth, `batch` stub encoder
+#   inputs of encoder_len (1500) frames and a `prompt`-token prompt, then
+#   `steps` decode steps; decode against teacher forcing in f32; and
+#   `train_steps` AdamW steps at batch x `train_seq` (its text context)
+ENCDEC = dict(arch="whisper-base", batch=8, prompt=4, steps=64,
+              train_steps=5, train_seq=448)
+# the kernels every train path with RMSNorm must launch
+TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                 "flash_attention_bwd")
+# train-vlm: qwen2-vl-7b at full width, depth cut from 28 to `layers`
+TRAIN_VLM = dict(arch="qwen2-vl-7b", layers=8, steps=5, batch=4, seq=1024)
+# the new paths' attention: qwen2-vl-7b (28 query heads over 4 KV heads,
+# G = 7, D 128) and whisper-base (H = KV = 8, D 64; 1500 encoder frames,
+# a 448-token text context)
+G7_ATTN = (28, 4, 128)
+WHISPER_ATTN = (8, 8, 64)
+WHISPER_FRAMES, WHISPER_TEXT = 1500, 448
+# decode_attention's checks: one query row per sequence over a dense cache
+DECODE_SHAPES = {"llama2-7b": FLASH_SHAPES["llama2-7b"],
+                 "qwen2-vl-7b": G7_ATTN, "whisper-base": WHISPER_ATTN,
+                 "granite-3-2b smoke": SMOKE_SHAPES["granite-3-2b smoke"]}
+# RMSNorm shapes: the train path's activations, llama2-7b prefill / decode,
+# and qwen2-vl-7b's (d 3584: 448 16-byte vectors a row, not a multiple of
+# the 256 lanes of the reduction tree) at train-vlm's 4 x 1024 rows and
+# generate-vlm's decode step
 NORM_SHAPES = {"train": (TRAIN["batch"], TRAIN["seq"], 2048),
                "llama2-7b prefill": (1, 1024, 4096),
-               "llama2-7b decode": (8, 1, 4096)}
+               "llama2-7b decode": (8, 1, 4096),
+               "qwen2-vl-7b train": (TRAIN_VLM["batch"], TRAIN_VLM["seq"],
+                                     3584),
+               "qwen2-vl-7b decode": (GENERATE_VLM["n"], 1, 3584)}
 
 
 def _say(*a):
@@ -320,8 +395,14 @@ def check_flash(gen, sizes=None):
     query rows x 128 keys) at G = H / KV in {1, 4, 8} and D in {64, 128}:
     Sq and Skv off the tile grid, kv_len below one tile, per-row q_offset
     with kv_len across a tile boundary, and a sliding window; and the
-    train-moe path's shape (B 4, S 1024, H = KV = 16, D 128). With
-    `sizes` ({name: (H, KV, D)}), every case at those shapes only."""
+    train-moe path's shape (B 4, S 1024, H = KV = 16, D 128); qwen2-vl-7b's
+    G = 7 (H 28, KV 4, D 128) on the engine and edge cases, at train-vlm's
+    B 4 x S 1024 and at generate-vlm's 4 ragged prompts; whisper-base's
+    shapes at its paths' batch of 8 (the non-causal encoder over 1500
+    frames, cross-attention from 448 decoder rows or one decode row to
+    1500 frames, with and without enc_len, and the causal 448-token
+    decoder). With `sizes` ({name: (H, KV, D)}), the engine and edge
+    cases at those shapes only."""
     import torch
     from repro_torch.kernels import flash_prefill as fp
     worst = {}
@@ -340,22 +421,44 @@ def check_flash(gen, sizes=None):
     ]
     B, S = TRAIN_MOE["batch"], TRAIN_MOE["seq"]
     moe_train = [(f"train B {B} S {S}", B, S, S, [S] * B, 0, 0)]
+    Bv, Sv = TRAIN_VLM["batch"], TRAIN_VLM["seq"]
+    vlm_lens = [len(p) for p in _prompts(n=GENERATE_VLM["n"],
+                                         seed=GENERATE_VLM["seed"])]
+    vlm = engine_cases + edge_cases + [
+        (f"train-vlm B {Bv} S {Sv}", Bv, Sv, Sv, [Sv] * Bv, 0, 0),
+        (f"generate-vlm prompts {vlm_lens}", len(vlm_lens), max(vlm_lens),
+         max(vlm_lens), vlm_lens, 0, 0)]
+    T, F, Be = WHISPER_TEXT, WHISPER_FRAMES, ENCDEC["batch"]
+    # whisper-base: non-causal, Sq != Skv (the key tile's tail at 1500 =
+    # 11 x 128 + 92), a cross call's one decode row, and enc_len masks
+    whisper = [(f"encoder Sq = Skv = {F}", 2, F, F, [F] * 2, 0, 0, False),
+               (f"encoder B {Be} Sq = Skv = {F}", Be, F, F, [F] * Be, 0, 0,
+                False),
+               (f"decoder B {Be} S {T}", Be, T, T, [T] * Be, 0, 0),
+               (f"cross Sq {T} Skv {F}", 8, T, F, [F] * 8, 0, 0, False),
+               (f"cross decode Sq 1 Skv {F}", 8, 1, F, [F] * 8, 0, 0, False),
+               (f"cross Sq {T} Skv {F} enc_len 1000 / 93", 2, T, F,
+                [1000, 93], 0, 0, False)]
     shapes = [(arch, hkd, engine_cases + edge_cases)
               for arch, hkd in (sizes or FLASH_SHAPES).items()]
     if sizes is None:
         shapes += [(f"G={H // KV} D={D}", (H, KV, D), edge_cases)
                    for H, KV, D in FLASH_GQA_SHAPES]
-        shapes += [(TRAIN_MOE["arch"], MOE_TRAIN_ATTN, moe_train)]
+        shapes += [(TRAIN_MOE["arch"], MOE_TRAIN_ATTN, moe_train),
+                   ("qwen2-vl-7b G=7", G7_ATTN, vlm),
+                   ("whisper-base", WHISPER_ATTN, whisper)]
     for arch, (H, KV, D), cases in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
-            for name, B, Sq, Skv, kv_len, q_off, window in cases:
+            for name, B, Sq, Skv, kv_len, q_off, window, *c in cases:
+                causal = c[0] if c else True
                 q, k, v, lens, off = _flash_case(gen, H, KV, D, dtype, B, Sq,
                                                  Skv, kv_len, q_off)
                 got = fp.flash_attention(q, k, v, kv_len=lens, q_offset=off,
-                                         window=window)
+                                         window=window, causal=causal)
                 want = fp.flash_attention_plain(q, k, v, kv_len=lens,
-                                                q_offset=off, window=window)
+                                                q_offset=off, window=window,
+                                                causal=causal)
                 torch.cuda.synchronize()
                 err, ok = _max_err(got, want, tol)
                 _say(f"[kernels] flash {arch} {str(dtype)[6:]} {name}: "
@@ -365,6 +468,40 @@ def check_flash(gen, sizes=None):
                                          f"{dtype} {name} err {err}")
                 key = str(dtype)[6:]
                 worst[key] = max(worst.get(key, 0.0), err)
+    return worst
+
+
+def check_decode(gen):
+    """decode_attention (the flash forward at one query row, non-causal,
+    with the runtime kv_len) against its plain version at the generate
+    paths' heads (llama2-7b, qwen2-vl-7b's G = 7, whisper-base's D 64,
+    the smoke D 32): 8 rows over a 1056-slot cache with kv_len at the
+    128-key tile's edges and up to the whole cache; one launch per call
+    (`launches_decode`). Returns the worst error per dtype."""
+    import torch
+    from repro_torch.kernels import flash_prefill as fp
+    lens, S = [1, 127, 128, 129, 281, 700, 1040, 1056], 1056
+    worst = {}
+    for arch, (H, KV, D) in DECODE_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            key = str(dtype)[6:]
+            tol = TOL[key]
+            q, k, v, kv_len, _ = _flash_case(gen, H, KV, D, dtype, len(lens),
+                                             1, S, lens, 0)
+            before = fp.launches_decode
+            got = fp.decode_attention(q, k, v, kv_len)
+            want = fp.decode_attention_plain(q, k, v, kv_len)
+            torch.cuda.synchronize()
+            if fp.launches_decode != before + 1:
+                raise AssertionError("decode_attention: not one launch")
+            err, ok = _max_err(got, want, tol)
+            _say(f"[kernels] decode_attention {arch} H={H} KV={KV} D={D} "
+                 f"{key} B=8 Sq=1 cache {S} kv_len {lens}: max_abs_err "
+                 f"{err:.3g} (tol {tol})")
+            if not ok or not torch.isfinite(got).all():
+                raise AssertionError(f"decode_attention disagrees: {arch} "
+                                     f"{dtype} err {err}")
+            worst[key] = max(worst.get(key, 0.0), err)
     return worst
 
 
@@ -483,42 +620,111 @@ def _prompts(vocab=32000, n=8, lo=256, hi=1024, seed=0):
 
 
 def time_flash(gen):
-    """The flash forward, bf16 causal, at llama2-7b prefill attention at
+    """The flash forward, bf16, causal, at llama2-7b prefill attention at
     the main path's largest bucket (one prompt of 1024 tokens) and at the
     train path's shape (granite-3-2b, B 4, S 1024, GQA 4:1), each beside
-    its plain version and scaled_dot_product_attention (enable_gqa at the
-    train shape), and at the MoE train path's (deepseek-moe-16b, B 4,
-    S 1024, H = KV = 16, D 128). Returns the serve shape's row with the
-    train shapes' under "at_train_shape" and "at_moe_train_shape"."""
+    its plain version and scaled_dot_product_attention (enable_gqa where
+    G > 1), at the MoE train path's (deepseek-moe-16b, B 4, S 1024,
+    H = KV = 16, D 128), and at the new paths' ("at_other_shapes"):
+    train-vlm's G = 7 (B 4, S 1024, H 28, KV 4, D 128, causal) and
+    whisper-base's non-causal cross-attention (B 8, 448 rows over 1500
+    frames) and encoder (B 8, 1500 x 1500). Returns the serve shape's row
+    with the train shapes' under "at_train_shape" and
+    "at_moe_train_shape"."""
+    S = TRAIN["seq"]
+    B8, T, F = ENCDEC["batch"], WHISPER_TEXT, WHISPER_FRAMES
+    rows = [_time_flash_fwd_at(gen, *FLASH_SHAPES["llama2-7b"], 1, S, S,
+                               True, lens_arg=True),
+            _time_flash_fwd_at(gen, *FLASH_SHAPES["granite-3-2b"],
+                               TRAIN["batch"], S, S, True),
+            _time_flash_fwd_at(gen, *MOE_TRAIN_ATTN, TRAIN_MOE["batch"], S, S,
+                               True)]
+    rows[0]["at_train_shape"] = rows[1]
+    rows[0]["at_moe_train_shape"] = rows[2]
+    rows[0]["at_other_shapes"] = [
+        _time_flash_fwd_at(gen, *G7_ATTN, TRAIN_VLM["batch"],
+                           TRAIN_VLM["seq"], TRAIN_VLM["seq"], True),
+        _time_flash_fwd_at(gen, *WHISPER_ATTN, B8, T, F, False),
+        _time_flash_fwd_at(gen, *WHISPER_ATTN, B8, F, F, False)]
+    return rows[0]
+
+
+def _time_flash_fwd_at(gen, H, KV, D, B, Sq, Skv, causal, lens_arg=False):
+    """One bf16 forward shape beside its plain version and SDPA; with
+    `lens_arg` the kernel also takes kv_len (every key valid), as the
+    engine's prefill passes it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill as fp
-    S = TRAIN["seq"]
-    rows = []
-    for (H, KV, D), B, lens_arg in ((FLASH_SHAPES["llama2-7b"], 1, True),
-                                    (FLASH_SHAPES["granite-3-2b"],
-                                     TRAIN["batch"], False),
-                                    (MOE_TRAIN_ATTN, TRAIN_MOE["batch"],
-                                     False)):
-        q, k, v, lens, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, S,
-                                       S, [S] * B, 0)
-        lens = lens if lens_arg else None   # the train path passes none
-        ms = _time_ms(lambda: fp.flash_attention(q, k, v, kv_len=lens))
-        plain = _time_ms(lambda: fp.flash_attention_plain(
-            q, k, v, kv_len=lens), reps=5)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, D)
+    q, k, v, lens, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, Sq,
+                                   Skv, [Skv] * B, 0)
+    lens = lens if lens_arg else None   # the train path passes none
+    ms = _time_ms(lambda: fp.flash_attention(q, k, v, kv_len=lens,
+                                             causal=causal))
+    plain = _time_ms(lambda: fp.flash_attention_plain(
+        q, k, v, kv_len=lens, causal=causal), reps=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, D)
+    lib = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=KV != H))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + (lens.numel() * 4 if lens is not None else 0)
+    pairs = _flash_pairs(Sq, [0] * B, [Skv] * B) if causal \
+        else B * Sq * Skv
+    return _bound(ms, plain, lib, nbytes, 4 * D * H * pairs,
+                  BF16_FLOPS_PER_S,
+                  f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} bf16 "
+                  f"{'causal' if causal else 'non-causal'}")
+
+
+def time_decode(gen):
+    """decode_attention (the flash forward at one query row) at the
+    generate path's llama2-7b step: B 8, the serve prompts' contexts at
+    the middle decode step (prompt + 16) in a 1056-slot cache, H = KV =
+    32, D 128, bf16; beside its plain version and SDPA with a key mask
+    (one call computing the same function); at qwen2-vl-7b's G = 7 (B 4)
+    and at whisper-base's cross decode (B 8, one row over 1500 frames)
+    under "at_other_shapes". The note counts the tile the kernel wastes:
+    one query row of its 128-row tile."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_prefill as fp
+
+    def at(H, KV, D, ctx, S):
+        B = len(ctx)
+        q, k, v, lens, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, 1,
+                                       S, ctx, 0)
+        ms = _time_ms(lambda: fp.decode_attention(q, k, v, lens))
+        plain = _time_ms(lambda: fp.decode_attention_plain(q, k, v, lens),
+                         reps=5)
+        mask = (torch.arange(S, device="cuda")[None] < lens[:, None])[
+            :, None, None]                               # (B, 1, 1, S)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=KV != H))
-        nbytes = 2 * (q.numel() + k.numel()) * q.element_size() \
-            + (lens.numel() * 4 if lens is not None else 0)
-        flops = 4 * D * H * _flash_pairs(S, [0] * B, [S] * B)
-        rows.append(_bound(ms, plain, lib, nbytes, flops, BF16_FLOPS_PER_S,
-                           f"B={B} Sq=Skv={S} H={H} KV={KV} D={D} bf16 "
-                           f"causal"))
-        del q, k, v, qt, kt, vt
-    rows[0]["at_train_shape"] = rows[1]
-    rows[0]["at_moe_train_shape"] = rows[2]
-    return rows[0]
+            qt, kt, vt, attn_mask=mask, enable_gqa=KV != H))
+        n = sum(ctx)
+        nbytes = n * 2 * KV * D * 2 + 2 * B * H * D * 2 + B * 4
+        row = _bound(ms, plain, lib, nbytes, 4 * H * D * n, BF16_FLOPS_PER_S,
+                     f"B={B} Sq=1 ctx {min(ctx)}-{max(ctx)} of {S} H={H} "
+                     f"KV={KV} D={D} bf16")
+        row["tiles"] = {"query_rows_used": 1, "query_rows_per_tile": 128,
+                        "key_tiles": sum(-(-c // 128) for c in ctx),
+                        "live_keys": n}
+        return row
+    prompts = _prompts()
+    S = max(len(p) for p in prompts) + GENERATE["steps"]
+    row = at(*DECODE_SHAPES["llama2-7b"], [len(p) + 16 for p in prompts], S)
+    row["at_other_shapes"] = [
+        at(*G7_ATTN, [len(p) + 16 for p in prompts[:4]], S),
+        at(*WHISPER_ATTN, [WHISPER_FRAMES] * 8, WHISPER_FRAMES)]
+    t = row["tiles"]
+    row["note"] = (f"the flash forward kernel at Sq = 1: one query row fills "
+                   f"1 of its 128-row wgmma tile (two 64-row consumer "
+                   f"warpgroups), so 127/128 of its tensor-core products "
+                   f"are wasted; it loads {t['key_tiles']} 128-key tiles "
+                   f"for {t['live_keys']} live keys per head. The reference "
+                   f"has no Pallas kernel here (src/repro/kernels/ops.py:43, "
+                   f"ref.decode_attention_reference)")
+    return row
 
 
 def _decode_bound(ctx, H, KV, D, BS, B):
@@ -1002,7 +1208,11 @@ def check_flash_bwd(gen, sizes=None):
     """The flash backward (dq, dk, dv) against autograd through the plain
     flash attention, causal: at the train path's shape (B 4, S 1024,
     granite-3-2b heads, GQA 4:1), the train-moe path's (B 4, S 1024,
-    H = KV = 16, D 128) and llama2-7b's (B 1, S 1024), and at
+    H = KV = 16, D 128), llama2-7b's (B 1, S 1024) and train-vlm's
+    (B 4, S 1024, G = 7: H 28, KV 4, D 128), at whisper-base's training
+    batch of 8: non-causal at its encoder (1500 x 1500) and
+    cross-attention (448 rows over 1500 frames), causal at its decoder
+    (448 tokens); the same G = 7 and whisper cases at B 1 and 2, and at
     the edges of the kernels' tiling: Sq and Skv off the 64-row grid (a
     chunk at q_offset 37), a sliding window, and G in {1, 4, 8} at D in
     {64, 128}; bf16 and f32. With `sizes` ({name: (H, KV, D)}), B 1 S
@@ -1022,20 +1232,36 @@ def check_flash_bwd(gen, sizes=None):
              ("window 200", 1, llama, 1000, 1037, 37, 200)]
     cases += [(f"G={H // KV} D={D}", 1, (H, KV, D), 512, 512, 0, 0)
               for H, KV, D in [gran, llama] + FLASH_GQA_SHAPES]
+    T, F = WHISPER_TEXT, WHISPER_FRAMES
+    Bv, Sv, Be = TRAIN_VLM["batch"], TRAIN_VLM["seq"], ENCDEC["batch"]
+    cases += [("train-vlm qwen2-vl-7b G=7", 1, G7_ATTN, S, S, 0, 0),
+              ("G=7 Sq 1000 Skv 1037 q_offset 37", 1, G7_ATTN, 1000, 1037,
+               37, 0),
+              ("whisper-base encoder", 1, WHISPER_ATTN, F, F, 0, 0, False),
+              ("whisper-base cross", 2, WHISPER_ATTN, T, F, 0, 0, False),
+              ("train-vlm qwen2-vl-7b G=7 at its batch", Bv, G7_ATTN, Sv,
+               Sv, 0, 0),
+              ("whisper-base encoder at its batch", Be, WHISPER_ATTN, F, F,
+               0, 0, False),
+              ("whisper-base cross at its batch", Be, WHISPER_ATTN, T, F, 0,
+               0, False),
+              ("whisper-base decoder at its batch", Be, WHISPER_ATTN, T, T,
+               0, 0)]
     if sizes is not None:
         cases = [c for name, hkd in sizes.items() for c in (
             (name, 1, hkd, 512, 512, 0, 0),
             (f"{name} Sq 1000 Skv 1037 q_offset 37", 1, hkd, 1000, 1037,
              37, 0),
             (f"{name} window 200", 1, hkd, 1000, 1037, 37, 200))]
-    for name, B, (H, KV, D), Sq, Skv, q_off, window in cases:
+    for name, B, (H, KV, D), Sq, Skv, q_off, window, *c in cases:
+        causal = c[0] if c else True
         for dtype in (torch.bfloat16, torch.float32):
             key = str(dtype)[6:]
             tol = TOL[key]
             q, k, v, _, _ = _flash_case(gen, H, KV, D, dtype, B, Sq, Skv,
                                         [Skv], 0)
             do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-            kw = dict(q_offset=q_off, window=window)
+            kw = dict(q_offset=q_off, window=window, causal=causal)
             got = _flash_grads(fp.flash_attention, q, k, v, do, **kw)
             want = _flash_grads(fp.flash_attention_plain, q, k, v, do, **kw)
             torch.cuda.synchronize()
@@ -1044,7 +1270,8 @@ def check_flash_bwd(gen, sizes=None):
             each = ", ".join(f"{n} {e:.3g} of max |{n}| {m:.3g}"
                              for n, (e, _, m) in zip(("dq", "dk", "dv"), res))
             _say(f"[kernels] flash_attention_bwd {name} B={B} Sq={Sq} "
-                 f"Skv={Skv} H={H} KV={KV} D={D} {key} causal: max_abs_err "
+                 f"Skv={Skv} H={H} KV={KV} D={D} {key} "
+                 f"{'causal' if causal else 'non-causal'}: max_abs_err "
                  f"{err:.3g} (tol {tol}, grad: {each})")
             if not ok:
                 raise AssertionError(f"flash backward disagrees: {name} "
@@ -1078,25 +1305,15 @@ def time_rmsnorm_fwd(gen, shape):
         f"{rows} rows x d={d} bf16")
 
 
-def time_rmsnorm(gen):
-    """RMSNorm at the train path's activations (4096 rows of 2048, bf16):
-    the forward and the backward, each beside its plain version and
-    F.rms_norm (forward; its autograd backward). The forward's row also
-    holds its times at llama2-7b's serve shapes ("at_serve_shapes": a
-    1024-token prefill and an 8-row decode step, 4096 wide), where the
-    serve path's launches run."""
+def time_rmsnorm_bwd(gen, shape):
+    """The RMSNorm backward at `shape` (bf16) beside autograd through its
+    plain version and through F.rms_norm."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as rn
-    fwd = time_rmsnorm_fwd(gen, NORM_SHAPES["train"])
-    fwd["at_serve_shapes"] = [
-        time_rmsnorm_fwd(gen, NORM_SHAPES[k])
-        for k in ("llama2-7b prefill", "llama2-7b decode")]
-    shape = NORM_SHAPES["train"]
     x, w, rows, d = _norm_inputs(gen, shape)
     n = rows * d
     dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    desc = f"{rows} rows x d={d} bf16"
     _, rstd = rn._forward(x, w, 1e-6, keep_rstd=True)
 
     def grad_ms(fn, reps):
@@ -1104,11 +1321,33 @@ def time_rmsnorm(gen):
         y = fn(xg, wg)
         return _time_ms(lambda: torch.autograd.grad(
             y, (xg, wg), dy, retain_graph=True), reps=reps)
-    bwd = _bound(
+    return _bound(
         _time_ms(lambda: rn.rmsnorm_bwd(dy, x, w, rstd)),
         grad_ms(rn.rmsnorm_plain, 5),
         grad_ms(lambda a, b: F.rms_norm(a, (d,), b, eps=1e-6), 20),
-        3 * n * 2 + 2 * d * 2 + n // d * 4, 10 * n, F32_FLOPS_PER_S, desc)
+        3 * n * 2 + 2 * d * 2 + n // d * 4, 10 * n, F32_FLOPS_PER_S,
+        f"{rows} rows x d={d} bf16")
+
+
+def time_rmsnorm(gen):
+    """RMSNorm at the train path's activations (4096 rows of 2048, bf16):
+    the forward and the backward, each beside its plain version and
+    F.rms_norm (forward; its autograd backward). The forward's row also
+    holds its times at llama2-7b's serve shapes ("at_serve_shapes": a
+    1024-token prefill and an 8-row decode step, 4096 wide), where the
+    serve path's launches run, and both rows at qwen2-vl-7b's d 3584
+    ("at_other_shapes": train-vlm's 4 x 1024 rows, and for the forward
+    generate-vlm's 4-row decode step)."""
+    fwd = time_rmsnorm_fwd(gen, NORM_SHAPES["train"])
+    fwd["at_serve_shapes"] = [
+        time_rmsnorm_fwd(gen, NORM_SHAPES[k])
+        for k in ("llama2-7b prefill", "llama2-7b decode")]
+    fwd["at_other_shapes"] = [
+        time_rmsnorm_fwd(gen, NORM_SHAPES[k])
+        for k in ("qwen2-vl-7b train", "qwen2-vl-7b decode")]
+    bwd = time_rmsnorm_bwd(gen, NORM_SHAPES["train"])
+    bwd["at_other_shapes"] = [
+        time_rmsnorm_bwd(gen, NORM_SHAPES["qwen2-vl-7b train"])]
     return fwd, bwd
 
 
@@ -1117,43 +1356,55 @@ def time_flash_bwd(gen):
     KV 8, D 64, bf16, causal), beside autograd through the plain version
     and the backward of scaled_dot_product_attention with enable_gqa;
     the same at the MoE train path's shape (H = KV = 16, D 128) under
-    "at_moe_train_shape"."""
+    "at_moe_train_shape", and at train-vlm's G = 7 (B 4, S 1024) and
+    whisper-base's non-causal cross-attention (B 8, 448 rows over 1500
+    frames) under "at_other_shapes"."""
     rows = [_time_flash_bwd_at(gen, *FLASH_SHAPES["granite-3-2b"],
                                TRAIN["batch"], TRAIN["seq"]),
             _time_flash_bwd_at(gen, *MOE_TRAIN_ATTN, TRAIN_MOE["batch"],
                                TRAIN_MOE["seq"])]
     rows[0]["at_moe_train_shape"] = rows[1]
+    rows[0]["at_other_shapes"] = [
+        _time_flash_bwd_at(gen, *G7_ATTN, TRAIN_VLM["batch"],
+                           TRAIN_VLM["seq"]),
+        _time_flash_bwd_at(gen, *WHISPER_ATTN, ENCDEC["batch"],
+                           WHISPER_TEXT, WHISPER_FRAMES, causal=False)]
     return rows[0]
 
 
-def _time_flash_bwd_at(gen, H, KV, D, B, S):
+def _time_flash_bwd_at(gen, H, KV, D, B, S, Skv=None, causal=True):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill as fp
-    q, k, v, _, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, S, S,
-                                [S] * B, 0)
+    Skv = Skv or S
+    q, k, v, _, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, S, Skv,
+                                [Skv] * B, 0)
     do = torch.randn(q.shape, generator=gen, device="cuda") \
         .to(torch.bfloat16)
-    out, lse = fp._launch_fwd(q, k, v, True, 0, None, 0, D ** -0.5,
+    out, lse = fp._launch_fwd(q, k, v, causal, 0, None, 0, D ** -0.5,
                               keep_lse=True)
-    ms = _time_ms(lambda: fp.flash_attention_bwd(q, k, v, out, do, lse))
+    ms = _time_ms(lambda: fp.flash_attention_bwd(q, k, v, out, do, lse,
+                                                 causal=causal))
 
     def grad_ms(fn, leaves, g, reps):
         leaves = [t.clone().requires_grad_() for t in leaves]
         y = fn(*leaves)
         return _time_ms(lambda: torch.autograd.grad(
             y, leaves, g, retain_graph=True), reps=reps)
-    plain = grad_ms(fp.flash_attention_plain, (q, k, v), do, 3)
+    plain = grad_ms(lambda a, b, c: fp.flash_attention_plain(
+        a, b, c, causal=causal), (q, k, v), do, 3)
     lib = grad_ms(lambda a, b, c: F.scaled_dot_product_attention(
-        a, b, c, is_causal=True, enable_gqa=KV != H),
+        a, b, c, is_causal=causal, enable_gqa=KV != H),
         [t.transpose(1, 2).contiguous() for t in (q, k, v)],
         do.transpose(1, 2).contiguous(), 20)
     nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
     # five products of 2 * D operations per visible (query, key) pair:
     # S and dP recomputed, dV, dQ, dK
-    flops = 10 * D * H * _flash_pairs(S, [0] * B, [S] * B)
-    return _bound(ms, plain, lib, nbytes, flops, BF16_FLOPS_PER_S,
-                  f"B={B} S={S} H={H} KV={KV} D={D} bf16 causal")
+    pairs = _flash_pairs(S, [0] * B, [Skv] * B) if causal else B * S * Skv
+    return _bound(ms, plain, lib, nbytes, 10 * D * H * pairs,
+                  BF16_FLOPS_PER_S,
+                  f"B={B} Sq={S} Skv={Skv} H={H} KV={KV} D={D} bf16 "
+                  f"{'causal' if causal else 'non-causal'}")
 
 
 def _bound(ms, plain, lib, nbytes, flops, peak, shape):
@@ -1171,12 +1422,14 @@ def phase_kernels():
     gen.manual_seed(0)
     t0 = time.perf_counter()
     flash_err = check_flash(gen)
+    dec_err = check_decode(gen)
     paged_err = check_paged(gen)
     pp_err = check_paged_prefill(gen)
     norm_err = check_rmsnorm(gen)
     fbwd_err = check_flash_bwd(gen)
     torch.cuda.empty_cache()
     flash_t = time_flash(gen)
+    dec_t = time_decode(gen)
     paged_t = time_paged(gen)
     pp_t = time_paged_prefill(gen)
     norm_t, norm_bwd_t = time_rmsnorm(gen)
@@ -1190,6 +1443,7 @@ def phase_kernels():
             + [t["max_abs_err"] for t in pp_t[name].get("at_other_shapes",
                                                         [])])
     res = {"flash_attention": (flash_err, flash_t),
+           "decode_attention": (dec_err, dec_t),
            "paged_attention": (paged_err, paged_t),
            "paged_prefill": (pp_err["paged_prefill"],
                              pp_t["paged_prefill"]),
@@ -1225,6 +1479,7 @@ def phase_kernels():
          f"{b1['ms']:.4f} plain_ms {b1['plain_ms']:.4f} bound_ms "
          f"{b1['bound_ms']:.4f} ({b1['bound_by']})")
     _say(f"[kernels] paged_attention: {paged_t['note']}")
+    _say(f"[kernels] decode_attention: {dec_t['note']}")
     _say(f"[kernels] phase {time.perf_counter() - t0:.1f}s")
     return res
 
@@ -1295,7 +1550,7 @@ def _zero_launches():
     pp.launches_stage = pp.stage_runs = 0
     pp.stage_host_s = 0.0
     pp.launches_mma = pp.launches_fma = 0
-    fp.launches_bwd = rn.launches = rn.launches_bwd = 0
+    fp.launches_bwd = fp.launches_decode = rn.launches = rn.launches_bwd = 0
 
 
 def _launches():
@@ -1303,7 +1558,9 @@ def _launches():
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import rmsnorm as rn
-    return {"flash_attention": fp.launches, "paged_attention": pa.launches,
+    return {"flash_attention": fp.launches,
+            "decode_attention": fp.launches_decode,
+            "paged_attention": pa.launches,
             "paged_prefill": pp.launches,
             "paged_prefill_tiered": pp.launches_tiered,
             "stage_host_blocks": pp.launches_stage,
@@ -1831,14 +2088,11 @@ def phase_train(profile=False):
     """granite-3-2b at full width and depth, bf16, trained for
     TRAIN["steps"] AdamW steps by the port's `train_loop.train` from
     random weights (a seeded generator on the card) on SyntheticLM
-    batches: the kernels' launch counts are zeroed just before and read
-    just after. Asserts finite losses and grad norms, a step-0 loss near
-    ln(vocab), and RMSNorm and flash launches forward and backward."""
-    import math
+    batches (`run_train`): finite losses and grad norms, a step-0 loss
+    near ln(vocab), and RMSNorm and flash launches forward and
+    backward."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.training.data import DataConfig
-    from repro_torch.training.train_loop import train
     cfg = get_config(TRAIN["arch"])
     steps, B, S = TRAIN["steps"], TRAIN["batch"], TRAIN["seq"]
     n_params = _dense_params(cfg)
@@ -1849,38 +2103,9 @@ def phase_train(profile=False):
          f"{B} x {S} tokens, remat on")
     _say(f"[train] device memory in use before: "
          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
-    res = train(cfg, steps=steps, dc=DataConfig(batch_size=B, seq_len=S),
-                seed=0, device="cuda", log_every=1)
-    launches = _launches()
-    peak = torch.cuda.max_memory_allocated()
-    per_step = {k: v / steps for k, v in launches.items() if v}
-    steady = sorted(res.step_s[1:])[len(res.step_s[1:]) // 2]
-    _say(f"[train] launches {launches}; per step {per_step}")
-    _say(f"[train] step wall s {[round(t, 4) for t in res.step_s]}; "
-         f"steady (median of steps 1..) {steady:.4f} s = "
-         f"{B * S / steady:.0f} tokens/s; peak device memory "
-         f"{peak / 2**30:.2f} GiB")
-    if not all(math.isfinite(x) for x in res.losses + res.grad_norms):
-        raise AssertionError(f"non-finite loss or grad norm: {res.losses} "
-                             f"{res.grad_norms}")
-    ln_v = math.log(cfg.vocab_size)
-    if abs(res.losses[0] - ln_v) > 1.0:
-        raise AssertionError(f"step-0 loss {res.losses[0]} is not near "
-                             f"ln(vocab) = {ln_v:.3f}")
-    missing = [k for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
-                           "flash_attention_bwd") if not launches[k]]
-    if missing:
-        raise AssertionError(f"kernels never launched in training: "
-                             f"{missing}")
-    out = {"losses": res.losses, "grad_norms": res.grad_norms,
-           "step_s": res.step_s, "steady_step_s": steady,
-           "tokens_per_s": B * S / steady, "peak_bytes": peak,
-           "n_params": n_params, "launches": launches,
-           "launches_per_step": per_step}
+    out = run_train("train", cfg, B, S, steps, TRAIN_KERNELS)
+    out["n_params"] = n_params
     if profile:
-        del res
         gc.collect()
         torch.cuda.empty_cache()
         out["profile"] = _profile_train(cfg, B, S)
@@ -1893,18 +2118,14 @@ def phase_train_moe(profile=False):
     cut to TRAIN_MOE["layers"] of 28, bf16, trained for
     TRAIN_MOE["steps"] AdamW steps by the port's `train_loop.train` from
     random weights on SyntheticLM batches through the capacity-factor
-    dispatch, every block checkpointed: launch counts zeroed just before
-    and read just after. Asserts finite losses, grad norms and
-    `lb_loss`, a step-0 `ce` near ln(vocab), 0 <= dropped_frac < 1, and
-    the RMSNorm and flash kernels launched forward and backward. With
+    dispatch, every block checkpointed (`run_train`: finite losses, grad
+    norms and `lb_loss`, a step-0 `ce` near ln(vocab), 0 <= dropped_frac
+    < 1, and the RMSNorm and flash kernels forward and backward). With
     `profile`, one more step under torch.profiler (`_profile_train`)."""
     import dataclasses
-    import math
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.moe import CAPACITY_FACTOR as cf
-    from repro_torch.training.data import DataConfig
-    from repro_torch.training.train_loop import train
     full = get_config(TRAIN_MOE["arch"])
     cfg = dataclasses.replace(full, n_layers=TRAIN_MOE["layers"])
     m = cfg.moe
@@ -1925,47 +2146,9 @@ def phase_train_moe(profile=False):
          f"{S} tokens, capacity factor {cf} (C = {C}), remat on")
     _say(f"[train-moe] device memory in use before: "
          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
-    res = train(cfg, steps=steps, dc=DataConfig(batch_size=B, seq_len=S),
-                seed=0, device="cuda", log_every=1)
-    launches = _launches()
-    peak = torch.cuda.max_memory_allocated()
-    per_step = {k: v / steps for k, v in launches.items() if v}
-    steady = sorted(res.step_s[1:])[len(res.step_s[1:]) // 2]
-    _say(f"[train-moe] launches {launches}; per step {per_step}")
-    _say(f"[train-moe] step wall s {[round(t, 4) for t in res.step_s]}; "
-         f"steady (median of steps 1..) {steady:.4f} s = "
-         f"{B * S / steady:.0f} tokens/s; peak device memory "
-         f"{peak / 2**30:.2f} GiB; lb_loss {res.lb_losses}; dropped_frac "
-         f"{res.dropped_fracs}")
-    vals = res.losses + res.grad_norms + res.lb_losses
-    if not all(math.isfinite(x) for x in vals):
-        raise AssertionError(f"non-finite loss, grad norm or lb_loss: "
-                             f"{vals}")
-    # the step-0 loss is ce + 0.01 * lb_loss
-    ce0 = res.losses[0] - 0.01 * res.lb_losses[0]
-    ln_v = math.log(cfg.vocab_size)
-    if abs(ce0 - ln_v) > 1.0:
-        raise AssertionError(f"step-0 ce {ce0} is not near ln(vocab) = "
-                             f"{ln_v:.3f}")
-    if not all(0.0 <= f < 1.0 for f in res.dropped_fracs):
-        raise AssertionError(f"dropped_frac out of [0, 1): "
-                             f"{res.dropped_fracs}")
-    missing = [k for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
-                           "flash_attention_bwd") if not launches[k]]
-    if missing:
-        raise AssertionError(f"kernels never launched in MoE training: "
-                             f"{missing}")
-    out = {"losses": res.losses, "grad_norms": res.grad_norms,
-           "lb_losses": res.lb_losses, "dropped_fracs": res.dropped_fracs,
-           "step_s": res.step_s, "steady_step_s": steady,
-           "tokens_per_s": B * S / steady, "peak_bytes": peak,
-           "n_params": n_params, "n_layers": cfg.n_layers,
-           "capacity": C, "launches": launches,
-           "launches_per_step": per_step}
+    out = run_train("train-moe", cfg, B, S, steps, TRAIN_KERNELS)
+    out.update(n_params=n_params, n_layers=cfg.n_layers, capacity=C)
     if profile:
-        del res
         gc.collect()
         torch.cuda.empty_cache()
         out["profile"] = _profile_train(cfg, B, S)
@@ -2214,12 +2397,11 @@ def _trace(step, steps, top=10, kernels=(), ranges=(), side_copies=False):
 def _profile_train(cfg, B, S):
     """torch.profiler over one train step of `cfg` (random weights, after
     one warm-up step): where the step's device time goes."""
-    import torch
-    from repro_torch.models import DecoderModel
+    from repro_torch.models import build_model
     from repro_torch.training.data import DataConfig, SyntheticLM
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.train_loop import make_train_step
-    model = DecoderModel(cfg, device="cuda", seed=0)
+    model = build_model(cfg, device="cuda", seed=0)
     model.requires_grad_(True)
     state = [init_opt_state(model.params)]
     step_fn = make_train_step(model, AdamWConfig(lr=1e-3))
@@ -2241,6 +2423,451 @@ def _profile_train(cfg, B, S):
     return out
 
 
+# ------------------------------------------------------- Model API paths --
+
+def _generate(model, batch, B, cache_len, steps, forced=None):
+    """Prefill `batch` (B rows) into a fresh cache of `cache_len` slots, then
+    `steps` decode steps, greedy or fed `forced` (B, steps) (another
+    run's stream). Returns the tokens (B, steps + 1) as lists, each
+    step's logits (f32), the prefill's wall seconds (TTFT of the batch)
+    and each decode step's (TPOT), each ending in a synchronise."""
+    import torch
+    dev = model.device
+    cache = model.init_cache(B, cache_len)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(batch, cache)
+    tok = logits.argmax(-1)
+    _sync(dev)
+    ttft = time.perf_counter() - t0
+    toks, logs, step_s = [tok], [logits.float()], []
+    for i in range(steps):
+        ts = time.perf_counter()
+        logits, cache = model.decode(tok if forced is None else forced[:, i],
+                                     cache)
+        tok = logits.argmax(-1)
+        _sync(dev)
+        step_s.append(time.perf_counter() - ts)
+        toks.append(tok)
+        logs.append(logits.float())
+    nonfinite = sum(int(not torch.isfinite(x).all()) for x in logs)
+    return {"tokens": torch.stack(toks, 1).tolist(), "logits": logs,
+            "ttft_s": ttft, "tpot_s": step_s, "nonfinite_steps": nonfinite,
+            "cache_bytes": sum(t.numel() * t.element_size()
+                               for t in cache.values()
+                               if isinstance(t, torch.Tensor))}
+
+
+def _profile_generate(tag, model, batch, B, cache_len, steps=4):
+    """torch.profiler over one prefill of `batch` and then `steps` greedy
+    decode steps (after one untraced): wall, device-busy time and share,
+    and the top device ops of each."""
+    def prefill():
+        state[:] = model.prefill(batch, model.init_cache(B, cache_len))
+
+    def decode():
+        state[:] = model.decode(state[0].argmax(-1), state[1])
+    state = []
+    out = {"prefill": _trace(prefill, 1, top=8)}
+    decode()
+    out["decode"] = _trace(decode, steps, top=12, kernels=("flash_fwd",))
+    for name, t in out.items():
+        _say(f"[profile] {tag} {name}: {t['wall_ms_per_step']:.2f} ms wall "
+             f"per step, device busy {t['device_busy_ms_per_step']:.2f} ms "
+             f"({t['device_busy_share']:.3f}), "
+             f"{t['device_ops_per_step']:.0f} device ops per step")
+        for op, ms, n in t["top"]:
+            _say(f"[profile]   {ms:8.3f} ms  x{n:<5d} {op[:90]}")
+    return out
+
+
+def _say_generate(tag, r):
+    tp = sorted(r["tpot_s"])
+    _say(f"[{tag}] TTFT (prefill of the batch) {r['ttft_s']:.4f} s; TPOT "
+         f"median {tp[len(tp) // 2] * 1e3:.2f} ms (min {tp[0] * 1e3:.2f}, "
+         f"max {tp[-1] * 1e3:.2f}); cache {r['cache_bytes'] / 1e9:.3f} GB; "
+         f"launches {r['launches']}")
+
+
+def _check_generate(tag, cfg, r, steps, device):
+    """No logits went non-finite; on the card every flash launch is
+    accounted for (one per layer in prefill; per decode step one
+    decode_attention per self-attention layer, plus one flash call per
+    cross-attention layer for encdec) and the norms ran the RMSNorm
+    kernel where the model has them."""
+    import torch
+    if r["nonfinite_steps"]:
+        raise AssertionError(f"[{tag}] non-finite logits at "
+                             f"{r['nonfinite_steps']} steps")
+    if torch.device(device).type != "cuda":
+        return
+    L, n = cfg.n_layers, r["launches"]
+    want_dec = L * steps
+    want_flash = (L + want_dec if cfg.family != "encdec"
+                  else cfg.n_encoder_layers + 2 * L + 2 * want_dec)
+    if n["decode_attention"] != want_dec or n["flash_attention"] \
+            != want_flash:
+        raise AssertionError(f"[{tag}] launches {n}: expected "
+                             f"decode_attention {want_dec}, flash_attention "
+                             f"{want_flash}")
+    if cfg.norm == "rmsnorm" and not n["rmsnorm"]:
+        raise AssertionError(f"[{tag}] RMSNorm never launched")
+
+
+def _decode_vs_teacher_forcing(tag, cfg, device, B, S, N, seed=0):
+    """prefill(S) + N decodes against prefill(S + N): the last logits at
+    rel < 5e-3 (tests/test_models.py's test_decode_matches_teacher_
+    forcing), random weights and tokens from `seed`."""
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+    m = build_model(cfg, device=device, seed=seed)
+    toks = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (B, S + N))).to(device)
+    extra = {}
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        extra["enc_embeds"] = 0.02 * torch.randn(
+            (B, cfg.encoder_len, cfg.d_model), generator=gen, device=device)
+    ref, _ = m.prefill({"tokens": toks, **extra}, m.init_cache(B, S + N))
+    lg, cache = m.prefill({"tokens": toks[:, :S], **extra},
+                          m.init_cache(B, S + N))
+    for i in range(S, S + N):
+        lg, cache = m.decode(toks[:, i], cache)
+    V = cfg.vocab_size        # pad-vocab columns are -1e30 on both sides
+    lg, ref = lg[..., :V], ref[..., :V]
+    rel = float((lg - ref).abs().max() / (ref.abs().max() + 1e-9))
+    _say(f"[{tag}] decode vs teacher forcing ({cfg.arch_id} d={cfg.d_model} "
+         f"L={cfg.n_layers} {cfg.dtype}, B={B} prefill {S} + {N} decodes "
+         f"against prefill {S + N}): rel {rel:.3g} (limit 5e-3)")
+    if not rel < 5e-3:
+        raise AssertionError(f"[{tag}] decode disagrees with teacher "
+                             f"forcing: rel {rel}")
+    return rel
+
+
+def run_generate(cfg, params, prompts, steps, device="cuda",
+                 ref_tokens=None, profile=False):
+    """The generate path: `prompts` batched with prompt_len into a cache
+    of the longest + `steps` slots, `steps` greedy decodes with a bf16
+    cache (launch counts zeroed just before, read just after), then the
+    same with kv_quant (int8 codes, bf16 scales) fed the bf16 run's
+    tokens: its logits must stay within rel 5e-2 of the bf16 run's at
+    every step (tests/test_models.py's test_int8_kv_cache_decode).
+    With `ref_tokens` ({rid: stream}, the serve phase's engine) prints
+    how many first tokens and stream tokens agree (not gated). With
+    `profile`, each cache's prefill and decode steps are traced
+    (`_profile_generate`)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import DecoderModel
+    B, lens = len(prompts), [len(p) for p in prompts]
+    S = max(lens)
+    toks = torch.zeros((B, S), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p)
+    batch = {"tokens": toks.to(device),
+             "prompt_len": torch.tensor(lens, dtype=torch.int32,
+                                        device=device)}
+    out = {}
+    for quant in (False, True):
+        tag = "generate int8" if quant else "generate"
+        model = DecoderModel(dataclasses.replace(cfg, kv_quant=quant),
+                             params, device=device, seed=0)
+        params = model.params
+        forced = (None if not quant else torch.tensor(
+            out["bf16"]["tokens"], device=device)[:, :steps])
+        _zero_launches()
+        r = _generate(model, batch, B, S + steps, steps, forced)
+        r["launches"] = _launches()
+        _say_generate(tag, r)
+        _check_generate(tag, cfg, r, steps, device)
+        if profile:
+            r["profile"] = _profile_generate(tag, model, batch, B,
+                                             S + steps)
+        out["int8" if quant else "bf16"] = r
+        del model
+    rels = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(out["int8"]["logits"], out["bf16"]["logits"])]
+    same = sum(a == b for ra, rb in zip(out["int8"]["tokens"],
+                                        out["bf16"]["tokens"])
+               for a, b in zip(ra, rb))
+    n = B * (steps + 1)
+    _say(f"[generate int8] logits against the bf16 cache's, rel per step: "
+         f"max {max(rels):.3g} (limit 5e-2), last {rels[-1]:.3g}; argmax "
+         f"equal to the bf16 stream at {same}/{n}")
+    if not max(rels) < 5e-2:
+        raise AssertionError(f"int8 cache disagrees with bf16: rel "
+                             f"{max(rels)}")
+    res = {"launches": out["bf16"]["launches"],
+           "launches_int8": out["int8"]["launches"],
+           "ttft_s": out["bf16"]["ttft_s"], "tpot_s": out["bf16"]["tpot_s"],
+           "ttft_s_int8": out["int8"]["ttft_s"],
+           "tpot_s_int8": out["int8"]["tpot_s"],
+           "cache_bytes": out["bf16"]["cache_bytes"],
+           "cache_bytes_int8": out["int8"]["cache_bytes"],
+           "int8_rel": rels, "int8_argmax_agree": same / n,
+           "tokens": out["bf16"]["tokens"]}
+    if profile:
+        res["profile"] = {k: out[k]["profile"] for k in ("bf16", "int8")}
+    if ref_tokens is not None:
+        streams = [ref_tokens[f"r{i}"] for i in range(B)]
+        first = sum(s[0] == t[0] for s, t in zip(streams, res["tokens"]))
+        agree = sum(a == b for s, t in zip(streams, res["tokens"])
+                    for a, b in zip(s, t))
+        total = sum(min(len(s), steps + 1) for s in streams)
+        _say(f"[generate] against the serve phase's engine streams: first "
+             f"tokens {first}/{B}, stream tokens {agree}/{total} (not "
+             f"gated: another batch, bf16)")
+        res.update(first_agree=first, stream_agree=agree / total)
+    return res
+
+
+def phase_generate(params, prompts, serve_tokens, profile=False):
+    """llama2-7b through `DecoderModel.prefill` / `.decode` on the serve
+    phase's weights and prompts (GENERATE), bf16 and int8 caches; then
+    decode against teacher forcing at full width, 2 layers, f32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(GENERATE["arch"])
+    g = GENERATE
+    lens = sorted(len(p) for p in prompts)
+    _say(f"[generate] {cfg.arch_id} L={cfg.n_layers} d={cfg.d_model} "
+         f"H={cfg.n_heads} KV={cfg.n_kv_heads} {cfg.dtype}: {len(prompts)} "
+         f"prompts {lens} batched with prompt_len, {g['steps']} decode "
+         f"steps, dense cache of {max(lens) + g['steps']} slots")
+    res = run_generate(cfg, params, prompts, g["steps"], "cuda",
+                       ref_tokens=serve_tokens, profile=profile)
+    tf = dataclasses.replace(cfg, n_layers=g["tf_layers"], dtype="float32")
+    res["teacher_forcing_rel"] = _decode_vs_teacher_forcing(
+        "generate", tf, "cuda", g["tf_batch"], g["tf_prompt"], g["tf_steps"])
+    return res
+
+
+def run_generate_vlm(cfg, lens, steps, device="cuda", seed=0,
+                     profile=False):
+    """qwen2-vl: prompts of `lens` positions from stub embeds (N(0, 1) x
+    0.02 from a seeded generator) with the text-stream mrope positions,
+    batched with prompt_len, then `steps` greedy text decodes; launch
+    counts zeroed just before, read just after."""
+    import torch
+    from repro_torch.models import DecoderModel
+    from repro_torch import torch_dtype
+    model = DecoderModel(cfg, device=device, seed=seed)
+    n = sum(t.numel() for t in model.flat.values())
+    B, S = len(lens), max(lens)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    batch = {"embeds": 0.02 * torch.randn((B, S, cfg.d_model), generator=gen,
+                                          device=device).to(
+                                              torch_dtype(cfg.dtype)),
+             "mrope_pos": torch.arange(S, device=device)[None, None].expand(
+                 3, B, S),
+             "prompt_len": torch.tensor(lens, dtype=torch.int32,
+                                        device=device)}
+    _zero_launches()
+    r = _generate(model, batch, B, S + steps, steps)
+    r["launches"] = _launches()
+    _say_generate("generate-vlm", r)
+    _check_generate("generate-vlm", cfg, r, steps, device)
+    if profile:
+        r["profile"] = _profile_generate("generate-vlm", model, batch, B,
+                                         S + steps)
+    r.pop("logits")
+    r["n_params"] = n
+    return r
+
+
+def phase_generate_vlm(profile=False):
+    """qwen2-vl-7b at full width and depth, bf16, random weights made on
+    the card (GENERATE_VLM)."""
+    from repro_torch.configs import get_config
+    g = GENERATE_VLM
+    cfg = get_config(g["arch"])
+    lens = [len(p) for p in _prompts(cfg.vocab_size, n=g["n"],
+                                     seed=g["seed"])]
+    _say(f"[generate-vlm] {cfg.arch_id} L={cfg.n_layers} d={cfg.d_model} "
+         f"H={cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.resolved_head_dim} "
+         f"{cfg.dtype}: {len(lens)} prompts of {sorted(lens)} positions "
+         f"from stub embeds, {g['steps']} decode steps")
+    r = run_generate_vlm(cfg, lens, g["steps"], "cuda", profile=profile)
+    _say(f"[generate-vlm] {r['n_params'] / 1e9:.3f} B parameters")
+    return r
+
+
+def run_train(tag, cfg, B, S, steps, kernels, device="cuda"):
+    """`train_loop.train` for `steps` AdamW steps on SyntheticLM batches
+    of B x S (the family's stub frontend included), launch counts zeroed
+    just before and read just after. Asserts finite losses and grad
+    norms, a step-0 loss within 1 of ln(vocab), and on the card each of
+    `kernels` launched. For MoE, `lb_loss` finite, 0 <= dropped_frac <
+    1, and the step-0 ce (the loss less 0.01 * lb_loss) near ln(vocab)."""
+    import math
+    import torch
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import train
+    on_cuda = torch.device(device).type == "cuda"
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    res = train(cfg, steps=steps, dc=DataConfig(batch_size=B, seq_len=S),
+                seed=0, device=device, log_every=1)
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated() if on_cuda else 0
+    tail = res.step_s[1:] or res.step_s
+    steady = sorted(tail)[len(tail) // 2]
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    moe = (f"; lb_loss {res.lb_losses}; dropped_frac {res.dropped_fracs}"
+           if res.lb_losses else "")
+    _say(f"[{tag}] launches {launches}; per step {per_step}")
+    _say(f"[{tag}] step wall s {[round(t, 4) for t in res.step_s]}; "
+         f"steady (median of steps 1..) {steady:.4f} s = "
+         f"{B * S / steady:.0f} tokens/s; peak device memory "
+         f"{peak / 2**30:.2f} GiB{moe}")
+    vals = res.losses + res.grad_norms + res.lb_losses
+    if not all(math.isfinite(x) for x in vals):
+        raise AssertionError(f"[{tag}] non-finite loss, grad norm or "
+                             f"lb_loss: {vals}")
+    # an MoE step's loss is ce + 0.01 * lb_loss
+    ce0 = res.losses[0] - 0.01 * (res.lb_losses or [0.0])[0]
+    ln_v = math.log(cfg.vocab_size)
+    if abs(ce0 - ln_v) > 1.0:
+        raise AssertionError(f"[{tag}] step-0 ce {ce0} is not near "
+                             f"ln(vocab) = {ln_v:.3f}")
+    if not all(0.0 <= f < 1.0 for f in res.dropped_fracs):
+        raise AssertionError(f"[{tag}] dropped_frac out of [0, 1): "
+                             f"{res.dropped_fracs}")
+    missing = [k for k in kernels if not launches[k]]
+    if on_cuda and missing:
+        raise AssertionError(f"[{tag}] kernels never launched: {missing}")
+    out = {"losses": res.losses, "grad_norms": res.grad_norms,
+           "step_s": res.step_s, "steady_step_s": steady,
+           "tokens_per_s": B * S / steady, "peak_bytes": peak,
+           "launches": launches, "launches_per_step": per_step}
+    if res.lb_losses:
+        out.update(lb_losses=res.lb_losses, dropped_fracs=res.dropped_fracs)
+    return out
+
+
+def path_sizes():
+    """Sizes of the Model-API paths at their full configs, from shapes
+    alone (no tensor): the generate caches, qwen2-vl-7b's weights, and
+    train-vlm's parameters with 12 bytes each (bf16 weights and
+    gradients, f32 AdamW moments), before activations and the optimizer's
+    f32 temporaries."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    llama = get_config(GENERATE["arch"])
+    B = PATHS["serve"]["n"]
+    slots = 1024 + GENERATE["steps"]
+    kv = llama.n_layers * B * slots * llama.n_kv_heads \
+        * llama.resolved_head_dim * 2
+    vlm = get_config(GENERATE_VLM["arch"])
+    tv = dataclasses.replace(vlm, n_layers=TRAIN_VLM["layers"])
+    return {"generate_cache_bytes": kv * 2,
+            "generate_int8_cache_bytes": kv + kv // llama.resolved_head_dim
+            * 2,
+            "generate_vlm_weight_bytes": vlm.param_count() * 2,
+            "train_vlm_params": tv.param_count(),
+            "train_vlm_reckon_bytes": 12 * tv.param_count()}
+
+
+def phase_train_vlm(profile=False):
+    """qwen2-vl-7b at full width (d 3584, 28 heads over 4 KV heads of
+    128, d_ff 18944, vocab 152064) with its depth cut to
+    TRAIN_VLM["layers"] of 28, bf16, trained for TRAIN_VLM["steps"]
+    AdamW steps on SyntheticLM batches with the vlm stub (embeds and
+    mrope positions), every block checkpointed: RMSNorm and flash (G = 7)
+    forward and backward."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    t = TRAIN_VLM
+    full = get_config(t["arch"])
+    cfg = dataclasses.replace(full, n_layers=t["layers"])
+    sz = path_sizes()
+    _say(f"[train-vlm] {cfg.arch_id} L={cfg.n_layers} (cut from "
+         f"{full.n_layers}) d={cfg.d_model} H={cfg.n_heads} "
+         f"KV={cfg.n_kv_heads} D={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+         f"vocab {cfg.vocab_size}, {cfg.dtype}, "
+         f"{sz['train_vlm_params'] / 1e9:.3f} B parameters "
+         f"({sz['train_vlm_reckon_bytes'] / 2**30:.1f} GiB of weights, "
+         f"gradients and moments); {t['steps']} AdamW steps of "
+         f"{t['batch']} x {t['seq']} stub-embed positions, remat on")
+    _say(f"[train-vlm] device memory in use before: "
+         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    res = run_train("train-vlm", cfg, t["batch"], t["seq"], t["steps"],
+                    TRAIN_KERNELS)
+    res.update(n_params=sz["train_vlm_params"], n_layers=cfg.n_layers)
+    if profile:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["profile"] = _profile_train(cfg, t["batch"], t["seq"])
+    return res
+
+
+def run_encdec(cfg, B, prompt, steps, train_seq, train_steps,
+               device="cuda", seed=0, profile=False):
+    """whisper: B stub encoder inputs (N(0, 1) x 0.02, encoder_len frames)
+    and a `prompt`-token prompt through `EncDecModel.prefill`, then
+    `steps` greedy decodes over the cached cross K/V (launch counts
+    zeroed just before, read just after); decode against teacher forcing
+    in f32; then `train_steps` AdamW steps at B x train_seq."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import EncDecModel
+    from repro_torch import torch_dtype
+    model = EncDecModel(cfg, device=device, seed=seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    batch = {"enc_embeds": 0.02 * torch.randn(
+        (B, cfg.encoder_len, cfg.d_model), generator=gen,
+        device=device).to(torch_dtype(cfg.dtype)),
+        "tokens": torch.from_numpy(np.random.RandomState(seed).randint(
+            0, cfg.vocab_size, (B, prompt))).to(device)}
+    _zero_launches()
+    r = _generate(model, batch, B, prompt + steps, steps)
+    r["launches"] = _launches()
+    _say_generate("encdec", r)
+    _check_generate("encdec", cfg, r, steps, device)
+    if profile:
+        r["profile"] = _profile_generate("encdec", model, batch, B,
+                                         prompt + steps)
+    r.pop("logits")
+    del model
+    r["teacher_forcing_rel"] = _decode_vs_teacher_forcing(
+        "encdec", dataclasses.replace(cfg, dtype="float32"), device, 2,
+        2 * prompt, prompt)
+    r["train"] = run_train("encdec train", cfg, B, train_seq, train_steps,
+                           ("flash_attention", "flash_attention_bwd"),
+                           device)
+    if profile:
+        r["train"]["profile"] = _profile_train(cfg, B, train_seq)
+    return r
+
+
+def phase_encdec(profile=False):
+    """whisper-base at full width and depth (ENCDEC), bf16, random
+    weights made on the card: generate, teacher forcing, train."""
+    from repro_torch.configs import get_config
+    e = ENCDEC
+    cfg = get_config(e["arch"])
+    _say(f"[encdec] {cfg.arch_id} encoder {cfg.n_encoder_layers} + decoder "
+         f"{cfg.n_layers} layers, d={cfg.d_model} H={cfg.n_heads} "
+         f"KV={cfg.n_kv_heads} D={cfg.resolved_head_dim} {cfg.dtype}, "
+         f"encoder_len {cfg.encoder_len}: {e['batch']} stub inputs, a "
+         f"{e['prompt']}-token prompt, {e['steps']} decode steps; "
+         f"{e['train_steps']} AdamW steps of {e['batch']} x "
+         f"{e['train_seq']} tokens")
+    r = run_encdec(cfg, e["batch"], e["prompt"], e["steps"], e["train_seq"],
+                   e["train_steps"], "cuda", profile=profile)
+    # the main path's counts are the generate run's; training's ride along
+    r["launches_train"] = r["train"]["launches"]
+    return r
+
+
 # ------------------------------------------------------------------- main --
 
 _NO_PALLAS_BWD = ("the JAX package has no Pallas backward: its training "
@@ -2249,6 +2876,15 @@ _NO_PALLAS_BWD = ("the JAX package has no Pallas backward: its training "
 REPLACES = {
     "flash_attention": ("src/repro_torch/csrc/flash_prefill.cu",
                         "src/repro/kernels/flash_prefill.py:83", None, None),
+    "decode_attention": (
+        "src/repro_torch/csrc/flash_prefill.cu",
+        "src/repro/kernels/ops.py:43", None,
+        "not a kernel of its own: this row reports flash_attention's "
+        "kernel (the same source) at one query row, non-causal, with the "
+        "runtime kv_len (Model.decode's dense cache); the reference's "
+        "ops.decode_attention has no Pallas kernel, only "
+        "ref.decode_attention_reference. Its launches also count in "
+        "flash_attention's"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:73",
                         "src/repro/kernels/paged_attention.py:110",
@@ -2294,7 +2930,8 @@ REPLACES = {
                             "ref.py flash_attention_reference"),
 }
 # the main path whose launch count each kernel's row reports
-MAIN_PATH = {"flash_attention": "serve", "paged_attention": "serve",
+MAIN_PATH = {"flash_attention": "serve", "decode_attention": "generate",
+             "paged_attention": "serve",
              "paged_prefill": "fused", "paged_prefill_tiered": "fused",
              "stage_host_blocks": "fused", "paged_prefill_mma": "fused",
              "paged_prefill_fma": "fused-smoke",
@@ -2336,6 +2973,11 @@ def main(argv=None) -> int:
     paths = phase_smoke()
     paths["serve"] = phase_serve(profile=args.profile)
     params = paths["serve"].pop("params")
+    gc.collect()                     # the serve engines' pools go first
+    torch.cuda.empty_cache()
+    paths["generate"] = phase_generate(
+        params, _path_prompts("serve", path_config("serve")),
+        paths["serve"]["tokens"], profile=args.profile)
     paths["fused"] = phase_fused(params, paths["serve"]["tokens"],
                                  profile=args.profile)
     paths["fused"].pop("params")
@@ -2352,6 +2994,15 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["train-moe"] = phase_train_moe(profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["generate-vlm"] = phase_generate_vlm(profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train-vlm"] = phase_train_vlm(profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["encdec"] = phase_encdec(profile=args.profile)
     torch.cuda.empty_cache()
 
     rows = []

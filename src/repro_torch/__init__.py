@@ -16,6 +16,14 @@ from __future__ import annotations
 
 import torch
 
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype a config's dtype name (``"float32"`` or
+    ``"bfloat16"``) stands for."""
+    return _TORCH_DTYPES[name]
+
 
 def resolve_device(device="cuda") -> torch.device:
     """`device` as a `torch.device`; raises when it names CUDA and no

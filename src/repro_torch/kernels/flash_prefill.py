@@ -22,13 +22,16 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_reference
+from repro_torch.kernels.ref import (decode_attention_reference,
+                                     flash_attention_reference)
 
 # kernel launches since the last reset (CPU calls do not count): the
 # forward, and the backward (one per call: its dq kernel and the dk/dv
-# kernel that follows it)
+# kernel that follows it); `launches_decode` counts the forwards that
+# `decode_attention` made (they count in `launches` too)
 launches = 0
 launches_bwd = 0
+launches_decode = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -37,6 +40,7 @@ _HEAD_DIMS = (32, 64, 128)
 # the kernel's plain PyTorch version, run for CPU tensors and held
 # against the kernel on the card
 flash_attention_plain = flash_attention_reference
+decode_attention_plain = decode_attention_reference
 
 
 def _fn():
@@ -111,6 +115,31 @@ def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
                             int(q_offset), float(scale))
     return _launch_fwd(q, k, v, causal, window, kv_len, q_offset, scale,
                        keep_lse=False)[0]
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, softmax_scale=None):
+    """One query row per sequence over a dense cache: q (B, 1, H, D),
+    k_cache / v_cache (B, S, KV, D), kv_len (B,) valid entries. CPU
+    tensors run the plain version (`ref.decode_attention_reference`);
+    CUDA tensors launch the forward kernel, non-causal with the runtime
+    kv_len, which computes exactly that function (the reference has no
+    Pallas kernel for it). One query row fills one row of the kernel's
+    128-row tile; the epilogue stores only that row."""
+    global launches_decode
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, kv_len,
+                                      softmax_scale=softmax_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    if q.shape[1] != 1:
+        raise ValueError(f"decode_attention: q must be (B, 1, H, D), got "
+                         f"{tuple(q.shape)}")
+    scale = softmax_scale if softmax_scale is not None \
+        else q.shape[-1] ** -0.5
+    out = _launch_fwd(q, k_cache, v_cache, False, 0, kv_len, 0, scale,
+                      keep_lse=False)[0]
+    launches_decode += 1
+    return out
 
 
 def _check_qkv(q, k, v):

@@ -5,8 +5,9 @@
 The backend follows the tensors: CPU tensors run the plain PyTorch
 versions (`ref.py`), CUDA tensors launch the hand-written kernels or
 raise. There is no fallback from one to the other. Dense-cache
-`decode_attention` waits for the dense `Model.decode` port (its plain
-version is `ref.decode_attention_reference`).
+`decode_attention` has no Pallas kernel in the reference; on CUDA it
+runs the flash forward kernel (one query row, non-causal, runtime
+kv_len), on the CPU `ref.decode_attention_reference`.
 """
 from __future__ import annotations
 
@@ -23,6 +24,17 @@ def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
         q, k, v, causal=causal, window=window, kv_len=kv_len,
         q_offset=q_offset, softmax_scale=softmax_scale, q_chunk=q_chunk,
         kv_chunk=kv_chunk)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, window=0,
+                     softmax_scale=None):
+    """Single-token GQA attention over a dense cache: q (B, 1, H, D),
+    caches (B, S, KV, D), kv_len (B,). With a ring buffer every cached
+    slot is within the window already, so `window` changes nothing (as
+    in the reference)."""
+    del window
+    return _fp.decode_attention(q, k_cache, v_cache, kv_len,
+                                softmax_scale=softmax_scale)
 
 
 def paged_attention(q, kv_pool, block_table, kv_len, *, softmax_scale=None):

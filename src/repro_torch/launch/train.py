@@ -4,9 +4,11 @@ plus `--device`).
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --smoke --steps 200 --batch 8 --seq 128 --device cpu
 
---smoke uses the reduced config. Dense and MoE archs train (MoE through
-the capacity-factor dispatch, with the load-balance loss; the log line
-then carries `lb_loss` and `dropped_frac`). `--device` (default cuda)
+--smoke uses the reduced config. Dense, MoE, vlm (qwen2-vl-7b) and
+encdec (whisper-base) archs train (MoE through the capacity-factor
+dispatch, with the load-balance loss; the log line then carries
+`lb_loss` and `dropped_frac`; vlm and encdec on the data stream's stub
+frontends). `--device` (default cuda)
 selects where it runs; without a CUDA device it raises unless given
 `--device cpu`.
 """

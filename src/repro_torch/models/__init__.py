@@ -1,3 +1,3 @@
-from repro_torch.models.model import DecoderModel
+from repro_torch.models.model import DecoderModel, EncDecModel, build_model
 
-__all__ = ["DecoderModel"]
+__all__ = ["DecoderModel", "EncDecModel", "build_model"]

@@ -1,5 +1,5 @@
 """Shared neural-net building blocks — the port of `repro.models.layers`
-(dense decoder subset).
+(the attention families: decoder, vlm and encoder-decoder).
 
 Conventions (as in the reference):
   * params are nested dicts of tensors; layer-stacked params carry a
@@ -12,6 +12,8 @@ Conventions (as in the reference):
     hand weights over with `repro_torch.weights`).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -118,6 +120,17 @@ def apply_rope(cfg: ModelConfig, x, positions):
     raise ValueError(cfg.pos_emb)
 
 
+def sinusoid_pos_emb(positions, dim):
+    """positions: (B, S) -> (B, S, dim) float32 sinusoidal embedding."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device)
+                      / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # attention block
 # ---------------------------------------------------------------------------
@@ -171,9 +184,36 @@ def self_attention(cfg: ModelConfig, p, x, positions, *, causal=True,
     return attn_out(cfg, p, o), (k, v)
 
 
+def cross_attention(cfg: ModelConfig, p, x, k, v, enc_len=None):
+    """Decoder queries x (B, S, d) over encoder keys / values k, v
+    (B, T, KV, hd) (`cross_kv`), non-causal; enc_len (B,) masks keys past
+    it."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.n_q_heads, cfg.resolved_head_dim)
+    o = ops.flash_attention(q, k, v, causal=False, kv_len=enc_len)
+    return attn_out(cfg, p, o)
+
+
+def cross_kv(cfg: ModelConfig, p, enc_out):
+    """Encoder output (B, T, d) -> the cross-attention's k, v
+    (B, T, KV, hd)."""
+    B, T, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = enc_out @ p["wk"]
+    v = enc_out @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.reshape(B, T, cfg.n_kv_heads, hd),
+            v.reshape(B, T, cfg.n_kv_heads, hd))
+
+
 def decode_self_attention(cfg: ModelConfig, p, x, positions):
     """One-token decode projections: x (B, 1, d) -> roped q, k and v; the
-    caller owns cache insertion and the attention call."""
+    caller owns cache insertion (dense, ring-buffer or paged) and the
+    attention call."""
     q, k, v = qkv_proj(cfg, p, x)
     q = apply_rope(cfg, q, positions)
     k = apply_rope(cfg, k, positions)

@@ -18,7 +18,8 @@ Orthogonally, `ServeConfig.chunked` selects the engine-step semantics
 calls into ONE `PagedExecutor.mixed_step`, whose prefill chunks attend
 straight over the paged pools (the host pool too, for layers offloaded
 mid-prefill). Families: dense and MoE; the constructor raises for the
-others.
+others (as the reference's executor asserts), and for an int8 KV cache
+(`kv_quant`, `executor.check_servable`).
 
 Everything decision-shaped — admission (policy-ordered, Alg.1 budgeted),
 the device-need gate, the Eq.4 layer-split allocation, chunk assembly,
@@ -47,7 +48,7 @@ from repro_torch.core import DEVICE, HOST, LayerwiseBlockManager, \
 from repro_torch.core.predictor import HistogramPredictor, LengthPredictor
 from repro_torch.serving.costmodel import H100, CostModel, HWProfile
 from repro_torch.serving.executor import MixedChunk, MixedDecode, \
-    PagedExecutor
+    PagedExecutor, check_servable
 from repro_torch.serving.request import Phase, Request
 from repro_torch.serving.scheduler import CoreDelegateMixin, \
     SchedulerCore, ServeConfig
@@ -72,9 +73,7 @@ class LayerKVEngine(CoreDelegateMixin):
                  device="cuda", seed: int = 0):
         self.cfg = cfg
         self.ec = (ec or ServeConfig.for_engine()).validate()
-        if cfg.family not in ("dense", "moe"):
-            raise ValueError(f"family {cfg.family!r} is not yet ported "
-                             "(dense and moe only)")
+        check_servable(cfg)
         ndb = self.ec.num_device_blocks or 128  # 0 = backend default
         self.ex = PagedExecutor(cfg, params, ndb,
                                 self.ec.num_host_blocks, self.ec.block_size,

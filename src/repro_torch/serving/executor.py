@@ -59,13 +59,13 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_prefill as pp
 from repro_torch.models import layers
 from repro_torch.models.model import (DecoderModel, ffn, layer_params,
-                                      mask_pad_logits, torch_dtype)
+                                      mask_pad_logits)
 from repro_torch.obs.registry import MetricsRegistry
 
 log = logging.getLogger(__name__)
@@ -193,6 +193,22 @@ class _HostStaging:
             self.read_ev[kk % 2].record(self.main)
 
 
+def check_servable(cfg: ModelConfig):
+    """Raise unless the engine can serve `cfg`: dense and MoE only (the
+    reference's executor asserts the same), and never an int8 KV cache.
+    The reference's executor takes the int8 codes out of a `kv_quant`
+    prefill cache and casts them to the pool's dtype without their
+    scales, so a JAX engine with `kv_quant` serves from raw codes
+    (ROADMAP C9); the port refuses it instead."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"family {cfg.family!r} is not served: the paged "
+                         "engine takes dense and moe only")
+    if cfg.kv_quant:
+        raise ValueError("kv_quant is not served: the paged pools hold no "
+                         "int8 scales (the reference's executor drops "
+                         "them, ROADMAP C9)")
+
+
 class PagedExecutor:
     """Owns the physical KV pools (device + host buffers, paged in
     `block_size`-token blocks) and runs model forwards against them:
@@ -204,6 +220,7 @@ class PagedExecutor:
     def __init__(self, cfg: ModelConfig, params, num_device_blocks: int,
                  num_host_blocks: int, block_size: int, *, device="cuda",
                  seed: int = 0):
+        check_servable(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = DecoderModel(cfg, params, device=self.device, seed=seed)

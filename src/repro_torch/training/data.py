@@ -5,8 +5,13 @@ Deterministic, seedable token streams with enough structure that a model's
 loss measurably drops within a few hundred steps (a noisy order-k Markov
 process over the vocab). The numpy stream is the reference's, draw for
 draw, so one seed gives both packages the same tokens; batches arrive as
-int64 tensors on the stream's device. The vlm / encdec frontend stubs
-(precomputed patch / frame embeddings) wait for those families' port.
+int64 tensors on the stream's device.
+
+The vlm and encdec frontend stubs (precomputed patch / frame embeddings)
+make the reference's one numpy draw per stub, so the token stream after
+them stays the reference's, and seed a `torch.Generator` on the stream's
+device from it: their values differ from the reference's `jax.random`
+ones (the parity tests hand the reference's arrays over instead).
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
 
 
@@ -34,9 +39,6 @@ class SyntheticLM:
     probability 1-noise, else uniform. Learnable by any competent LM."""
 
     def __init__(self, cfg: ModelConfig, dc: DataConfig, device="cuda"):
-        if cfg.family in ("vlm", "encdec"):
-            raise NotImplementedError(
-                f"{cfg.family} frontend stubs are not yet ported")
         self.cfg = cfg
         self.dc = dc
         self.device = resolve_device(device)
@@ -65,4 +67,27 @@ class SyntheticLM:
                 nxt[flip] = self.rng.randint(0, V, size=flip.sum())
                 toks[:, t] = nxt
             dev = torch.from_numpy(toks.astype(np.int64)).to(self.device)
-            yield {"tokens": dev[:, :-1], "labels": dev[:, 1:]}
+            batch = {"tokens": dev[:, :-1], "labels": dev[:, 1:]}
+            yield self._add_frontend_stubs(batch, B, S)
+
+    def _stub_normal(self, shape):
+        """N(0, 1) f32 from a generator seeded by one draw of the stream's
+        rng, in the model dtype, times 0.02."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(self.rng.randint(1 << 30)))
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=self.device)
+        return x.to(torch_dtype(self.cfg.dtype)) * 0.02
+
+    def _add_frontend_stubs(self, batch, B, S):
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            # stub ViT/projector output: embeddings for the token stream
+            # (in training, vision patches + text share the stream)
+            batch["embeds"] = self._stub_normal((B, S, cfg.d_model))
+            batch["mrope_pos"] = torch.arange(S, device=self.device)[
+                None, None].expand(3, B, S)
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = self._stub_normal(
+                (B, cfg.encoder_len, cfg.d_model))
+        return batch

@@ -2,10 +2,11 @@
 (loss, gradients by autograd, AdamW in place) and the driver, with the
 reference's defaults, log lines and checkpoint cadence.
 
-Dense and MoE models train; an MoE model's step runs the capacity-factor
-dispatch and adds the reference's `0.01 * lb_loss` (`DecoderModel.loss`),
-and its `lb_loss` and `dropped_frac` come out in the result and the log
-line. On CUDA every norm and every attention call runs the port's
+Every ported family trains (`build_model`: dense, MoE, vlm on its stub
+embeddings and mrope positions, encdec on its stub frames); an MoE
+model's step runs the capacity-factor dispatch and adds the reference's
+`0.01 * lb_loss` (`Model.loss`), and its `lb_loss` and `dropped_frac`
+come out in the result and the log line. On CUDA every norm and every attention call runs the port's
 kernels, forward and backward (`kernels/rmsnorm.py`,
 `kernels/flash_prefill.py`); on the CPU their plain versions,
 differentiated by autograd.
@@ -16,8 +17,10 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import DecoderModel
+from repro_torch.models import build_model
 from repro_torch.models.model import flatten_params
 from repro_torch.training.checkpoint import save as ckpt_save
 from repro_torch.training.data import DataConfig, SyntheticLM
@@ -26,7 +29,7 @@ from repro_torch.training.optimizer import (
 )
 
 
-def make_train_step(model: DecoderModel, opt: AdamWConfig) -> Callable:
+def make_train_step(model, opt: AdamWConfig) -> Callable:
     """`train_step(opt_state, batch) -> (opt_state, metrics)`: one step
     on `model`'s trainable params, updated in place."""
     flat = flatten_params(model.params)
@@ -34,7 +37,10 @@ def make_train_step(model: DecoderModel, opt: AdamWConfig) -> Callable:
     def train_step(opt_state: OptState, batch):
         loss, metrics = model.loss(batch)
         loss.backward()
-        grads = {k: p.grad for k, p in flat.items()}
+        # a leaf the loss does not reach (the vlm's token embedding,
+        # when the stub embeds replace it) has a zero gradient, as in JAX
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in flat.items()}
         _, opt_state, opt_metrics = adamw_update(opt, grads, opt_state,
                                                  flat)
         for p in flat.values():
@@ -63,14 +69,14 @@ def train(cfg: ModelConfig, steps: int = 200, dc: Optional[DataConfig] = None,
           ckpt_path: Optional[str] = None, ckpt_every: int = 0,
           log_every: int = 20, verbose: bool = True, *, device="cuda",
           params=None) -> TrainResult:
-    """Train `cfg` (dense or MoE) from `params` (the port's nested dict on
+    """Train `cfg` (any ported family) from `params` (the port's nested dict on
     `device`, e.g. `weights.from_jax_params`), or from random weights
     drawn from `seed`, on the synthetic stream. Each step's wall time
     (`step_s`) ends in the host's read of its loss."""
     dc = dc or DataConfig()
     opt = opt or AdamWConfig(lr=1e-3, total_steps=steps,
                              warmup_steps=max(steps // 10, 5))
-    model = DecoderModel(cfg, params, device=device, seed=seed)
+    model = build_model(cfg, params, device=device, seed=seed)
     model.requires_grad_(True)
     opt_state = init_opt_state(model.params)
     step_fn = make_train_step(model, opt)

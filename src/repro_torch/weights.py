@@ -25,9 +25,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import torch_dtype, unflatten_params
+from repro_torch.models.model import unflatten_params
 
 
 def from_jax_params(flat: Dict[str, np.ndarray], cfg: ModelConfig,

@@ -128,3 +128,76 @@ def test_partial_eviction_counts_its_host_layers(monkeypatch):
     assert sum(rep["partial_evictions"] for rep in res["replicas"]) \
         == len(partial)
     assert len(res["tokens"]) == chip_smoke.PATHS["fused"]["n"]
+
+
+# ------------------------------------------------------ Model API paths --
+#
+# The generate, generate-vlm, encdec and train-vlm phases' own drivers
+# and assertions, at the smoke configs in f32 on the CPU (the kernels'
+# plain versions; the launch counts are asserted only on the card), and
+# their full-config sizes from shapes alone.
+
+def _smoke(arch):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32")
+
+
+def test_chip_smoke_generate_dry_run():
+    """Ragged prompts batched with prompt_len, greedy decodes with a
+    dense cache, then an int8 cache fed the same tokens (within rel 5e-2
+    of the dense one, as the card asserts), and decode against teacher
+    forcing."""
+    cfg = _smoke(chip_smoke.GENERATE["arch"])
+    prompts = chip_smoke._prompts(cfg.vocab_size, n=3, lo=20, hi=40)
+    res = chip_smoke.run_generate(cfg, None, prompts, 4, "cpu",
+                                  ref_tokens={f"r{i}": [0] * 5
+                                              for i in range(3)})
+    assert len(res["tokens"]) == 3 and len(res["tokens"][0]) == 5
+    assert len(res["tpot_s"]) == len(res["int8_rel"]) - 1 == 4
+    assert max(res["int8_rel"]) < 5e-2
+    assert res["cache_bytes_int8"] < res["cache_bytes"]
+    assert chip_smoke._decode_vs_teacher_forcing("t", cfg, "cpu", 2, 20,
+                                                 4) < 5e-3
+
+
+def test_chip_smoke_generate_vlm_and_train_vlm_dry_run():
+    cfg = _smoke(chip_smoke.GENERATE_VLM["arch"])
+    res = chip_smoke.run_generate_vlm(cfg, [20, 33], 3, "cpu")
+    assert len(res["tokens"]) == 2 and len(res["tokens"][0]) == 4
+    assert not res["nonfinite_steps"]
+    tr = chip_smoke.run_train("train-vlm", cfg, 2, 16, 2, (), "cpu")
+    assert len(tr["losses"]) == 2
+
+
+def test_chip_smoke_train_driver_carries_moe_terms():
+    """`run_train` (every train phase's driver) on the MoE smoke config:
+    the capacity path's lb_loss and dropped_frac come out and pass its
+    checks."""
+    tr = chip_smoke.run_train("train-moe", _smoke("deepseek-moe-16b"), 2, 16,
+                              2, chip_smoke.TRAIN_KERNELS, "cpu")
+    assert len(tr["lb_losses"]) == len(tr["dropped_fracs"]) == 2
+
+
+def test_chip_smoke_encdec_dry_run():
+    """Generate from stub frames over the cached cross K/V, decode
+    against teacher forcing, and training."""
+    cfg = _smoke(chip_smoke.ENCDEC["arch"])
+    res = chip_smoke.run_encdec(cfg, 2, 4, 5, 16, 2, "cpu")
+    assert len(res["tokens"][0]) == 6 and not res["nonfinite_steps"]
+    assert res["teacher_forcing_rel"] < 5e-3
+    assert len(res["train"]["losses"]) == 2
+
+
+def test_chip_smoke_model_api_sizes_fit_one_card():
+    """The full configs' sizes the card phases rely on: llama2-7b's
+    generate cache (8 rows x 1056 slots, ~4.4 GB bf16, half that plus
+    scales in int8), qwen2-vl-7b's bf16 weights, and train-vlm's 8-layer
+    cut at 12 bytes a parameter under 40 GiB of the card's 80 GB."""
+    sz = chip_smoke.path_sizes()
+    assert 4.3e9 < sz["generate_cache_bytes"] < 4.5e9
+    assert sz["generate_int8_cache_bytes"] < 0.51 * sz[
+        "generate_cache_bytes"]
+    assert 14e9 < sz["generate_vlm_weight_bytes"] < 17e9
+    assert 2.9e9 < sz["train_vlm_params"] < 3.0e9
+    assert sz["train_vlm_reckon_bytes"] < 40 * 2**30

@@ -696,6 +696,172 @@ def test_flash_backward_tile_edges(dtype, tol, H, KV, D, case):
         _close_grad(a, b, tol)
 
 
+# ------------------------------------------- Model API shapes (PR 21) --
+#
+# dense-cache decode (the flash forward at one query row, non-causal,
+# runtime kv_len), whisper-base's non-causal Sq != Skv attention, and
+# qwen2-vl-7b's G = 7 (H 28 over KV 4)
+DECODE_HKD = [(32, 32, 128), (28, 4, 128), (8, 8, 64), (8, 2, 32)]
+CROSS_HKD = [(8, 8, 64), (4, 4, 32), (28, 4, 128)]
+# (B, Sq, Skv, kv_len or None): Skv off the 128-key tile (1500 = 11 x
+# 128 + 92), Skv > Sq and Sq > Skv, one decode row
+CROSS_CASES = {"Sq 448 Skv 1500": (1, 448, 1500, None),
+               "Sq 100 Skv 300 enc_len": (2, 100, 300, [300, 93]),
+               "Sq 300 Skv 100": (2, 300, 100, None),
+               "Sq 1 Skv 1500": (3, 1, 1500, None)}
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("H,KV,D", DECODE_HKD)
+def test_decode_attention_kernel_matches_plain(dtype, tol, H, KV, D):
+    """One query row per sequence over a dense cache, kv_len at the key
+    tile's edges and up to the whole cache: one launch, counted in
+    `launches_decode` and `launches`, equal to the plain version."""
+    _need_cuda()
+    lens = [1, 127, 128, 129, 300, 1056]
+    B, S = len(lens), 1056
+    q = _randn((B, 1, H, D), dtype, 50)
+    k = _randn((B, S, KV, D), dtype, 51)
+    v = _randn((B, S, KV, D), dtype, 52)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n, nd = flash_prefill.launches, flash_prefill.launches_decode
+    got = flash_prefill.decode_attention(q, k, v, kv_len)
+    want = flash_prefill.decode_attention_plain(q, k, v, kv_len)
+    assert (flash_prefill.launches, flash_prefill.launches_decode) \
+        == (n + 1, nd + 1)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    with pytest.raises(ValueError, match="B, 1, H, D"):
+        flash_prefill.decode_attention(_randn((B, 2, H, D), dtype, 53), k, v,
+                                       kv_len)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("H,KV,D", CROSS_HKD)
+@pytest.mark.parametrize("case", list(CROSS_CASES))
+def test_flash_non_causal_cross_shapes(dtype, tol, H, KV, D, case):
+    """Non-causal Sq != Skv, forward and (without kv_len, as training
+    calls it) backward against the plain version and autograd."""
+    _need_cuda()
+    B, Sq, Skv, lens = CROSS_CASES[case]
+    q = _randn((B, Sq, H, D), dtype, 60)
+    k = _randn((B, Skv, KV, D), dtype, 61)
+    v = _randn((B, Skv, KV, D), dtype, 62)
+    kw = dict(causal=False, kv_len=None if lens is None else torch.tensor(
+        lens, dtype=torch.int32, device="cuda"))
+    got = flash_prefill.flash_attention(q, k, v, **kw)
+    want = flash_prefill.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if lens is not None:
+        return
+    do = _randn((B, Sq, H, D), dtype, 63)
+    grads = []
+    for fn in (flash_prefill.flash_attention,
+               flash_prefill.flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, causal=False).backward(do)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        _close_grad(a, b, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", ["causal 1024", "ragged q_offset 37",
+                                  "window"])
+def test_flash_g7_forward_and_backward(dtype, tol, case):
+    """qwen2-vl-7b's heads (G = 7: 28 query heads over 4 KV heads,
+    D 128): forward and backward against the plain version."""
+    _need_cuda()
+    H, KV, D = 28, 4, 128
+    Sq, Skv, kw = {"causal 1024": (1024, 1024, {}),
+                   "ragged q_offset 37": (300, 337, {"q_offset": 37}),
+                   "window": (300, 337, {"q_offset": 37, "window": 100})}[
+        case]
+    q = _randn((1, Sq, H, D), dtype, 70)
+    k = _randn((1, Skv, KV, D), dtype, 71)
+    v = _randn((1, Skv, KV, D), dtype, 72)
+    do = _randn((1, Sq, H, D), dtype, 73)
+    outs, grads = [], []
+    for fn in (flash_prefill.flash_attention,
+               flash_prefill.flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, **kw)
+        out.backward(do)
+        outs.append(out.detach())
+        grads.append([t.grad for t in leaves])
+    torch.testing.assert_close(outs[0].float(), outs[1].float(), atol=tol,
+                               rtol=tol)
+    for a, b in zip(*grads):
+        _close_grad(a, b, tol)
+
+
+@pytest.mark.parametrize("arch,kw", [("granite-3-2b", {}),
+                                     ("granite-3-2b", {"sliding_window": 16}),
+                                     ("codeqwen1.5-7b", {"kv_quant": True}),
+                                     ("qwen2-vl-7b", {}),
+                                     ("whisper-base", {})])
+def test_model_prefill_decode_on_card_matches_cpu(arch, kw):
+    """The Model API on the card (flash forward, decode_attention, RMSNorm
+    kernels) against the same weights on the CPU (plain versions), smoke
+    configs in f32: prefill and 4 decodes at atol = rtol = 1e-4 (int8:
+    after prefill and after every decode step the two sides' codes sit
+    at most 1 apart, at rounding ties, and the card's cache then takes
+    the CPU's codes and scales, so each step decodes from the same
+    cache), the decode kernel launched once per self-attention layer and
+    step."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    _need_cuda()
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
+    cpu = build_model(cfg, device="cpu", seed=4)
+    card = build_model(cfg, _to_cuda(cpu.params), device="cuda")
+    B, S, N = 2, 24, 4
+    r = np.random.RandomState(4)
+    toks = torch.from_numpy(r.randint(0, cfg.vocab_size, (B, S + N)))
+    batch = {"tokens": toks[:, :S]}
+    if cfg.family == "vlm":
+        batch["embeds"] = torch.from_numpy(
+            r.randn(B, S, cfg.d_model).astype(np.float32) * 0.02)
+        batch["mrope_pos"] = torch.arange(S)[None, None].expand(3, B, S)
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.from_numpy(
+            r.randn(B, cfg.encoder_len, cfg.d_model).astype(np.float32)
+            * 0.02)
+    cache_len = 16 if kw.get("sliding_window") else S + N
+    b_cpu = batch
+    b_card = {k: v.cuda() for k, v in batch.items()}
+    lg_cpu, c_cpu = cpu.prefill(b_cpu, cpu.init_cache(B, cache_len))
+    lg_card, c_card = card.prefill(b_card, card.init_cache(B, cache_len))
+    torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+    _sync_int8_codes(cfg, c_card, c_cpu)
+    before = flash_prefill.launches_decode
+    for i in range(S, S + N):
+        lg_cpu, c_cpu = cpu.decode(toks[:, i], c_cpu)
+        lg_card, c_card = card.decode(toks[:, i].cuda(), c_card)
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4,
+                                   rtol=1e-4)
+        _sync_int8_codes(cfg, c_card, c_cpu)
+    assert flash_prefill.launches_decode - before == N * cfg.n_layers
+
+
+def _sync_int8_codes(cfg, c_card, c_cpu):
+    """With `kv_quant`: the int8 codes of the two sides may sit 1 apart at
+    rounding ties (their f32 inputs differ in the last bits); assert no
+    more, then give the card's cache the CPU's codes and scales."""
+    if not cfg.kv_quant:
+        return
+    for name in ("k", "v"):
+        diff = (c_card[name].cpu().int() - c_cpu[name].int()).abs()
+        assert int(diff.max()) <= 1
+    for name in ("k", "v", "k_scale", "v_scale"):
+        c_card[name] = c_cpu[name].cuda()
+
+
+def _to_cuda(tree):
+    return {k: _to_cuda(v) if isinstance(v, dict) else v.detach().cuda()
+            for k, v in tree.items()}
+
+
 def test_flash_kernels_run_on_tensor_cores():
     """The flash forward's SASS holds wgmma (HGMMA), the backward's
     mma.sync (HMMA) or wgmma; the compiler's report of the two libraries

@@ -230,13 +230,17 @@ def test_sanitizer_and_tracer_run_on_port_engine():
 
 
 def test_unported_engine_modes_raise():
-    """Dense and MoE, fused or not, are ported (tests/test_torch_fused.py);
-    the other families and the int8 KV cache still raise."""
-    for arch, extra in (("qwen2-vl-7b", {}),
-                        ("deepseek-moe-16b", {"kv_quant": True})):
+    """Dense and MoE, fused or not, are served (tests/test_torch_fused.py);
+    the engine refuses the vlm family (as the reference's executor
+    asserts) and an int8 KV cache, which the model now takes but the
+    paged pools do not (ROADMAP C9), each with its own message."""
+    for arch, extra, msg in (
+            ("qwen2-vl-7b", {}, "family 'vlm' is not served"),
+            ("deepseek-moe-16b", {"kv_quant": True},
+             "kv_quant is not served")):
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
                                   **extra)
-        with pytest.raises(ValueError, match="not yet ported"):
+        with pytest.raises(ValueError, match=msg):
             LayerKVEngine(cfg, None, ServeConfig.for_engine(chunked=True,
                                                             fused=True),
                           device="cpu")

@@ -16,6 +16,7 @@ from repro.models import build_model, layers as jlayers
 from repro.training import checkpoint
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import DecoderModel, layers as tlayers
+from repro_torch.models import build_model as build_torch_model
 from repro_torch.models.model import flatten_params, layer_params
 from repro_torch.weights import from_jax_params, load_checkpoint
 
@@ -202,11 +203,39 @@ def test_seeded_init_is_deterministic_with_reference_shapes():
     assert not torch.equal(a["layers/attn/wq"], c["layers/attn/wq"])
 
 
-@pytest.mark.parametrize("arch,extra", [("deepseek-moe-16b",
-                                         {"kv_quant": True}),
-                                        ("granite-3-2b", {"kv_quant": True})])
+@pytest.mark.parametrize("arch,extra", [("zamba2-2.7b", {}),
+                                        ("xlstm-1.3b", {})])
 def test_unported_model_variants_raise(arch, extra):
+    """The families still missing (hybrid, ssm) raise in `build_model`,
+    and a decoder-only model refuses them."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
                               **extra)
     with pytest.raises(ValueError, match="not yet ported"):
+        build_torch_model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="not yet ported"):
         DecoderModel(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-base"])
+def test_from_jax_params_carries_vlm_and_encdec_keys(arch):
+    """The vlm's and the encdec's reference params (encoder and decoder
+    stacks, cross-attention, q / k / v biases) cross over key for key,
+    each leaf in its own dtype (bf16 model), and the port's own init
+    makes the same keys and shapes."""
+    jcfg, tcfg = (dataclasses.replace(c, dtype="bfloat16")
+                  for c in _cfgs(arch))
+    jflat = _flat(_jax_params(jcfg))
+    tp = flatten_params(from_jax_params(jflat, tcfg, device="cpu"))
+    assert tp.keys() == jflat.keys()
+    if arch == "whisper-base":
+        assert {"enc_layers/attn/bq", "dec_layers/cross/wk",
+                "dec_layers/cross/bv", "enc_norm/b"} <= tp.keys()
+    for k, a in jflat.items():
+        assert str(tp[k].dtype) == f"torch.{a.dtype.name}", k
+        assert tuple(tp[k].shape) == a.shape, k
+        np.testing.assert_array_equal(tp[k].float().numpy(),
+                                      a.astype(np.float32))
+    own = flatten_params(build_torch_model(tcfg, device="cpu",
+                                           seed=1).params)
+    assert {k: tuple(v.shape) for k, v in own.items()} \
+        == {k: a.shape for k, a in jflat.items()}

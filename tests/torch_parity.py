@@ -1,0 +1,101 @@
+"""Helpers shared by the port's Model-API parity tests
+(tests/test_torch_{decode,vlm,encdec}.py): both packages' smoke configs
+in f32, the reference's params from `build_model(cfg).init(PRNGKey(k))`
+handed to the port by `repro_torch.weights.from_jax_params`, and seeded
+numpy inputs converted for each side."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke
+from repro.models import build_model as jax_build
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import build_model
+from repro_torch.weights import from_jax_params
+
+
+def cfgs(arch, **kw):
+    """(reference config, port config), smoke, f32, with `kw` replaced."""
+    return (dataclasses.replace(jax_smoke(arch), dtype="float32", **kw),
+            dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                **kw))
+
+
+def flat(tree, prefix=""):
+    """A pytree as {'layers/attn/wq': numpy array, ...}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def models(arch, seed=0, **kw):
+    """(jcfg, JAX model, its params, port model on the CPU with the same
+    weights)."""
+    jcfg, tcfg = cfgs(arch, **kw)
+    jm = jax_build(jcfg)
+    jp = jm.init(jax.random.PRNGKey(seed))
+    tm = build_model(tcfg, from_jax_params(flat(jp), tcfg, "cpu"),
+                     device="cpu")
+    return jcfg, jm, jp, tm
+
+
+def randn(shape, seed, scale=1.0):
+    return (np.random.RandomState(seed).randn(*shape) * scale).astype(
+        np.float32)
+
+
+def tokens(vocab, shape, seed):
+    return np.random.RandomState(seed).randint(0, vocab, shape).astype(
+        np.int32)
+
+
+def to_jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def to_torch(batch):
+    """int arrays become int64 (the port's index dtype), floats stay."""
+    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind == "i"
+                                else v)
+            for k, v in batch.items()}
+
+
+def close(t, j, atol, rtol, msg=""):
+    np.testing.assert_allclose(t.detach().float().numpy(),
+                               np.asarray(j, np.float32), atol=atol,
+                               rtol=rtol, err_msg=msg)
+
+
+def assert_grads_close(tm, jgrads):
+    """Every parameter's gradient at tests/test_torch_train.py's rule:
+    atol = 1e-5 * max |grad of that parameter|, rtol 1e-4. Two kinds of
+    leaf differ: one the loss does not reach has no port gradient and a
+    zero JAX one; one whose JAX gradient lies wholly below 1e-5 * the
+    largest gradient of the model holds rounding noise only (whisper's
+    key biases: without rope a key bias adds one constant to every score
+    of a softmax row, so its gradient is zero in exact arithmetic), and
+    each side is held below that bound."""
+    from repro_torch.models.model import flatten_params
+    got = flatten_params(tm.params)
+    want = flat(jgrads)
+    assert sorted(got) == sorted(want)
+    top = max(float(np.abs(w).max()) for w in want.values())
+    for key, p in got.items():
+        w = want[key]
+        if p.grad is None:
+            assert not np.any(w), key
+            continue
+        if float(np.abs(w).max()) < 1e-5 * top:
+            for g in (p.grad.numpy(), w):
+                assert float(np.abs(g).max()) <= 1e-5 * top, key
+            continue
+        atol = 1e-5 * max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(p.grad.numpy(), w, atol=atol, rtol=1e-4,
+                                   err_msg=key)
