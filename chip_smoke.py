@@ -183,6 +183,33 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            the flash forward and backward at these shapes and at G = 7,
            and decode_attention at every generate path's heads, against
            their plain versions, and times them beside SDPA.
+  generate-hybrid  zamba2-2.7b (arXiv:2411.15242) at full width and depth
+           (54 Mamba2 layers in 9 superblocks, each opened by the one
+           shared attention + MLP block; H = KV = 32 heads of D 80), bf16,
+           random weights made on the card: 4 random prompts of 1024
+           tokens (`HybridModel.prefill` takes one S for the batch) into a
+           1056-slot cache, 32 greedy decodes; flash at D 80 (the
+           CUDA-core kernel, by shape) in prefill, decode_attention at
+           D 80, RMSNorm at d 2560 and 5120. Decode against teacher
+           forcing in f32 at full width over one superblock (6 layers):
+           prefill(120) + 8 decodes against prefill(128), rel < 5e-3.
+  train-hybrid  zamba2-2.7b at full width and depth (2.42 B parameters,
+           TRAIN_HYBRID), 5 AdamW steps of 4 x 1024 tokens, every
+           superblock checkpointed: flash at D 80 forward and backward,
+           RMSNorm both ways.
+  generate-ssm  xlstm-1.3b (arXiv:2405.04517) at full width and depth (6
+           superblocks of 7 mLSTM + 1 sLSTM, 3.53 B parameters as the
+           reference builds it), as generate-hybrid: 4 x 1024 prompts, 32
+           decodes (the exact recurrence), teacher forcing in f32 over
+           one superblock (8 layers); RMSNorm at d 2048 and 4096, no
+           attention.
+  train-ssm  xlstm-1.3b at full width with its depth cut to 16 of 48
+           layers (TRAIN_SSM; 1.31 B parameters), 5 AdamW steps of
+           4 x 1024 tokens: RMSNorm both ways. The sLSTM runs one step per
+           token (host-bound). The kernels phase holds flash forward and
+           backward and decode_attention at D 80 and RMSNorm at d 2048,
+           2560, 4096 and 5120 at these paths' shapes (their train rows
+           and 4-row decode steps), and times them.
   profile  (only with --profile) torch.profiler over a few decode-only
            steps of an exclusive vllm llama2-7b run at B = 8, over one
            more layerkv run of the fused path (the paged kernels' device
@@ -190,8 +217,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            stream's staging copies with the share that overlaps compute
            kernels, and staging host calls, runs and host time per
            step), and over one
-           train step after each of the train and train-moe phases: wall
-           and device-busy time, device ops, top device ops.
+           train step after each train phase: wall and device-busy
+           time, device ops, top device ops; for the hybrid and ssm
+           paths each sequence core's device span (`_ssm_ranges`).
 
 The line before the last is a JSON object {"kernels": [...]}, the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -201,6 +229,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -266,9 +295,33 @@ TRAIN_VLM = dict(arch="qwen2-vl-7b", layers=8, steps=5, batch=4, seq=1024)
 G7_ATTN = (28, 4, 128)
 WHISPER_ATTN = (8, 8, 64)
 WHISPER_FRAMES, WHISPER_TEXT = 1500, 448
+# The last two families' paths (random bf16 weights made on the card):
+# generate-hybrid: zamba2-2.7b at full width and depth, `batch` prompts of
+#   `prompt` tokens (one S for the batch: the hybrid's prefill takes no
+#   prompt_len, and the SSD wants S <= 128 or a multiple of 128) into a
+#   cache of prompt + steps slots, `steps` greedy decodes; decode against
+#   teacher forcing in f32 over one superblock, prefill(tf_prompt) +
+#   tf_steps decodes against prefill(tf_prompt + tf_steps) (both <= 128)
+GENERATE_HYBRID = dict(arch="zamba2-2.7b", batch=4, prompt=1024, steps=32,
+                       tf_batch=2, tf_prompt=120, tf_steps=8)
+# train-hybrid: zamba2-2.7b at full width and depth (2.42 B parameters)
+TRAIN_HYBRID = dict(arch="zamba2-2.7b", layers=54, steps=5, batch=4,
+                    seq=1024)
+# generate-ssm / train-ssm: xlstm-1.3b as generate-hybrid; training at
+#   full width with its depth cut from 48 to `layers` (two superblocks of
+#   7 mLSTM + 1 sLSTM), so the sLSTM's per-token loop stays short
+GENERATE_SSM = dict(arch="xlstm-1.3b", batch=4, prompt=1024, steps=32,
+                    tf_batch=2, tf_prompt=120, tf_steps=8)
+TRAIN_SSM = dict(arch="xlstm-1.3b", layers=16, steps=5, batch=4, seq=1024)
+# zamba2-2.7b's shared attention: H = KV = 32, D = 2560 / 32 = 80 (bf16
+# on the CUDA-core kernels, by shape)
+D80_ATTN = (32, 32, 80)
+# generate-hybrid's decode keys: 4 rows over 1025-1056 of 1056 slots
+D80_DECODE_LENS, D80_DECODE_SLOTS = [1025, 1036, 1047, 1056], 1056
 # decode_attention's checks: one query row per sequence over a dense cache
 DECODE_SHAPES = {"llama2-7b": FLASH_SHAPES["llama2-7b"],
                  "qwen2-vl-7b": G7_ATTN, "whisper-base": WHISPER_ATTN,
+                 "zamba2-2.7b": D80_ATTN,
                  "granite-3-2b smoke": SMOKE_SHAPES["granite-3-2b smoke"]}
 # RMSNorm shapes: the train path's activations, llama2-7b prefill / decode,
 # and qwen2-vl-7b's (d 3584: 448 16-byte vectors a row, not a multiple of
@@ -279,7 +332,24 @@ NORM_SHAPES = {"train": (TRAIN["batch"], TRAIN["seq"], 2048),
                "llama2-7b decode": (8, 1, 4096),
                "qwen2-vl-7b train": (TRAIN_VLM["batch"], TRAIN_VLM["seq"],
                                      3584),
-               "qwen2-vl-7b decode": (GENERATE_VLM["n"], 1, 3584)}
+               "qwen2-vl-7b decode": (GENERATE_VLM["n"], 1, 3584),
+               # zamba2-2.7b: d 2560 (every block norm) and d_in 5120 (the
+               # Mamba2 gated norm): 320 and 640 16-byte vectors a row,
+               # uneven last passes; xlstm-1.3b's block norms (d 2048) and
+               # mLSTM gated norm (d_in 4096) at train-ssm's rows (its
+               # d 2048 there is "train") and generate-ssm's 4-row decode
+               "zamba2-2.7b train d 2560": (TRAIN_HYBRID["batch"],
+                                            TRAIN_HYBRID["seq"], 2560),
+               "zamba2-2.7b train d 5120": (TRAIN_HYBRID["batch"],
+                                            TRAIN_HYBRID["seq"], 5120),
+               "zamba2-2.7b decode d 2560": (GENERATE_HYBRID["batch"], 1,
+                                             2560),
+               "zamba2-2.7b decode d 5120": (GENERATE_HYBRID["batch"], 1,
+                                             5120),
+               "xlstm-1.3b train d 4096": (TRAIN_SSM["batch"],
+                                           TRAIN_SSM["seq"], 4096),
+               "xlstm-1.3b decode d 2048": (GENERATE_SSM["batch"], 1, 2048),
+               "xlstm-1.3b decode d 4096": (GENERATE_SSM["batch"], 1, 4096)}
 
 
 def _say(*a):
@@ -401,8 +471,10 @@ def check_flash(gen, sizes=None):
     shapes at its paths' batch of 8 (the non-causal encoder over 1500
     frames, cross-attention from 448 decoder rows or one decode row to
     1500 frames, with and without enc_len, and the causal 448-token
-    decoder). With `sizes` ({name: (H, KV, D)}), the engine and edge
-    cases at those shapes only."""
+    decoder); zamba2-2.7b's D = 80 (H = KV = 32) on the engine and edge
+    cases and at train-hybrid's and generate-hybrid's B 4 x S 1024. With
+    `sizes` ({name: (H, KV, D)}), the engine and edge cases at those
+    shapes only."""
     import torch
     from repro_torch.kernels import flash_prefill as fp
     worst = {}
@@ -439,6 +511,11 @@ def check_flash(gen, sizes=None):
                (f"cross decode Sq 1 Skv {F}", 8, 1, F, [F] * 8, 0, 0, False),
                (f"cross Sq {T} Skv {F} enc_len 1000 / 93", 2, T, F,
                 [1000, 93], 0, 0, False)]
+    # train-hybrid's batch is generate-hybrid's prefill (4 x 1024, causal)
+    Bh, Sh = TRAIN_HYBRID["batch"], TRAIN_HYBRID["seq"]
+    hybrid = engine_cases + edge_cases + [
+        (f"train-/generate-hybrid B {Bh} S {Sh}", Bh, Sh, Sh, [Sh] * Bh, 0,
+         0)]
     shapes = [(arch, hkd, engine_cases + edge_cases)
               for arch, hkd in (sizes or FLASH_SHAPES).items()]
     if sizes is None:
@@ -446,7 +523,8 @@ def check_flash(gen, sizes=None):
                    for H, KV, D in FLASH_GQA_SHAPES]
         shapes += [(TRAIN_MOE["arch"], MOE_TRAIN_ATTN, moe_train),
                    ("qwen2-vl-7b G=7", G7_ATTN, vlm),
-                   ("whisper-base", WHISPER_ATTN, whisper)]
+                   ("whisper-base", WHISPER_ATTN, whisper),
+                   ("zamba2-2.7b D=80", D80_ATTN, hybrid)]
     for arch, (H, KV, D), cases in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
@@ -475,14 +553,19 @@ def check_decode(gen):
     """decode_attention (the flash forward at one query row, non-causal,
     with the runtime kv_len) against its plain version at the generate
     paths' heads (llama2-7b, qwen2-vl-7b's G = 7, whisper-base's D 64,
-    the smoke D 32): 8 rows over a 1056-slot cache with kv_len at the
-    128-key tile's edges and up to the whole cache; one launch per call
-    (`launches_decode`). Returns the worst error per dtype."""
+    zamba2-2.7b's D 80, the smoke D 32): 8 rows over a 1056-slot cache
+    with kv_len at the 128-key tile's edges and up to the whole cache;
+    and generate-hybrid's own: 4 rows over 1025-1056 keys at D 80. One
+    launch per call (`launches_decode`). Returns the worst error per
+    dtype."""
     import torch
     from repro_torch.kernels import flash_prefill as fp
     lens, S = [1, 127, 128, 129, 281, 700, 1040, 1056], 1056
     worst = {}
-    for arch, (H, KV, D) in DECODE_SHAPES.items():
+    cases = [(arch, hkd, lens, S) for arch, hkd in DECODE_SHAPES.items()]
+    cases.append(("generate-hybrid", D80_ATTN, D80_DECODE_LENS,
+                  D80_DECODE_SLOTS))
+    for arch, (H, KV, D), lens, S in cases:
         for dtype in (torch.bfloat16, torch.float32):
             key = str(dtype)[6:]
             tol = TOL[key]
@@ -496,7 +579,8 @@ def check_decode(gen):
                 raise AssertionError("decode_attention: not one launch")
             err, ok = _max_err(got, want, tol)
             _say(f"[kernels] decode_attention {arch} H={H} KV={KV} D={D} "
-                 f"{key} B=8 Sq=1 cache {S} kv_len {lens}: max_abs_err "
+                 f"{key} B={len(lens)} Sq=1 cache {S} kv_len {lens}: "
+                 f"max_abs_err "
                  f"{err:.3g} (tol {tol})")
             if not ok or not torch.isfinite(got).all():
                 raise AssertionError(f"decode_attention disagrees: {arch} "
@@ -628,9 +712,10 @@ def time_flash(gen):
     H = KV = 16, D 128), and at the new paths' ("at_other_shapes"):
     train-vlm's G = 7 (B 4, S 1024, H 28, KV 4, D 128, causal) and
     whisper-base's non-causal cross-attention (B 8, 448 rows over 1500
-    frames) and encoder (B 8, 1500 x 1500). Returns the serve shape's row
-    with the train shapes' under "at_train_shape" and
-    "at_moe_train_shape"."""
+    frames) and encoder (B 8, 1500 x 1500), and zamba2-2.7b's D = 80 at
+    train-hybrid's and generate-hybrid's B 4 x S 1024 (H = KV = 32,
+    causal; the CUDA-core kernel). Returns the serve shape's row with the
+    train shapes' under "at_train_shape" and "at_moe_train_shape"."""
     S = TRAIN["seq"]
     B8, T, F = ENCDEC["batch"], WHISPER_TEXT, WHISPER_FRAMES
     rows = [_time_flash_fwd_at(gen, *FLASH_SHAPES["llama2-7b"], 1, S, S,
@@ -645,7 +730,9 @@ def time_flash(gen):
         _time_flash_fwd_at(gen, *G7_ATTN, TRAIN_VLM["batch"],
                            TRAIN_VLM["seq"], TRAIN_VLM["seq"], True),
         _time_flash_fwd_at(gen, *WHISPER_ATTN, B8, T, F, False),
-        _time_flash_fwd_at(gen, *WHISPER_ATTN, B8, F, F, False)]
+        _time_flash_fwd_at(gen, *WHISPER_ATTN, B8, F, F, False),
+        _time_flash_fwd_at(gen, *D80_ATTN, TRAIN_HYBRID["batch"],
+                           TRAIN_HYBRID["seq"], TRAIN_HYBRID["seq"], True)]
     return rows[0]
 
 
@@ -681,9 +768,10 @@ def time_decode(gen):
     generate path's llama2-7b step: B 8, the serve prompts' contexts at
     the middle decode step (prompt + 16) in a 1056-slot cache, H = KV =
     32, D 128, bf16; beside its plain version and SDPA with a key mask
-    (one call computing the same function); at qwen2-vl-7b's G = 7 (B 4)
-    and at whisper-base's cross decode (B 8, one row over 1500 frames)
-    under "at_other_shapes". The note counts the tile the kernel wastes:
+    (one call computing the same function); at qwen2-vl-7b's G = 7 (B 4),
+    at whisper-base's cross decode (B 8, one row over 1500 frames) and at
+    generate-hybrid's middle step (zamba2-2.7b D 80, B 4, 1040 keys of
+    1056) under "at_other_shapes". The note counts the tile the kernel wastes:
     one query row of its 128-row tile."""
     import torch
     import torch.nn.functional as F
@@ -706,8 +794,11 @@ def time_decode(gen):
         row = _bound(ms, plain, lib, nbytes, 4 * H * D * n, BF16_FLOPS_PER_S,
                      f"B={B} Sq=1 ctx {min(ctx)}-{max(ctx)} of {S} H={H} "
                      f"KV={KV} D={D} bf16")
-        row["tiles"] = {"query_rows_used": 1, "query_rows_per_tile": 128,
-                        "key_tiles": sum(-(-c // 128) for c in ctx),
+        # bf16 at D 64 / 128 runs the wgmma kernel's 128 x 128 tiles, D 80
+        # the CUDA-core kernel's 64 x 64
+        tile = 128 if D % 64 == 0 else 64
+        row["tiles"] = {"query_rows_used": 1, "query_rows_per_tile": tile,
+                        "key_tiles": sum(-(-c // tile) for c in ctx),
                         "live_keys": n}
         return row
     prompts = _prompts()
@@ -715,7 +806,9 @@ def time_decode(gen):
     row = at(*DECODE_SHAPES["llama2-7b"], [len(p) + 16 for p in prompts], S)
     row["at_other_shapes"] = [
         at(*G7_ATTN, [len(p) + 16 for p in prompts[:4]], S),
-        at(*WHISPER_ATTN, [WHISPER_FRAMES] * 8, WHISPER_FRAMES)]
+        at(*WHISPER_ATTN, [WHISPER_FRAMES] * 8, WHISPER_FRAMES),
+        at(*D80_ATTN, [GENERATE_HYBRID["prompt"] + 16]
+           * GENERATE_HYBRID["batch"], D80_DECODE_SLOTS)]
     t = row["tiles"]
     row["note"] = (f"the flash forward kernel at Sq = 1: one query row fills "
                    f"1 of its 128-row wgmma tile (two 64-row consumer "
@@ -1215,9 +1308,10 @@ def check_flash_bwd(gen, sizes=None):
     (448 tokens); the same G = 7 and whisper cases at B 1 and 2, and at
     the edges of the kernels' tiling: Sq and Skv off the 64-row grid (a
     chunk at q_offset 37), a sliding window, and G in {1, 4, 8} at D in
-    {64, 128}; bf16 and f32. With `sizes` ({name: (H, KV, D)}), B 1 S
-    512 and the two edge cases at those shapes only. Returns the worst
-    error per dtype."""
+    {64, 128}; zamba2-2.7b's D = 80 (H = KV = 32) at train-hybrid's B 4
+    x S 1024 and at the two edge cases; bf16 and f32. With `sizes`
+    ({name: (H, KV, D)}), B 1 S 512 and the two edge cases at those
+    shapes only. Returns the worst error per dtype."""
     import torch
     from repro_torch.kernels import flash_prefill as fp
     worst = {}
@@ -1246,7 +1340,12 @@ def check_flash_bwd(gen, sizes=None):
               ("whisper-base cross at its batch", Be, WHISPER_ATTN, T, F, 0,
                0, False),
               ("whisper-base decoder at its batch", Be, WHISPER_ATTN, T, T,
-               0, 0)]
+               0, 0),
+              ("train-hybrid zamba2-2.7b D=80", TRAIN_HYBRID["batch"],
+               D80_ATTN, TRAIN_HYBRID["seq"], TRAIN_HYBRID["seq"], 0, 0),
+              ("D=80 Sq 1000 Skv 1037 q_offset 37", 1, D80_ATTN, 1000,
+               1037, 37, 0),
+              ("D=80 window 200", 1, D80_ATTN, 1000, 1037, 37, 200)]
     if sizes is not None:
         cases = [c for name, hkd in sizes.items() for c in (
             (name, 1, hkd, 512, 512, 0, 0),
@@ -1335,19 +1434,25 @@ def time_rmsnorm(gen):
     F.rms_norm (forward; its autograd backward). The forward's row also
     holds its times at llama2-7b's serve shapes ("at_serve_shapes": a
     1024-token prefill and an 8-row decode step, 4096 wide), where the
-    serve path's launches run, and both rows at qwen2-vl-7b's d 3584
-    ("at_other_shapes": train-vlm's 4 x 1024 rows, and for the forward
-    generate-vlm's 4-row decode step)."""
+    serve path's launches run, and both rows at qwen2-vl-7b's d 3584,
+    zamba2-2.7b's d 2560 and 5120 and xlstm-1.3b's d 4096
+    ("at_other_shapes": the train paths' 4 x 1024 rows, and for the
+    forward the generate paths' 4-row decode steps, xlstm-1.3b's at d
+    2048 and 4096)."""
+    other_train = ("qwen2-vl-7b train", "zamba2-2.7b train d 2560",
+                   "zamba2-2.7b train d 5120", "xlstm-1.3b train d 4096")
+    other_decode = ("qwen2-vl-7b decode", "zamba2-2.7b decode d 2560",
+                    "zamba2-2.7b decode d 5120", "xlstm-1.3b decode d 2048",
+                    "xlstm-1.3b decode d 4096")
     fwd = time_rmsnorm_fwd(gen, NORM_SHAPES["train"])
     fwd["at_serve_shapes"] = [
         time_rmsnorm_fwd(gen, NORM_SHAPES[k])
         for k in ("llama2-7b prefill", "llama2-7b decode")]
-    fwd["at_other_shapes"] = [
-        time_rmsnorm_fwd(gen, NORM_SHAPES[k])
-        for k in ("qwen2-vl-7b train", "qwen2-vl-7b decode")]
+    fwd["at_other_shapes"] = [time_rmsnorm_fwd(gen, NORM_SHAPES[k])
+                              for k in other_train + other_decode]
     bwd = time_rmsnorm_bwd(gen, NORM_SHAPES["train"])
-    bwd["at_other_shapes"] = [
-        time_rmsnorm_bwd(gen, NORM_SHAPES["qwen2-vl-7b train"])]
+    bwd["at_other_shapes"] = [time_rmsnorm_bwd(gen, NORM_SHAPES[k])
+                              for k in other_train]
     return fwd, bwd
 
 
@@ -1358,7 +1463,8 @@ def time_flash_bwd(gen):
     the same at the MoE train path's shape (H = KV = 16, D 128) under
     "at_moe_train_shape", and at train-vlm's G = 7 (B 4, S 1024) and
     whisper-base's non-causal cross-attention (B 8, 448 rows over 1500
-    frames) under "at_other_shapes"."""
+    frames) and train-hybrid's D = 80 (B 4, S 1024, H = KV = 32; the
+    CUDA-core pair) under "at_other_shapes"."""
     rows = [_time_flash_bwd_at(gen, *FLASH_SHAPES["granite-3-2b"],
                                TRAIN["batch"], TRAIN["seq"]),
             _time_flash_bwd_at(gen, *MOE_TRAIN_ATTN, TRAIN_MOE["batch"],
@@ -1368,7 +1474,9 @@ def time_flash_bwd(gen):
         _time_flash_bwd_at(gen, *G7_ATTN, TRAIN_VLM["batch"],
                            TRAIN_VLM["seq"]),
         _time_flash_bwd_at(gen, *WHISPER_ATTN, ENCDEC["batch"],
-                           WHISPER_TEXT, WHISPER_FRAMES, causal=False)]
+                           WHISPER_TEXT, WHISPER_FRAMES, causal=False),
+        _time_flash_bwd_at(gen, *D80_ATTN, TRAIN_HYBRID["batch"],
+                           TRAIN_HYBRID["seq"])]
     return rows[0]
 
 
@@ -2412,12 +2520,14 @@ def _profile_train(cfg, B, S):
     def step():
         state[0], _ = step_fn(state[0], batches.pop())
     step()
-    out = _trace(step, 1, top=15)
+    with _ssm_ranges() as ranges:
+        out = _trace(step, 1, top=15, ranges=ranges)
     _say(f"[profile] train step {cfg.arch_id} {B} x {S}: "
          f"{out['wall_ms_per_step']:.1f} ms wall, device busy "
          f"{out['device_busy_ms_per_step']:.1f} ms "
          f"({out['device_busy_share']:.3f}), "
          f"{out['device_ops_per_step']:.0f} device ops")
+    _say_ranges(f"train {cfg.arch_id}", "step", out)
     for name, ms, n in out["top"]:
         _say(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
     return out
@@ -2461,24 +2571,69 @@ def _generate(model, batch, B, cache_len, steps, forced=None):
 def _profile_generate(tag, model, batch, B, cache_len, steps=4):
     """torch.profiler over one prefill of `batch` and then `steps` greedy
     decode steps (after one untraced): wall, device-busy time and share,
-    and the top device ops of each."""
+    and the top device ops of each; for the hybrid and ssm families also
+    the device span of each sequence core (`_ssm_ranges`)."""
     def prefill():
         state[:] = model.prefill(batch, model.init_cache(B, cache_len))
 
     def decode():
         state[:] = model.decode(state[0].argmax(-1), state[1])
     state = []
-    out = {"prefill": _trace(prefill, 1, top=8)}
-    decode()
-    out["decode"] = _trace(decode, steps, top=12, kernels=("flash_fwd",))
+    with _ssm_ranges() as ranges:
+        out = {"prefill": _trace(prefill, 1, top=8, ranges=ranges)}
+        decode()
+        out["decode"] = _trace(decode, steps, top=12,
+                               kernels=("flash_fwd",), ranges=ranges)
     for name, t in out.items():
         _say(f"[profile] {tag} {name}: {t['wall_ms_per_step']:.2f} ms wall "
              f"per step, device busy {t['device_busy_ms_per_step']:.2f} ms "
              f"({t['device_busy_share']:.3f}), "
              f"{t['device_ops_per_step']:.0f} device ops per step")
+        _say_ranges(tag, name, t)
         for op, ms, n in t["top"]:
             _say(f"[profile]   {ms:8.3f} ms  x{n:<5d} {op[:90]}")
     return out
+
+
+# the sequence cores of models/ssm.py that `_ssm_ranges` marks in a trace
+SSM_RANGES = ("ssd_chunked", "_mlstm_core_chunked", "slstm_forward")
+
+
+@contextlib.contextmanager
+def _ssm_ranges():
+    """Inside the block, each sequence core of `repro_torch.models.ssm`
+    (SSM_RANGES: the SSD, the chunked mLSTM, the sLSTM's per-token loop
+    with its norm and out projection) runs inside a record_function range
+    of its name, so a trace reads each core's device span (its forward
+    only: autograd's backward runs outside it). Yields SSM_RANGES;
+    restores the module's functions on exit."""
+    from torch.profiler import record_function
+    from repro_torch.models import ssm
+    saved = {name: getattr(ssm, name) for name in SSM_RANGES}
+
+    def marked(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+    try:
+        for name, fn in saved.items():
+            setattr(ssm, name, marked(name, fn))
+        yield SSM_RANGES
+    finally:
+        for name, fn in saved.items():
+            setattr(ssm, name, fn)
+
+
+def _say_ranges(tag, name, t):
+    """Print each marked core's device span per step and its share of the
+    step's wall time."""
+    for rng, v in t.get("ranges", {}).items():
+        if v["calls"]:
+            _say(f"[profile] {tag} {name}: {rng} x{v['calls']} "
+                 f"{v['ms'] / t['steps']:.2f} ms per step "
+                 f"({v['ms'] / t['steps'] / t['wall_ms_per_step']:.3f} of "
+                 f"the wall)")
 
 
 def _say_generate(tag, r):
@@ -2491,17 +2646,18 @@ def _say_generate(tag, r):
 
 def _check_generate(tag, cfg, r, steps, device):
     """No logits went non-finite; on the card every flash launch is
-    accounted for (one per layer in prefill; per decode step one
-    decode_attention per self-attention layer, plus one flash call per
-    cross-attention layer for encdec) and the norms ran the RMSNorm
-    kernel where the model has them."""
+    accounted for (one per self-attention layer in prefill; per decode
+    step one decode_attention per self-attention layer, plus one flash
+    call per cross-attention layer for encdec; the hybrid's layers with
+    attention are its shared block's uses, xlstm has none) and the norms
+    ran the RMSNorm kernel where the model has them."""
     import torch
     if r["nonfinite_steps"]:
         raise AssertionError(f"[{tag}] non-finite logits at "
                              f"{r['nonfinite_steps']} steps")
     if torch.device(device).type != "cuda":
         return
-    L, n = cfg.n_layers, r["launches"]
+    L, n = cfg.n_attention_layers(), r["launches"]
     want_dec = L * steps
     want_flash = (L + want_dec if cfg.family != "encdec"
                   else cfg.n_encoder_layers + 2 * L + 2 * want_dec)
@@ -2755,7 +2911,10 @@ def path_sizes():
     alone (no tensor): the generate caches, qwen2-vl-7b's weights, and
     train-vlm's parameters with 12 bytes each (bf16 weights and
     gradients, f32 AdamW moments), before activations and the optimizer's
-    f32 temporaries."""
+    f32 temporaries; the same for the hybrid's and the ssm's paths
+    (`model_size`; their caches: the shared block's K/V per use, the
+    Mamba2 states and conv tails; the xLSTM states, mC being
+    (n_sb, n_m, B, H, hd, hd) f32)."""
     import dataclasses
     from repro_torch.configs import get_config
     llama = get_config(GENERATE["arch"])
@@ -2765,12 +2924,39 @@ def path_sizes():
         * llama.resolved_head_dim * 2
     vlm = get_config(GENERATE_VLM["arch"])
     tv = dataclasses.replace(vlm, n_layers=TRAIN_VLM["layers"])
-    return {"generate_cache_bytes": kv * 2,
-            "generate_int8_cache_bytes": kv + kv // llama.resolved_head_dim
-            * 2,
-            "generate_vlm_weight_bytes": vlm.param_count() * 2,
-            "train_vlm_params": tv.param_count(),
-            "train_vlm_reckon_bytes": 12 * tv.param_count()}
+    out = {"generate_cache_bytes": kv * 2,
+           "generate_int8_cache_bytes": kv + kv // llama.resolved_head_dim
+           * 2,
+           "generate_vlm_weight_bytes": vlm.param_count() * 2,
+           "train_vlm_params": tv.param_count(),
+           "train_vlm_reckon_bytes": 12 * tv.param_count()}
+    zam, xl = get_config(GENERATE_HYBRID["arch"]), get_config(
+        GENERATE_SSM["arch"])
+    g = GENERATE_HYBRID
+    B, slots = g["batch"], g["prompt"] + g["steps"]
+    d_in = zam.ssm.expand * zam.d_model
+    H, N = d_in // 64, zam.ssm.state_dim
+    out["generate_hybrid_weight_bytes"] = model_size(zam)[1]
+    out["generate_hybrid_cache_bytes"] = (
+        2 * zam.n_attention_layers() * B * slots * zam.n_kv_heads
+        * zam.resolved_head_dim * 2
+        + zam.n_layers * B * H * N * 64 * 4
+        + zam.n_layers * B * (zam.ssm.conv_dim - 1)
+        * (d_in + 2 * zam.ssm.n_groups * N) * 2)
+    n_sb, n_m = xl.n_layers // xl.xlstm_slstm_every, \
+        xl.xlstm_slstm_every - 1
+    hd = xl.ssm.expand * xl.d_model // xl.n_heads
+    B = GENERATE_SSM["batch"]
+    out["generate_ssm_weight_bytes"] = model_size(xl)[1]
+    out["generate_ssm_cache_bytes"] = (
+        n_sb * n_m * B * xl.n_heads * (hd * hd + hd + 1) * 4
+        + 4 * n_sb * B * xl.d_model * 4)
+    for name, t, cfg in (("train_hybrid", TRAIN_HYBRID, zam),
+                         ("train_ssm", TRAIN_SSM, xl)):
+        n = model_size(dataclasses.replace(cfg, n_layers=t["layers"]))[0]
+        out[f"{name}_params"] = n
+        out[f"{name}_reckon_bytes"] = 12 * n
+    return out
 
 
 def phase_train_vlm(profile=False):
@@ -2866,6 +3052,115 @@ def phase_encdec(profile=False):
     # the main path's counts are the generate run's; training's ride along
     r["launches_train"] = r["train"]["launches"]
     return r
+
+
+def run_generate_recurrent(tag, cfg, B, S, steps, tf, device="cuda",
+                           seed=0, profile=False):
+    """The hybrid's or the ssm's generate path: B random prompts of S
+    tokens (one S for the batch) through `prefill` into a cache of
+    S + `steps` slots, `steps` greedy decodes (launch counts zeroed just
+    before, read just after), then decode against teacher forcing in f32
+    over one superblock (`tf`: tf_batch, tf_prompt, tf_steps)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import build_model
+    model = build_model(cfg, device=device, seed=seed)
+    n = sum(t.numel() for t in model.flat.values())
+    batch = {"tokens": torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (B, S))).to(device)}
+    _zero_launches()
+    r = _generate(model, batch, B, S + steps, steps)
+    r["launches"] = _launches()
+    _say_generate(tag, r)
+    _check_generate(tag, cfg, r, steps, device)
+    if profile:
+        r["profile"] = _profile_generate(tag, model, batch, B, S + steps)
+    r.pop("logits")
+    del model
+    r["n_params"] = n
+    per_sb = cfg.hybrid_attn_every or cfg.xlstm_slstm_every
+    r["teacher_forcing_rel"] = _decode_vs_teacher_forcing(
+        tag, dataclasses.replace(cfg, n_layers=per_sb, dtype="float32"),
+        device, tf["tf_batch"], tf["tf_prompt"], tf["tf_steps"])
+    return r
+
+
+def phase_generate_recurrent(tag, g, profile=False):
+    """generate-hybrid (zamba2-2.7b, GENERATE_HYBRID: flash at D 80 in
+    prefill, decode_attention at D 80, RMSNorm at d 2560 and 5120) or
+    generate-ssm (xlstm-1.3b, GENERATE_SSM: RMSNorm at d 2048 and 4096,
+    no attention), at full width and depth, bf16, random weights made on
+    the card."""
+    from repro_torch.configs import get_config
+    cfg = get_config(g["arch"])
+    sz = model_size(cfg)
+    _say(f"[{tag}] {cfg.arch_id} L={cfg.n_layers} d={cfg.d_model} "
+         f"H={cfg.n_heads} KV={cfg.n_kv_heads} {cfg.dtype}, "
+         f"{sz[0] / 1e9:.3f} B parameters ({sz[1] / 1e9:.2f} GB): "
+         f"{g['batch']} prompts of {g['prompt']} tokens, {g['steps']} "
+         f"decode steps, cache of {g['prompt'] + g['steps']} slots")
+    return run_generate_recurrent(tag, cfg, g["batch"], g["prompt"],
+                                  g["steps"], g, "cuda", profile=profile)
+
+
+def phase_train_recurrent(tag, t, kernels, profile=False):
+    """train-hybrid (zamba2-2.7b at full width and depth, TRAIN_HYBRID:
+    flash at D 80 and RMSNorm both ways) or train-ssm (xlstm-1.3b at full
+    width, depth cut to TRAIN_SSM["layers"]: RMSNorm both ways), bf16,
+    every superblock checkpointed; `kernels` must launch."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    full = get_config(t["arch"])
+    cfg = dataclasses.replace(full, n_layers=t["layers"])
+    n = model_size(cfg)[0]
+    _say(f"[{tag}] {cfg.arch_id} L={cfg.n_layers} (of {full.n_layers}) "
+         f"d={cfg.d_model} H={cfg.n_heads} KV={cfg.n_kv_heads} "
+         f"vocab {cfg.vocab_size}, {cfg.dtype}, {n / 1e9:.3f} B parameters "
+         f"({12 * n / 2**30:.1f} GiB at 12 bytes each); {t['steps']} AdamW "
+         f"steps of {t['batch']} x {t['seq']} tokens, every superblock "
+         f"checkpointed")
+    res = run_train(tag, cfg, t["batch"], t["seq"], t["steps"], kernels)
+    res.update(n_params=n, n_layers=cfg.n_layers)
+    if profile:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["profile"] = _profile_train(cfg, t["batch"], t["seq"])
+    return res
+
+
+def model_size(cfg):
+    """(parameters, bytes) of a hybrid or ssm model at `cfg`, from shapes
+    alone (no tensor): the leaves of `HybridModel._init` /
+    `XLSTMModel._init`, the f32 ones (A_log, D, dt_bias; the gate weights
+    and biases, r_gates, b_gates) at 4 bytes, the rest in cfg.dtype."""
+    w = 2 if cfg.dtype == "bfloat16" else 4
+    d, V = cfg.d_model, cfg.padded_vocab
+    main, f32 = 2 * V * d + d, 0          # embed, lm_head, final norm
+    if cfg.family == "hybrid":
+        d_in = cfg.ssm.expand * d
+        H, N, G = d_in // 64, cfg.ssm.state_dim, cfg.ssm.n_groups
+        conv = d_in + 2 * G * N
+        main += cfg.n_layers * (d + d * (2 * d_in + 2 * G * N + H)
+                                + (cfg.ssm.conv_dim + 1) * conv + d_in
+                                + d_in * d)
+        f32 += cfg.n_layers * 3 * H
+        hq, hkv = cfg.n_q_heads * cfg.resolved_head_dim, \
+            cfg.n_kv_heads * cfg.resolved_head_dim
+        main += 2 * d * hq + 2 * d * hkv + 2 * d + 3 * d * cfg.d_ff
+    elif cfg.family == "ssm":
+        n_sb = cfg.n_layers // cfg.xlstm_slstm_every
+        n_m = cfg.xlstm_slstm_every - 1
+        d_in, H = cfg.ssm.expand * d, cfg.n_heads
+        main += n_sb * n_m * (d + 2 * d * d_in + 3 * d_in * d_in + d_in
+                              + d_in * d)
+        f32 += n_sb * n_m * (2 * d_in * H + 2 * H)
+        main += n_sb * (2 * d + 4 * d * d + d * d)
+        f32 += n_sb * (4 * H * (d // H) ** 2 + 4 * d)
+    else:
+        raise ValueError(cfg.family)
+    return main + f32, main * w + f32 * 4
 
 
 # ------------------------------------------------------------------- main --
@@ -3003,6 +3298,18 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["encdec"] = phase_encdec(profile=args.profile)
+    # the last two families: generate (kernels None) and train phases
+    for tag, settings, kernels in (
+            ("generate-hybrid", GENERATE_HYBRID, None),
+            ("train-hybrid", TRAIN_HYBRID, TRAIN_KERNELS),
+            ("generate-ssm", GENERATE_SSM, None),
+            ("train-ssm", TRAIN_SSM, ("rmsnorm", "rmsnorm_bwd"))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths[tag] = (
+            phase_generate_recurrent(tag, settings, args.profile)
+            if kernels is None else
+            phase_train_recurrent(tag, settings, kernels, args.profile))
     torch.cuda.empty_cache()
 
     rows = []

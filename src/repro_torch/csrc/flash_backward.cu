@@ -51,12 +51,13 @@
 // the plain f32 version within atol = 2e-2 * max|grad|, rtol = 2e-2.
 //
 // f32 (the exact reference path of the card checks; no main path runs
-// it), and bf16 at D = 32 (the smoke configs): the CUDA-core kernels,
-// 64 x 64 tiles, f32 FMAs throughout, bound by FMA issue and
-// shared-memory reads. The mma.sync kernels' swizzle XORs a row's
-// 16-byte chunk index with row % 8, so a row needs at least 8 chunks
-// (D % 64 == 0); a bf16 tensor with D = 32 always takes the CUDA-core
-// pair. That is a dispatch by shape, not a fallback: nothing retries
+// it), bf16 at D = 32 (the smoke configs) and bf16 at D = 80 (zamba2's
+// shared attention): the CUDA-core kernels, 64 x 64 tiles, f32 FMAs
+// throughout, bound by FMA issue and shared-memory reads (100 KB of
+// shared memory for dq, 117 KB for dk/dv at D = 80). The mma.sync
+// kernels' swizzle XORs a row's 16-byte chunk index with row % 8, so a
+// row needs a multiple of 8 chunks (D % 64 == 0); a bf16 tensor with
+// D = 32 or 80 always takes the CUDA-core pair. That is a dispatch by shape, not a fallback: nothing retries
 // another kernel when a launch fails.
 #include "common.cuh"
 #include "hopper.cuh"
@@ -848,9 +849,12 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                             Skv, H, KV, q_offset, causal, window, scale, s)
   if (dtype == 0 && D == 32) REPRO_FLASH_BWD_CASE(float, 32);
   if (dtype == 0 && D == 64) REPRO_FLASH_BWD_CASE(float, 64);
+  if (dtype == 0 && D == 80) REPRO_FLASH_BWD_CASE(float, 80);
   if (dtype == 0 && D == 128) REPRO_FLASH_BWD_CASE(float, 128);
-  // bf16 at D = 32: the CUDA-core pair, by shape (swz<D> needs D % 64 == 0)
+  // bf16 at D = 32 and 80: the CUDA-core pair, by shape (swz<D> needs
+  // D % 64 == 0)
   if (dtype == 1 && D == 32) REPRO_FLASH_BWD_CASE(__nv_bfloat16, 32);
+  if (dtype == 1 && D == 80) REPRO_FLASH_BWD_CASE(__nv_bfloat16, 80);
 #undef REPRO_FLASH_BWD_CASE
 #define REPRO_FLASH_BWD_TC_CASE(DD)                                         \
   return (int)tc::launch<DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,   \

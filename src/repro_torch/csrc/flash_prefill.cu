@@ -48,13 +48,15 @@
 // the long tiles do not land in the last wave.
 //
 // f32 (the exact reference path of the card checks; no main path runs
-// it), and bf16 at D = 32 (the smoke configs): the CUDA-core kernel,
-// bound by f32 FMA issue. One block per (q-tile of 64 rows, head,
-// batch), a loop over 64-key tiles, f32 tiles in padded shared memory,
-// online softmax in registers. The tensor-core kernel stores a tile as
-// 64-column blocks with 128-byte rows (TMA's 128-byte swizzle), so D = 32
-// would need a 64-byte swizzle variant; a bf16 tensor with D = 32 always
-// takes the CUDA-core kernel instead. That is a dispatch by shape, not a
+// it), bf16 at D = 32 (the smoke configs) and bf16 at D = 80 (zamba2's
+// shared attention, 2560 / 32 heads): the CUDA-core kernel, bound by
+// f32 FMA issue. One block per (q-tile of 64 rows, head, batch), a loop
+// over 64-key tiles, f32 tiles in padded shared memory (78.6 KB at
+// D = 80), online softmax in registers. The tensor-core kernel stores a
+// tile as 64-column blocks with 128-byte rows (TMA's 128-byte swizzle),
+// so D = 32 would need a 64-byte swizzle variant and D = 80 (160-byte
+// rows) a tile of mixed block widths; a bf16 tensor with D = 32 or 80
+// always takes the CUDA-core kernel instead. That is a dispatch by shape, not a
 // fallback: nothing retries another kernel when a launch fails.
 #include <cuda.h>
 
@@ -624,10 +626,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                             window, scale, s)
   if (dtype == 0 && D == 32) REPRO_FLASH_CASE(float, 32);
   if (dtype == 0 && D == 64) REPRO_FLASH_CASE(float, 64);
+  if (dtype == 0 && D == 80) REPRO_FLASH_CASE(float, 80);
   if (dtype == 0 && D == 128) REPRO_FLASH_CASE(float, 128);
   // bf16 at D = 32 is too narrow for the tensor-core kernel's 64-column
-  // swizzled blocks: it always takes the CUDA-core kernel (by shape)
+  // swizzled blocks, and D = 80 (zamba2's shared attention) is not a
+  // whole number of them: both always take the CUDA-core kernel (by shape)
   if (dtype == 1 && D == 32) REPRO_FLASH_CASE(__nv_bfloat16, 32);
+  if (dtype == 1 && D == 80) REPRO_FLASH_CASE(__nv_bfloat16, 80);
 #undef REPRO_FLASH_CASE
 #define REPRO_FLASH_TC_CASE(DD)                                             \
   return (int)tc::launch<DD>(q, k, v, out, lse, kv_len, q_offset,           \

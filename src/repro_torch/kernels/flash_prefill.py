@@ -34,7 +34,9 @@ launches_bwd = 0
 launches_decode = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+# head dims with a case in both flash sources: 80 is zamba2's shared
+# attention (bf16 takes the CUDA-core kernels there, by shape)
+_HEAD_DIMS = (32, 64, 80, 128)
 
 
 # the kernel's plain PyTorch version, run for CPU tensors and held
@@ -95,9 +97,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, kv_len=None,
     position of q[:, 0] (int or (B,) tensor). Returns (B, Sq, H, D) in
     q.dtype. CPU tensors run the plain version (`q_chunk` / `kv_chunk`
     are its chunk sizes; autograd differentiates it); CUDA tensors launch
-    the kernel, which takes bf16 or f32, D in {32, 64, 128}, and contiguous
-    inputs, and raises on anything else. When q, k or v requires grad
-    (and grad mode is on) the backward kernels give the gradient."""
+    the kernel, which takes bf16 or f32, D in {32, 64, 80, 128}, and
+    contiguous inputs, and raises on anything else. When q, k or v
+    requires grad (and grad mode is on) the backward kernels give the
+    gradient."""
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, kv_len=kv_len,

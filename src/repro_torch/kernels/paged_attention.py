@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_prefill import _DTYPES, _HEAD_DIMS, _check
+from repro_torch.kernels.flash_prefill import _DTYPES, _check
 from repro_torch.kernels.ref import NEG_INF, paged_attention_reference
 
 # kernel launches since the last reset (CPU calls do not count): one per
@@ -24,6 +24,11 @@ from repro_torch.kernels.ref import NEG_INF, paged_attention_reference
 launches = 0
 
 MAX_GROUP = 16  # query heads per KV head the kernel holds (csrc MAX_G)
+# the head dims the paged kernels (this one and paged_prefill.cu) have
+# cases for: the served families' (dense, MoE). Not flash's list, which
+# also takes zamba2's 80: a paged call at D = 80 raises here, before any
+# launch, rather than fail in the kernel's dispatch
+_HEAD_DIMS = (32, 64, 128)
 SPLIT = 256     # context tokens per block (csrc SPLIT)
 
 

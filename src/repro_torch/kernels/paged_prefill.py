@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_prefill import _DTYPES, _HEAD_DIMS, _check
-from repro_torch.kernels.paged_attention import MAX_GROUP
+from repro_torch.kernels.flash_prefill import _DTYPES, _check
+from repro_torch.kernels.paged_attention import _HEAD_DIMS, MAX_GROUP
 from repro_torch.kernels.ref import paged_prefill_reference
 
 # since the last reset (CPU calls do not count): body launches of the

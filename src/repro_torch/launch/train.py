@@ -4,13 +4,15 @@ plus `--device`).
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --smoke --steps 200 --batch 8 --seq 128 --device cpu
 
---smoke uses the reduced config. Dense, MoE, vlm (qwen2-vl-7b) and
-encdec (whisper-base) archs train (MoE through the capacity-factor
-dispatch, with the load-balance loss; the log line then carries
-`lb_loss` and `dropped_frac`; vlm and encdec on the data stream's stub
-frontends). `--device` (default cuda)
-selects where it runs; without a CUDA device it raises unless given
-`--device cpu`.
+--smoke uses the reduced config. Every family trains: dense, MoE, vlm
+(qwen2-vl-7b), encdec (whisper-base), hybrid (zamba2-2.7b) and ssm
+(xlstm-1.3b). MoE goes through the capacity-factor dispatch, with the
+load-balance loss; the log line then carries `lb_loss` and
+`dropped_frac`. vlm and encdec read the data stream's stub frontends;
+hybrid and ssm read its tokens and labels only, and their `--seq` is at
+most 128 or a multiple of 128 (the chunked sequence cores' assert, as in
+the reference). `--device` (default cuda) selects where it runs;
+without a CUDA device it raises unless given `--device cpu`.
 """
 from __future__ import annotations
 

@@ -1,3 +1,5 @@
-from repro_torch.models.model import DecoderModel, EncDecModel, build_model
+from repro_torch.models.model import (DecoderModel, EncDecModel,
+                                     HybridModel, XLSTMModel, build_model)
 
-__all__ = ["DecoderModel", "EncDecModel", "build_model"]
+__all__ = ["DecoderModel", "EncDecModel", "HybridModel", "XLSTMModel",
+           "build_model"]

@@ -1,7 +1,7 @@
-"""The attention families' models — the port of
-`repro.models.model`'s `_decoder_model` (dense, MoE and vlm) and
-`_encdec_model` (whisper), with `Model.loss`, `cross_entropy` and
-`build_model`.
+"""Every family's model — the port of `repro.models.model`'s
+`_decoder_model` (dense, MoE and vlm), `_encdec_model` (whisper),
+`_hybrid_model` (zamba2) and `_xlstm_model` (xlstm), with `Model.loss`,
+`cross_entropy` and `build_model`.
 
     model = build_model(cfg, params=None, device="cuda", seed=0)
     cache = model.init_cache(batch_size, cache_len)
@@ -13,12 +13,15 @@
 `batch` keys by family, as in the reference: dense / moe `tokens`; vlm
 `embeds` (B, S, d) and `mrope_pos` (3, B, S) in place of the token
 embedding and positions (decode takes text tokens at text-stream
-positions); encdec `enc_embeds` (B, T, d) and `tokens`; all `labels`
-for the loss.
+positions); encdec `enc_embeds` (B, T, d) and `tokens`; hybrid and ssm
+`tokens` (one S for the batch); all `labels` for the loss.
 
 Layers run as a Python loop over the layer-stacked params (the
-reference's `lax.scan`). MoE blocks run `moe.moe_ffn`: dropless on the
-serving and decode paths, through the capacity buffer in training,
+reference's `lax.scan`); the hybrid's and xlstm's superblocks are
+stacked twice, (n_sb, per_sb, ...), and `train_logits` checkpoints a
+whole superblock, as the reference does. MoE blocks run
+`moe.moe_ffn`: dropless on the serving and decode paths, through the
+capacity buffer in training,
 where each block's load-balance terms come out of its checkpoint and are
 averaged over layers, and `loss` adds `0.01 * lb_loss` to the
 cross-entropy as the reference's does. `prefill` and `decode` write the
@@ -26,12 +29,14 @@ dense (L, B, S, KV, hd) cache in place (the reference threads it
 through its scan carry); with `cfg.kv_quant` it holds int8 codes and a
 bf16 scale per (token, head), and decode requantizes only the row it
 writes. A sliding-window cache is a ring buffer laid out exactly as the
-reference lays it out (ROADMAP C8). The hybrid and ssm families are not
-ported yet; `build_model` raises for them. Weights are frozen
+reference lays it out (ROADMAP C8); the hybrid's shared block keeps one
+such cache per use. Weights are frozen
 (`requires_grad=False`) until `requires_grad_(True)`; the serving paths
 never turn it on.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 from torch import nn
@@ -40,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 
 def layer_params(tree, l: int):
     """Layer `l`'s slice of layer-stacked params (views, no copy)."""
@@ -188,18 +193,21 @@ def decode_slots(cache):
 
 
 def stack_init(n, make_block, device):
-    """Layer-stacked params of `n` blocks: `make_block()` draws one
-    block's nested dict, copied into preallocated (n, ...) stacks (a
-    full-width model never holds a second copy of its layers)."""
+    """Layer-stacked params of `n` blocks (an int, or a tuple such as
+    (n_sb, per_sb) for superblocks stacked twice): `make_block()` draws
+    one block's nested dict, copied into preallocated (*n, ...) stacks
+    in row-major order (a full-width model never holds a second copy of
+    its layers)."""
+    shape = (n,) if isinstance(n, int) else tuple(n)
     stacked = None
-    for l in range(n):
+    for idx in itertools.product(*map(range, shape)):
         lp = flatten_params(make_block())
         if stacked is None:
-            stacked = {k: torch.empty((n, *t.shape), dtype=t.dtype,
+            stacked = {k: torch.empty((*shape, *t.shape), dtype=t.dtype,
                                       device=device)
                        for k, t in lp.items()}
         for k, t in lp.items():
-            stacked[k][l] = t
+            stacked[k][idx] = t
     return unflatten_params(stacked)
 
 
@@ -214,8 +222,8 @@ class _Model(nn.Module):
                  seed: int = 0):
         super().__init__()
         if cfg.family not in self.FAMILIES:
-            raise ValueError(f"family {cfg.family!r} is not yet ported "
-                             f"by {type(self).__name__} "
+            raise ValueError(f"family {cfg.family!r} is not built by "
+                             f"{type(self).__name__} "
                              f"({', '.join(self.FAMILIES)} only)")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -578,15 +586,312 @@ class EncDecModel(_Model):
         return self.unembed(x[:, 0]), cache
 
 
+class HybridModel(_Model):
+    """Hybrid (zamba2): a Mamba2 backbone in superblocks of
+    `hybrid_attn_every` layers, each superblock opened by ONE shared
+    attention + MLP block (the same weights at every use, so its
+    gradient sums over the n_sb uses). Params keep the reference's keys:
+    `embed`, `mamba_sb` stacked (n_sb, per_sb, ...), `shared_attn`,
+    `final_norm` and an untied `lm_head`. The cache holds each use's
+    K/V (n_sb, B, S, KV, hd) (a ring buffer when the config's window
+    covers it, laid out as the reference's), each Mamba2 layer's SSD
+    state (f32) and conv tail, `len` and `window`. `prefill` takes one
+    S for the whole batch (no `prompt_len`), at most 128 or a multiple
+    of 128 (`ssm.ssd_chunked`)."""
+
+    FAMILIES = ("hybrid",)
+
+    def _sb(self):
+        per_sb = self.cfg.hybrid_attn_every
+        assert self.cfg.n_layers % per_sb == 0
+        return self.cfg.n_layers // per_sb, per_sb
+
+    def _init(self, seed: int):
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        n_sb, per_sb = self._sb()
+
+        def norm():
+            return layers.init_norm(cfg, cfg.d_model, dt, dev)
+
+        def mamba_layer():
+            return {"norm": norm(),
+                    "mamba": ssm.init_mamba(cfg, gen, dt, dev)}
+        return {
+            "embed": layers.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                       dt, dev),
+            "mamba_sb": stack_init((n_sb, per_sb), mamba_layer, dev),
+            "shared_attn": {
+                "attn_norm": norm(),
+                "attn": layers.init_attention(cfg, gen, dt, dev),
+                "mlp_norm": norm(),
+                "mlp": layers.init_mlp(cfg, gen, dt, dev)},
+            "final_norm": norm(),
+            "lm_head": layers.dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                         dt, dev),
+        }
+
+    def unembed(self, x):
+        """Final-norm features -> logits through the untied `lm_head`
+        (the reference's hybrid and xlstm never tie it), pad-vocab
+        masked."""
+        return mask_pad_logits(self.cfg, x @ self.params["lm_head"])
+
+    def _shared_attn_full(self, x, pos, window):
+        """The shared block over a whole sequence: (x, (k, v))."""
+        cfg, sp = self.cfg, self.params["shared_attn"]
+        h = layers.apply_norm(cfg, sp["attn_norm"], x)
+        a, kv = layers.self_attention(cfg, sp["attn"], h, pos, causal=True,
+                                      window=window)
+        x = x + a
+        h = layers.apply_norm(cfg, sp["mlp_norm"], x)
+        return x + layers.mlp(cfg, sp["mlp"], h), kv
+
+    def _mamba_layer(self, lp, x):
+        """One Mamba2 layer over a whole sequence, from a zero state:
+        (x, (ssd_state, conv_tail))."""
+        h = layers.apply_norm(self.cfg, lp["norm"], x)
+        out, st = ssm.mamba_forward(self.cfg, lp["mamba"], h)
+        return x + out, st
+
+    def train_logits_aux(self, batch, remat=True):
+        """(logits, {}) for batch tokens (B, S); with `remat` each whole
+        superblock (shared block + its Mamba2 layers) runs under
+        `torch.utils.checkpoint`, as the reference's `jax.checkpoint
+        (sb_fn)`."""
+        cfg, p = self.cfg, self.params
+        x = p["embed"][batch["tokens"]]
+        B, S = x.shape[:2]
+        pos = positions_for(cfg, B, S, self.device)
+        window = cfg.sliding_window if S > cfg.sliding_window > 0 else 0
+
+        def superblock(x, sb):
+            x, _ = self._shared_attn_full(x, pos, window)
+            for lp in unbind_layers(sb):
+                x, _ = self._mamba_layer(lp, x)
+            return x
+
+        for sb in unbind_layers(p["mamba_sb"]):
+            x = (checkpoint(superblock, x, sb, use_reentrant=False)
+                 if remat else superblock(x, sb))
+        x = layers.apply_norm(cfg, p["final_norm"], x)
+        return self.unembed(x), {}
+
+    def init_cache(self, B, cache_len, cache_dtype=None):
+        cfg, dev = self.cfg, self.device
+        cd = torch_dtype(cache_dtype or cfg.dtype)
+        n_sb, per_sb = self._sb()
+        d_in, H, P, N, G = ssm.mamba_dims(cfg)
+        kv = (n_sb, B, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {
+            "k": torch.zeros(kv, dtype=cd, device=dev),
+            "v": torch.zeros(kv, dtype=cd, device=dev),
+            "ssm_state": torch.zeros((n_sb, per_sb, B, H, N, P),
+                                     dtype=torch.float32, device=dev),
+            "conv": torch.zeros((n_sb, per_sb, B, cfg.ssm.conv_dim - 1,
+                                 d_in + 2 * G * N), dtype=cd, device=dev),
+            "len": torch.zeros(B, dtype=torch.int32, device=dev),
+            "window": cache_len if cfg.sliding_window
+            and cache_len <= cfg.sliding_window else 0,
+        }
+
+    def prefill(self, batch, cache):
+        """tokens (B, S): every shared-block use's K/V (a prompt longer
+        than the cache keeps its trailing S_buf positions in slots 0..,
+        attended through the config's window) and every Mamba2 layer's
+        final SSD state and conv tail go into `cache` in place; returns
+        (last-position logits, cache)."""
+        cfg, p = self.cfg, self.params
+        x = p["embed"][batch["tokens"]]
+        B, S = x.shape[:2]
+        pos = positions_for(cfg, B, S, self.device)
+        S_buf = cache["k"].shape[2]
+        window = cfg.sliding_window if S > S_buf else 0
+        W = min(S, S_buf)
+        n_sb, per_sb = self._sb()
+        for i in range(n_sb):
+            x, (k, v) = self._shared_attn_full(x, pos, window)
+            cache["k"][i, :, :W] = k[:, S - W:]
+            cache["v"][i, :, :W] = v[:, S - W:]
+            for j in range(per_sb):
+                x, (st, conv) = self._mamba_layer(
+                    layer_params(p["mamba_sb"], (i, j)), x)
+                cache["ssm_state"][i, j] = st
+                cache["conv"][i, j] = conv
+        cache["len"] = torch.full((B,), S, dtype=torch.int32,
+                                  device=self.device)
+        x = layers.apply_norm(cfg, p["final_norm"], x)
+        return self.unembed(x[:, -1]), cache
+
+    def decode(self, tokens, cache):
+        """One token per sequence: the shared block over each use's cached
+        K/V (written in place, ring slot when windowed), each Mamba2
+        layer's recurrent step from its cached state and conv tail;
+        returns (logits (B, padded_vocab), cache)."""
+        cfg, p = self.cfg, self.params
+        sp = p["shared_attn"]
+        B = tokens.shape[0]
+        x = p["embed"][tokens.reshape(B, 1)]
+        write_idx, kv_len = decode_slots(cache)
+        pos = positions_for(cfg, B, 1, self.device, offset=cache["len"])
+        n_sb, per_sb = self._sb()
+        for i in range(n_sb):
+            h = layers.apply_norm(cfg, sp["attn_norm"], x)
+            x = x + attn_decode(cfg, sp["attn"], h, cache["k"][i],
+                                cache["v"][i], kv_len, pos, write_idx)
+            h = layers.apply_norm(cfg, sp["mlp_norm"], x)
+            x = x + layers.mlp(cfg, sp["mlp"], h)
+            for j in range(per_sb):
+                lp = layer_params(p["mamba_sb"], (i, j))
+                h = layers.apply_norm(cfg, lp["norm"], x)
+                out, (st, conv) = ssm.mamba_decode(
+                    cfg, lp["mamba"], h, cache["ssm_state"][i, j],
+                    cache["conv"][i, j])
+                x = x + out
+                cache["ssm_state"][i, j] = st
+                cache["conv"][i, j] = conv
+        cache["len"] = cache["len"] + 1
+        x = layers.apply_norm(cfg, p["final_norm"], x)
+        return self.unembed(x[:, 0]), cache
+
+
+class XLSTMModel(_Model):
+    """xLSTM (the ssm family): superblocks of `xlstm_slstm_every - 1`
+    mLSTM layers and one sLSTM layer, attention-free. Params `embed`,
+    `mlstm_sb` (n_sb, n_m, ...), `slstm_sb` (n_sb, ...), `final_norm`,
+    `lm_head`. The cache is the recurrent state: mLSTM `mC` / `mn` /
+    `mm` (m starts at -1e30) and sLSTM `sc` / `sn` / `sm` (m starts at
+    -10) / `sh`, all f32, and `len`; `prefill` (the chunked mLSTM, S at
+    most 128 or a multiple of 128) and `decode` (the exact recurrence)
+    both run from it."""
+
+    FAMILIES = ("ssm",)
+
+    def _sb(self):
+        per_sb = self.cfg.xlstm_slstm_every
+        assert self.cfg.n_layers % per_sb == 0
+        return self.cfg.n_layers // per_sb, per_sb - 1
+
+    def _init(self, seed: int):
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        n_sb, n_m = self._sb()
+
+        def norm():
+            return layers.init_norm(cfg, cfg.d_model, dt, dev)
+        return {
+            "embed": layers.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                       dt, dev),
+            "mlstm_sb": stack_init(
+                (n_sb, n_m), lambda: {"norm": norm(), "mlstm":
+                                      ssm.init_mlstm(cfg, gen, dt, dev)},
+                dev),
+            "slstm_sb": stack_init(
+                n_sb, lambda: {"norm": norm(), "slstm":
+                               ssm.init_slstm(cfg, gen, dt, dev)}, dev),
+            "final_norm": norm(),
+            "lm_head": layers.dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                         dt, dev),
+        }
+
+    unembed = HybridModel.unembed   # the same untied lm_head
+
+    def train_logits_aux(self, batch, remat=True):
+        """(logits, {}) for batch tokens (B, S); with `remat` each
+        superblock is checkpointed, as the reference's."""
+        cfg, p = self.cfg, self.params
+        x = p["embed"][batch["tokens"]]
+
+        def superblock(x, mp, sp):
+            for lp in unbind_layers(mp):
+                h = layers.apply_norm(cfg, lp["norm"], x)
+                x = x + ssm.mlstm_forward(cfg, lp["mlstm"], h)[0]
+            h = layers.apply_norm(cfg, sp["norm"], x)
+            return x + ssm.slstm_forward(cfg, sp["slstm"], h)[0]
+
+        for mp, sp in zip(unbind_layers(p["mlstm_sb"]),
+                          unbind_layers(p["slstm_sb"])):
+            x = (checkpoint(superblock, x, mp, sp, use_reentrant=False)
+                 if remat else superblock(x, mp, sp))
+        x = layers.apply_norm(cfg, p["final_norm"], x)
+        return self.unembed(x), {}
+
+    def init_cache(self, B, cache_len, cache_dtype=None):
+        """The recurrent state (no K/V: `cache_len` and `cache_dtype` are
+        the Model API's and change nothing)."""
+        del cache_len, cache_dtype
+        cfg, dev = self.cfg, self.device
+        n_sb, n_m = self._sb()
+        d_in, H, hd = ssm.mlstm_dims(cfg)
+        s = (n_sb, B, cfg.n_heads, cfg.d_model // cfg.n_heads)
+
+        def full(shape, v):
+            return torch.full(shape, v, dtype=torch.float32, device=dev)
+        return {
+            "mC": full((n_sb, n_m, B, H, hd, hd), 0.0),
+            "mn": full((n_sb, n_m, B, H, hd), 0.0),
+            "mm": full((n_sb, n_m, B, H), -1e30),
+            "sc": full(s, 0.0), "sn": full(s, 0.0), "sm": full(s, -10.0),
+            "sh": full(s, 0.0),
+            "len": torch.zeros(B, dtype=torch.int32, device=dev),
+        }
+
+    def _run_with_state(self, x, cache, decode_mode):
+        """Every layer from its cached state (chunked mLSTM over the
+        sequence, or its one-token recurrence), the new state written
+        into `cache` in place."""
+        cfg, p = self.cfg, self.params
+        n_sb, n_m = self._sb()
+        mkeys, skeys = ("mC", "mn", "mm"), ("sc", "sn", "sm", "sh")
+        for i in range(n_sb):
+            for j in range(n_m):
+                lp = layer_params(p["mlstm_sb"], (i, j))
+                h = layers.apply_norm(cfg, lp["norm"], x)
+                st = tuple(cache[k][i, j] for k in mkeys)
+                out, st = (ssm.mlstm_decode(cfg, lp["mlstm"], h, st)
+                           if decode_mode else
+                           ssm.mlstm_forward(cfg, lp["mlstm"], h, state=st))
+                x = x + out
+                for k, t in zip(mkeys, st):
+                    cache[k][i, j] = t
+            sp = layer_params(p["slstm_sb"], i)
+            h = layers.apply_norm(cfg, sp["norm"], x)
+            out, st = ssm.slstm_forward(cfg, sp["slstm"], h,
+                                        state=tuple(cache[k][i]
+                                                    for k in skeys))
+            x = x + out
+            for k, t in zip(skeys, st):
+                cache[k][i] = t
+        return x
+
+    def prefill(self, batch, cache):
+        cfg, p = self.cfg, self.params
+        x = p["embed"][batch["tokens"]]
+        B, S = x.shape[:2]
+        x = self._run_with_state(x, cache, decode_mode=False)
+        cache["len"] = torch.full((B,), S, dtype=torch.int32,
+                                  device=self.device)
+        x = layers.apply_norm(cfg, p["final_norm"], x)
+        return self.unembed(x[:, -1]), cache
+
+    def decode(self, tokens, cache):
+        cfg, p = self.cfg, self.params
+        B = tokens.shape[0]
+        x = p["embed"][tokens.reshape(B, 1)]
+        x = self._run_with_state(x, cache, decode_mode=True)
+        cache["len"] = cache["len"] + 1
+        x = layers.apply_norm(cfg, p["final_norm"], x)
+        return self.unembed(x[:, 0]), cache
+
+
 def build_model(cfg: ModelConfig, params=None, *, device="cuda",
                 seed: int = 0):
     """The family's model (`repro.models.build_model`): DecoderModel for
-    dense / moe / vlm, EncDecModel for encdec; hybrid and ssm are not
-    yet ported."""
-    if cfg.family in DecoderModel.FAMILIES:
-        return DecoderModel(cfg, params, device=device, seed=seed)
-    if cfg.family in EncDecModel.FAMILIES:
-        return EncDecModel(cfg, params, device=device, seed=seed)
-    if cfg.family in ("hybrid", "ssm"):
-        raise ValueError(f"family {cfg.family!r} is not yet ported")
+    dense / moe / vlm, EncDecModel for encdec, HybridModel for hybrid
+    (zamba2), XLSTMModel for ssm (xlstm)."""
+    for cls in (DecoderModel, EncDecModel, HybridModel, XLSTMModel):
+        if cfg.family in cls.FAMILIES:
+            return cls(cfg, params, device=device, seed=seed)
     raise ValueError(cfg.family)

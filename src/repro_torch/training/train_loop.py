@@ -2,8 +2,9 @@
 (loss, gradients by autograd, AdamW in place) and the driver, with the
 reference's defaults, log lines and checkpoint cadence.
 
-Every ported family trains (`build_model`: dense, MoE, vlm on its stub
-embeddings and mrope positions, encdec on its stub frames); an MoE
+Every family trains (`build_model`: dense, MoE, vlm on its stub
+embeddings and mrope positions, encdec on its stub frames, hybrid and
+ssm on tokens and labels); an MoE
 model's step runs the capacity-factor dispatch and adds the reference's
 `0.01 * lb_loss` (`Model.loss`), and its `lb_loss` and `dropped_frac`
 come out in the result and the log line. On CUDA every norm and every attention call runs the port's

@@ -201,3 +201,62 @@ def test_chip_smoke_model_api_sizes_fit_one_card():
     assert 14e9 < sz["generate_vlm_weight_bytes"] < 17e9
     assert 2.9e9 < sz["train_vlm_params"] < 3.0e9
     assert sz["train_vlm_reckon_bytes"] < 40 * 2**30
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
+def test_chip_smoke_recurrent_generate_and_train_dry_run(arch):
+    """The generate-hybrid / generate-ssm driver (one S for the batch,
+    greedy decodes, decode against teacher forcing over one superblock)
+    and the train driver, on the smoke config."""
+    cfg = _smoke(arch)
+    res = chip_smoke.run_generate_recurrent(
+        "t", cfg, 2, 16, 3, dict(tf_batch=2, tf_prompt=12, tf_steps=4),
+        "cpu")
+    assert len(res["tokens"]) == 2 and len(res["tokens"][0]) == 4
+    assert not res["nonfinite_steps"] and res["teacher_forcing_rel"] < 5e-3
+    assert res["n_params"] == chip_smoke.model_size(cfg)[0]
+    tr = chip_smoke.run_train("t", cfg, 2, 16, 2, (), "cpu")
+    assert len(tr["losses"]) == 2
+
+
+def test_chip_smoke_ssm_ranges_mark_and_restore():
+    """`_ssm_ranges` wraps each sequence core of models/ssm.py for a
+    traced run and puts the module's own functions back after it."""
+    from repro_torch.models import ssm
+    before = {n: getattr(ssm, n) for n in chip_smoke.SSM_RANGES}
+    with chip_smoke._ssm_ranges() as names:
+        assert names == chip_smoke.SSM_RANGES
+        assert all(getattr(ssm, n) is not before[n] for n in names)
+    assert all(getattr(ssm, n) is before[n] for n in before)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chip_smoke_model_size_counts_the_models_leaves(arch, dtype):
+    """`model_size` (parameters and bytes from shapes alone, f32 leaves at
+    4 bytes) equals the smoke model's own leaves in either dtype."""
+    import dataclasses
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(_smoke(arch), dtype=dtype)
+    flat = list(build_model(cfg, device="cpu").flat.values())
+    assert chip_smoke.model_size(cfg) == (
+        sum(t.numel() for t in flat),
+        sum(t.numel() * t.element_size() for t in flat))
+
+
+def test_chip_smoke_recurrent_sizes_fit_one_card():
+    """zamba2-2.7b: 2.42 B parameters (4.84 GB in bf16), a 1056-slot cache
+    for 4 rows of ~0.68 GB, 29 GB at 12 bytes a parameter for training at
+    full depth; xlstm-1.3b as the reference builds it: 3.53 B parameters
+    (wq / wk / wv are d_in x d_in), a 2.82 GB mC for 4 rows, and train-ssm's
+    16-layer cut at 1.31 B parameters. Each leaves room on an 80 GB card
+    for activations and the optimizer's temporaries."""
+    sz = chip_smoke.path_sizes()
+    assert 4.8e9 < sz["generate_hybrid_weight_bytes"] < 4.9e9
+    assert 0.6e9 < sz["generate_hybrid_cache_bytes"] < 0.75e9
+    assert 7.0e9 < sz["generate_ssm_weight_bytes"] < 7.2e9
+    assert 2.8e9 < sz["generate_ssm_cache_bytes"] < 2.9e9
+    assert 2.40e9 < sz["train_hybrid_params"] < 2.45e9
+    assert 1.30e9 < sz["train_ssm_params"] < 1.32e9
+    assert sz["train_hybrid_reckon_bytes"] < 30e9
+    assert sz["train_ssm_reckon_bytes"] < 16e9

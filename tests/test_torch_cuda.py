@@ -72,9 +72,10 @@ def test_flash_kernel_window(window):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
-# G = H / KV in {1, 4, 8} at D = 64 and 128, and the smoke configs' D = 32
+# G = H / KV in {1, 4, 8} at D = 64 and 128, the smoke configs' D = 32,
+# and zamba2's D = 80 (bf16 on the CUDA-core kernels, by shape) at G 1, 4
 GQA_SHAPES = [(8, 8, 64), (8, 2, 64), (8, 1, 64), (8, 8, 128), (8, 2, 128),
-              (8, 1, 128), (8, 2, 32), (4, 4, 32)]
+              (8, 1, 128), (8, 2, 32), (4, 4, 32), (8, 8, 80), (8, 2, 80)]
 # the forward's tile edges (128 query rows x 128 keys): (B, Sq, Skv,
 # kv_len, q_offset, window)
 FWD_EDGES = {
@@ -256,9 +257,26 @@ def test_paged_decode_is_one_launch():
 
 def test_wrappers_reject_bad_inputs():
     _need_cuda()
-    q = torch.zeros(1, 16, 4, 80, device="cuda")
+    q = torch.zeros(1, 16, 4, 96, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         flash_prefill.flash_attention(q, q, q)
+    # D = 80 runs flash (zamba2) but has no paged kernel: both paged
+    # wrappers refuse it before any launch
+    n = (paged_attention.launches, paged_prefill.launches)
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head dim 80"):
+        paged_attention.paged_attention(
+            torch.zeros(1, 4, 80, device="cuda"),
+            torch.zeros(4, 16, 2, 4, 80, device="cuda"),
+            torch.zeros(1, 1, dtype=torch.int32, device="cuda"), one)
+    with pytest.raises(ValueError, match="head dim 80"):
+        paged_prefill.paged_prefill(
+            torch.zeros(8, 4, 80, device="cuda"),
+            torch.zeros(4, 16, 2, 4, 80, device="cuda"),
+            torch.zeros(1, 1, dtype=torch.int32, device="cuda"),
+            torch.zeros(8, dtype=torch.int32, device="cuda"),
+            torch.arange(8, dtype=torch.int32, device="cuda"), one * 8)
+    assert (paged_attention.launches, paged_prefill.launches) == n
     q = torch.zeros(1, 16, 4, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         flash_prefill.flash_attention(q, q, q)
@@ -586,7 +604,7 @@ def _close_grad(got, want, tol):
 # RMSNorm rows x d: the smoke widths, a row count below the SM count,
 # one row of the narrowest d, llama4-scout's d 5120, the train shape
 NORM_SHAPES = [(4, 128), (3, 33, 512), (300, 2048), (8, 4096), (1, 8),
-               (5, 5120), (4096, 2048), (100, 4096)]
+               (5, 5120), (4096, 2048), (100, 4096), (33, 2560)]
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
@@ -701,7 +719,8 @@ def test_flash_backward_tile_edges(dtype, tol, H, KV, D, case):
 # dense-cache decode (the flash forward at one query row, non-causal,
 # runtime kv_len), whisper-base's non-causal Sq != Skv attention, and
 # qwen2-vl-7b's G = 7 (H 28 over KV 4)
-DECODE_HKD = [(32, 32, 128), (28, 4, 128), (8, 8, 64), (8, 2, 32)]
+DECODE_HKD = [(32, 32, 128), (28, 4, 128), (8, 8, 64), (8, 2, 32),
+              (32, 32, 80)]
 CROSS_HKD = [(8, 8, 64), (4, 4, 32), (28, 4, 128)]
 # (B, Sq, Skv, kv_len or None): Skv off the 128-key tile (1500 = 11 x
 # 128 + 92), Skv > Sq and Sq > Skv, one decode row
@@ -794,11 +813,55 @@ def test_flash_g7_forward_and_backward(dtype, tol, case):
         _close_grad(a, b, tol)
 
 
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", ["causal 1024", "ragged q_offset 37",
+                                  "window", "kv_len"])
+def test_flash_d80_forward_and_backward(dtype, tol, case):
+    """zamba2-2.7b's shared attention (H = KV = 32, D 80: bf16 on the
+    CUDA-core kernels, by shape): forward and backward against the plain
+    version and autograd through it, and the forward with a ragged
+    kv_len (as prefill passes it)."""
+    _need_cuda()
+    H, KV, D = 32, 32, 80
+    B, Sq, Skv, kw = {"causal 1024": (2, 1024, 1024, {}),
+                      "ragged q_offset 37": (1, 300, 337, {"q_offset": 37}),
+                      "window": (1, 300, 337, {"q_offset": 37,
+                                               "window": 100}),
+                      "kv_len": (2, 200, 256, {})}[case]
+    q = _randn((B, Sq, H, D), dtype, 80)
+    k = _randn((B, Skv, KV, D), dtype, 81)
+    v = _randn((B, Skv, KV, D), dtype, 82)
+    if case == "kv_len":
+        kw["kv_len"] = torch.tensor([131, 256], dtype=torch.int32,
+                                    device="cuda")
+        got = flash_prefill.flash_attention(q, k, v, **kw)
+        want = flash_prefill.flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        return
+    do = _randn((B, Sq, H, D), dtype, 83)
+    outs, grads = [], []
+    for fn in (flash_prefill.flash_attention,
+               flash_prefill.flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, **kw)
+        out.backward(do)
+        outs.append(out.detach())
+        grads.append([t.grad for t in leaves])
+    torch.testing.assert_close(outs[0].float(), outs[1].float(), atol=tol,
+                               rtol=tol)
+    for a, b in zip(*grads):
+        _close_grad(a, b, tol)
+
+
 @pytest.mark.parametrize("arch,kw", [("granite-3-2b", {}),
                                      ("granite-3-2b", {"sliding_window": 16}),
                                      ("codeqwen1.5-7b", {"kv_quant": True}),
                                      ("qwen2-vl-7b", {}),
-                                     ("whisper-base", {})])
+                                     ("whisper-base", {}),
+                                     ("zamba2-2.7b", {}),
+                                     ("zamba2-2.7b", {"sliding_window": 16}),
+                                     ("xlstm-1.3b", {})])
 def test_model_prefill_decode_on_card_matches_cpu(arch, kw):
     """The Model API on the card (flash forward, decode_attention, RMSNorm
     kernels) against the same weights on the CPU (plain versions), smoke
@@ -807,7 +870,8 @@ def test_model_prefill_decode_on_card_matches_cpu(arch, kw):
     at most 1 apart, at rounding ties, and the card's cache then takes
     the CPU's codes and scales, so each step decodes from the same
     cache), the decode kernel launched once per self-attention layer and
-    step."""
+    step (the hybrid: once per shared-block use; xlstm: never); the
+    hybrid's and xlstm's recurrent cache leaves after the last step."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
@@ -841,7 +905,70 @@ def test_model_prefill_decode_on_card_matches_cpu(arch, kw):
         torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4,
                                    rtol=1e-4)
         _sync_int8_codes(cfg, c_card, c_cpu)
-    assert flash_prefill.launches_decode - before == N * cfg.n_layers
+    assert flash_prefill.launches_decode - before \
+        == N * cfg.n_attention_layers()
+    for name in ("ssm_state", "conv", "mC", "mn", "mm", "sc", "sn", "sm",
+                 "sh"):
+        if name in c_cpu:
+            torch.testing.assert_close(c_card[name].cpu(), c_cpu[name],
+                                       atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
+def test_model_grads_and_train_steps_on_card_match_cpu(arch):
+    """The hybrid's and the ssm's training on the card (flash forward and
+    backward, RMSNorm both ways) against the same weights on the CPU
+    (plain versions), smoke configs in f32: the loss at atol = rtol =
+    1e-5 and every gradient leaf of `loss.backward()` at atol = 1e-4 *
+    max |grad of that leaf|, rtol 1e-4; then five AdamW steps of
+    `train_loop.train` from those weights, each step's loss at atol =
+    rtol = 1e-4 and its gradient norm at rtol 1e-3 (five steps of Adam
+    carry the first step's rounding forward)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import flatten_params
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import train
+    _need_cuda()
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cpu = build_model(cfg, device="cpu", seed=5)
+    card = build_model(cfg, _to_cuda(cpu.params), device="cuda")
+    toks = torch.from_numpy(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (2, 33)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    flash_before, norm_before = (flash_prefill.launches_bwd,
+                                 rmsnorm.launches_bwd)
+    losses = []
+    for m, dev in ((cpu, "cpu"), (card, "cuda")):
+        m.requires_grad_(True)
+        loss, _ = m.loss({k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        losses.append(float(loss.detach()))
+    assert rmsnorm.launches_bwd > norm_before
+    if cfg.n_attention_layers():
+        assert flash_prefill.launches_bwd > flash_before
+    np.testing.assert_allclose(losses[1], losses[0], atol=1e-5, rtol=1e-5)
+    want, got = flatten_params(cpu.params), flatten_params(card.params)
+    assert sorted(want) == sorted(got)
+    for key, p in want.items():
+        scale = float(p.grad.abs().max())
+        torch.testing.assert_close(got[key].grad.cpu(), p.grad,
+                                   atol=1e-4 * scale, rtol=1e-4, msg=key)
+    dc = DataConfig(batch_size=2, seq_len=32)
+    runs = [train(cfg, steps=5, dc=dc, device=dev, verbose=False,
+                  params=_to_device(cpu.params, dev))
+            for dev in ("cpu", "cuda")]
+    np.testing.assert_allclose(runs[1].losses, runs[0].losses, atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(runs[1].grad_norms, runs[0].grad_norms,
+                               rtol=1e-3)
+
+
+def _to_device(tree, device):
+    """A copy of a params tree on `device`, without gradients."""
+    return {k: _to_device(v, device) if isinstance(v, dict)
+            else v.detach().to(device, copy=True) for k, v in tree.items()}
 
 
 def _sync_int8_codes(cfg, c_card, c_cpu):

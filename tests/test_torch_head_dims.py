@@ -1,11 +1,14 @@
-"""Every head dim the port serves has a kernel on the card, checked on the
-CPU: each dense or MoE config (the families `PagedExecutor` runs), full
-and smoke, has its head dim in the wrappers' `_HEAD_DIMS`, and each of
-the four attention kernels' C entry points has a case for every one of
-those head dims in both dtypes (read from the `dtype == N && D == NN`
-cases of its source). A head dim outside either makes a CUDA tensor
-raise; the plain versions take any, so the other CPU tests never show
-it."""
+"""Every head dim the port runs has a kernel on the card, checked on the
+CPU. Flash (forward, backward and `decode_attention`) serves every
+family with attention (dense, MoE, vlm, encdec, hybrid), full and smoke:
+each config's head dim is in flash's `_HEAD_DIMS`, which now holds
+zamba2's 80. The paged kernels serve only the families `PagedExecutor`
+runs (dense, MoE): their wrappers keep a list of their own, without 80,
+so a paged call at D = 80 raises before any launch. Each source's C
+entry point has a case for every head dim of its own list in both
+dtypes (read from the `dtype == N && D == NN` cases of its source). A
+head dim outside either makes a CUDA tensor raise; the plain versions
+take any, so the other CPU tests never show it."""
 import importlib
 import pathlib
 import pkgutil
@@ -14,34 +17,70 @@ import re
 import pytest
 
 import repro_torch.configs
-from repro_torch.kernels.flash_prefill import _HEAD_DIMS
+from repro_torch.kernels import flash_prefill, paged_attention, paged_prefill
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
 SERVED = ("dense", "moe")     # serving/executor.py: decoder-only families
-ATTENTION_SOURCES = ("flash_prefill.cu", "flash_backward.cu",
-                     "paged_attention.cu", "paged_prefill.cu")
+FLASH_DIMS = (32, 64, 80, 128)
+PAGED_DIMS = (32, 64, 128)
+# each attention source and the head dims its dispatch must cover
+ATTENTION_SOURCES = {"flash_prefill.cu": FLASH_DIMS,
+                     "flash_backward.cu": FLASH_DIMS,
+                     "paged_attention.cu": PAGED_DIMS,
+                     "paged_prefill.cu": PAGED_DIMS}
 # every config module of the package (ARCH_IDS leaves out llama2-7b)
 CONFIGS = {m.name: importlib.import_module(f"repro_torch.configs.{m.name}")
            for m in pkgutil.iter_modules(repro_torch.configs.__path__)
            if m.name != "base"}
 SERVED_ARCHS = sorted(n for n, m in CONFIGS.items()
                       if m.CONFIG.family in SERVED)
+ATTENTION_ARCHS = sorted(n for n, m in CONFIGS.items()
+                         if m.CONFIG.family != "ssm")
+
+
+def _cfg(arch, size):
+    return CONFIGS[arch].CONFIG if size == "full" else CONFIGS[arch].SMOKE
 
 
 @pytest.mark.parametrize("size", ["full", "smoke"])
 @pytest.mark.parametrize("arch", SERVED_ARCHS)
 def test_served_config_head_dim_has_a_kernel(arch, size):
-    cfg = CONFIGS[arch].CONFIG if size == "full" else CONFIGS[arch].SMOKE
+    cfg = _cfg(arch, size)
     assert cfg.family in SERVED
-    assert cfg.resolved_head_dim in _HEAD_DIMS, (
+    assert cfg.resolved_head_dim in paged_attention._HEAD_DIMS, (
         f"{cfg.arch_id}: head dim {cfg.resolved_head_dim} not in "
-        f"{_HEAD_DIMS}")
+        f"{paged_attention._HEAD_DIMS}")
 
 
-@pytest.mark.parametrize("source", ATTENTION_SOURCES)
+@pytest.mark.parametrize("size", ["full", "smoke"])
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+def test_attention_config_head_dim_has_a_flash_kernel(arch, size):
+    """Every family with attention runs flash (prefill, training) and
+    `decode_attention` (its decode) at its head dim: zamba2-2.7b at 80."""
+    cfg = _cfg(arch, size)
+    assert cfg.family in ("dense", "moe", "vlm", "encdec", "hybrid")
+    assert cfg.resolved_head_dim in flash_prefill._HEAD_DIMS, (
+        f"{cfg.arch_id}: head dim {cfg.resolved_head_dim} not in "
+        f"{flash_prefill._HEAD_DIMS}")
+
+
+def test_wrapper_head_dim_lists():
+    """Flash's list takes 80; the paged wrappers read a list of their own
+    (one for both) that has no 80, so they refuse D = 80 before any
+    launch (their sources have no case for it)."""
+    assert flash_prefill._HEAD_DIMS == FLASH_DIMS
+    assert paged_attention._HEAD_DIMS == PAGED_DIMS
+    assert paged_prefill._HEAD_DIMS is paged_attention._HEAD_DIMS
+    assert 80 not in paged_attention._HEAD_DIMS
+    assert CONFIGS["zamba2_2_7b"].CONFIG.resolved_head_dim == 80
+
+
+@pytest.mark.parametrize("source", list(ATTENTION_SOURCES))
 def test_kernel_dispatch_covers_every_head_dim(source):
     text = (CSRC / source).read_text()
     cases = {(int(t), int(d)) for t, d in
              re.findall(r"dtype == (\d) && D == (\d+)\)", text)}
-    want = {(t, d) for t in (0, 1) for d in _HEAD_DIMS}
+    want = {(t, d) for t in (0, 1) for d in ATTENTION_SOURCES[source]}
     assert want <= cases, f"{source}: no case for {sorted(want - cases)}"
+    assert {d for _, d in cases} <= set(ATTENTION_SOURCES[source]), (
+        f"{source}: a case outside its wrapper's list")

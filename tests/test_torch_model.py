@@ -206,22 +206,26 @@ def test_seeded_init_is_deterministic_with_reference_shapes():
 @pytest.mark.parametrize("arch,extra", [("zamba2-2.7b", {}),
                                         ("xlstm-1.3b", {})])
 def test_unported_model_variants_raise(arch, extra):
-    """The families still missing (hybrid, ssm) raise in `build_model`,
-    and a decoder-only model refuses them."""
+    """The last two families (hybrid, ssm) are ported: `build_model` makes
+    their own classes, and a decoder-only model still refuses them."""
+    from repro_torch.models import HybridModel, XLSTMModel
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
                               **extra)
-    with pytest.raises(ValueError, match="not yet ported"):
-        build_torch_model(cfg, device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
+    want = {"hybrid": HybridModel, "ssm": XLSTMModel}[cfg.family]
+    assert type(build_torch_model(cfg, device="cpu")) is want
+    with pytest.raises(ValueError, match="is not built by DecoderModel"):
         DecoderModel(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-base",
+                                  "zamba2-2.7b", "xlstm-1.3b"])
 def test_from_jax_params_carries_vlm_and_encdec_keys(arch):
     """The vlm's and the encdec's reference params (encoder and decoder
-    stacks, cross-attention, q / k / v biases) cross over key for key,
-    each leaf in its own dtype (bf16 model), and the port's own init
-    makes the same keys and shapes."""
+    stacks, cross-attention, q / k / v biases), and the hybrid's and the
+    ssm's (superblocks stacked twice, (n_sb, per_sb, ...); f32 leaves
+    such as A_log, r_gates and the gate weights inside a bf16 model)
+    cross over key for key, each leaf in its own dtype (bf16 model), and
+    the port's own init makes the same keys, shapes and dtypes."""
     jcfg, tcfg = (dataclasses.replace(c, dtype="bfloat16")
                   for c in _cfgs(arch))
     jflat = _flat(_jax_params(jcfg))
@@ -230,6 +234,11 @@ def test_from_jax_params_carries_vlm_and_encdec_keys(arch):
     if arch == "whisper-base":
         assert {"enc_layers/attn/bq", "dec_layers/cross/wk",
                 "dec_layers/cross/bv", "enc_norm/b"} <= tp.keys()
+    f32 = {"zamba2-2.7b": "mamba_sb/mamba/A_log",
+           "xlstm-1.3b": "slstm_sb/slstm/r_gates"}.get(arch)
+    if f32:
+        assert tp[f32].dtype == torch.float32
+        assert len(tp[f32].shape) == len(jflat[f32].shape) >= 2
     for k, a in jflat.items():
         assert str(tp[k].dtype) == f"torch.{a.dtype.name}", k
         assert tuple(tp[k].shape) == a.shape, k
@@ -237,5 +246,5 @@ def test_from_jax_params_carries_vlm_and_encdec_keys(arch):
                                       a.astype(np.float32))
     own = flatten_params(build_torch_model(tcfg, device="cpu",
                                            seed=1).params)
-    assert {k: tuple(v.shape) for k, v in own.items()} \
-        == {k: a.shape for k, a in jflat.items()}
+    assert {k: (tuple(v.shape), str(v.dtype)) for k, v in own.items()} \
+        == {k: (a.shape, f"torch.{a.dtype.name}") for k, a in jflat.items()}

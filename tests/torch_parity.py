@@ -1,8 +1,9 @@
 """Helpers shared by the port's Model-API parity tests
-(tests/test_torch_{decode,vlm,encdec}.py): both packages' smoke configs
-in f32, the reference's params from `build_model(cfg).init(PRNGKey(k))`
-handed to the port by `repro_torch.weights.from_jax_params`, and seeded
-numpy inputs converted for each side."""
+(tests/test_torch_{decode,vlm,encdec,hybrid,ssm}.py): both packages'
+smoke configs in f32, the reference's params from
+`build_model(cfg).init(PRNGKey(k))` handed to the port by
+`repro_torch.weights.from_jax_params`, and seeded numpy inputs
+converted for each side."""
 import dataclasses
 
 import jax
@@ -73,6 +74,15 @@ def close(t, j, atol, rtol, msg=""):
                                rtol=rtol, err_msg=msg)
 
 
+def grad_close(got, want, name=""):
+    """One gradient at tests/test_torch_train.py's rule: atol = 1e-5 *
+    max |want|, rtol 1e-4."""
+    w = np.asarray(want)
+    np.testing.assert_allclose(
+        got.detach().numpy(), w, rtol=1e-4,
+        atol=1e-5 * max(float(np.abs(w).max()), 1e-30), err_msg=name)
+
+
 def assert_grads_close(tm, jgrads):
     """Every parameter's gradient at tests/test_torch_train.py's rule:
     atol = 1e-5 * max |grad of that parameter|, rtol 1e-4. Two kinds of
@@ -99,3 +109,36 @@ def assert_grads_close(tm, jgrads):
         atol = 1e-5 * max(float(np.abs(w).max()), 1e-30)
         np.testing.assert_allclose(p.grad.numpy(), w, atol=atol, rtol=1e-4,
                                    err_msg=key)
+
+
+def assert_train_path_matches_jax(arch, steps=5, B=2, S=32):
+    """`steps` AdamW steps of the port's `train_loop.train` against the
+    reference's jitted train step (`make_train_step`, the same optimizer
+    defaults as its `train`), from the same weights on the same synthetic
+    stream: each step's loss at atol = rtol = 1e-4
+    (tests/test_torch_train.py's) and its gradient norm, before clipping,
+    at rtol 1e-4. Returns the two gradient-norm paths."""
+    from repro.training.data import DataConfig as JDC
+    from repro.training.data import SyntheticLM
+    from repro.training.optimizer import AdamWConfig, init_opt_state
+    from repro.training.train_loop import make_train_step
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import train
+    jcfg, tcfg = cfgs(arch)
+    jp = jax_build(jcfg).init(jax.random.PRNGKey(0))
+    got = train(tcfg, steps=steps, dc=DataConfig(batch_size=B, seq_len=S),
+                device="cpu", params=from_jax_params(flat(jp), tcfg, "cpu"),
+                verbose=False)
+    opt = AdamWConfig(lr=1e-3, total_steps=steps,
+                      warmup_steps=max(steps // 10, 5))
+    step = make_train_step(jcfg, opt, donate=False)
+    state, data = init_opt_state(jp), SyntheticLM(
+        jcfg, JDC(batch_size=B, seq_len=S)).batches()
+    losses, norms = [], []
+    for _ in range(steps):
+        jp, state, metrics = step(jp, state, next(data))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    np.testing.assert_allclose(got.losses, losses, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got.grad_norms, norms, rtol=1e-4)
+    return got.grad_norms, norms
