@@ -189,14 +189,15 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            random weights made on the card: 4 random prompts of 1024
            tokens (`HybridModel.prefill` takes one S for the batch) into a
            1056-slot cache, 32 greedy decodes; flash at D 80 (the
-           CUDA-core kernel, by shape) in prefill, decode_attention at
+           wgmma kernel, a 64-column block and a 16-column tail block
+           a row) in prefill, decode_attention at
            D 80, RMSNorm at d 2560 and 5120. Decode against teacher
            forcing in f32 at full width over one superblock (6 layers):
            prefill(120) + 8 decodes against prefill(128), rel < 5e-3.
   train-hybrid  zamba2-2.7b at full width and depth (2.42 B parameters,
            TRAIN_HYBRID), 5 AdamW steps of 4 x 1024 tokens, every
-           superblock checkpointed: flash at D 80 forward and backward,
-           RMSNorm both ways.
+           superblock checkpointed: flash at D 80 forward (wgmma) and
+           backward (mma.sync), RMSNorm both ways.
   generate-ssm  xlstm-1.3b (arXiv:2405.04517) at full width and depth (6
            superblocks of 7 mLSTM + 1 sLSTM, 3.53 B parameters as the
            reference builds it), as generate-hybrid: 4 x 1024 prompts, 32
@@ -314,7 +315,7 @@ GENERATE_SSM = dict(arch="xlstm-1.3b", batch=4, prompt=1024, steps=32,
                     tf_batch=2, tf_prompt=120, tf_steps=8)
 TRAIN_SSM = dict(arch="xlstm-1.3b", layers=16, steps=5, batch=4, seq=1024)
 # zamba2-2.7b's shared attention: H = KV = 32, D = 2560 / 32 = 80 (bf16
-# on the CUDA-core kernels, by shape)
+# on the tensor-core kernels: the wgmma forward, the mma.sync backward)
 D80_ATTN = (32, 32, 80)
 # generate-hybrid's decode keys: 4 rows over 1025-1056 of 1056 slots
 D80_DECODE_LENS, D80_DECODE_SLOTS = [1025, 1036, 1047, 1056], 1056
@@ -714,8 +715,9 @@ def time_flash(gen):
     whisper-base's non-causal cross-attention (B 8, 448 rows over 1500
     frames) and encoder (B 8, 1500 x 1500), and zamba2-2.7b's D = 80 at
     train-hybrid's and generate-hybrid's B 4 x S 1024 (H = KV = 32,
-    causal; the CUDA-core kernel). Returns the serve shape's row with the
-    train shapes' under "at_train_shape" and "at_moe_train_shape"."""
+    causal). Returns the serve shape's row with the train shapes' under
+    "at_train_shape" and "at_moe_train_shape"; each row names the kernel
+    the dispatch takes ("kernel")."""
     S = TRAIN["seq"]
     B8, T, F = ENCDEC["batch"], WHISPER_TEXT, WHISPER_FRAMES
     rows = [_time_flash_fwd_at(gen, *FLASH_SHAPES["llama2-7b"], 1, S, S,
@@ -757,10 +759,23 @@ def _time_flash_fwd_at(gen, H, KV, D, B, Sq, Skv, causal, lens_arg=False):
         + (lens.numel() * 4 if lens is not None else 0)
     pairs = _flash_pairs(Sq, [0] * B, [Skv] * B) if causal \
         else B * Sq * Skv
-    return _bound(ms, plain, lib, nbytes, 4 * D * H * pairs,
-                  BF16_FLOPS_PER_S,
-                  f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} bf16 "
-                  f"{'causal' if causal else 'non-causal'}")
+    row = _bound(ms, plain, lib, nbytes, 4 * D * H * pairs,
+                 BF16_FLOPS_PER_S,
+                 f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} bf16 "
+                 f"{'causal' if causal else 'non-causal'}")
+    row["kernel"] = _flash_kernel(D)
+    return row
+
+
+def _flash_kernel(D, bwd=False):
+    """The kernel that flash_prefill.cu (with `bwd` flash_backward.cu)
+    dispatches bf16 at head dim D to: the tensor cores at D 64, 80 and
+    128, the CUDA-core template at D 32."""
+    if D == 32:
+        return ("flash_bwd_{dq,dkdv}_kernel<bf16, 32> (CUDA cores)" if bwd
+                else "flash_fwd_kernel<bf16, 32> (CUDA cores)")
+    return (f"tc::flash_bwd_{{dq,dkdv}}_mma<{D}> (mma.sync)" if bwd
+            else f"tc::flash_fwd_wgmma<{D}> (wgmma + TMA)")
 
 
 def time_decode(gen):
@@ -773,42 +788,17 @@ def time_decode(gen):
     generate-hybrid's middle step (zamba2-2.7b D 80, B 4, 1040 keys of
     1056) under "at_other_shapes". The note counts the tile the kernel wastes:
     one query row of its 128-row tile."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_prefill as fp
-
-    def at(H, KV, D, ctx, S):
-        B = len(ctx)
-        q, k, v, lens, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, 1,
-                                       S, ctx, 0)
-        ms = _time_ms(lambda: fp.decode_attention(q, k, v, lens))
-        plain = _time_ms(lambda: fp.decode_attention_plain(q, k, v, lens),
-                         reps=5)
-        mask = (torch.arange(S, device="cuda")[None] < lens[:, None])[
-            :, None, None]                               # (B, 1, 1, S)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=KV != H))
-        n = sum(ctx)
-        nbytes = n * 2 * KV * D * 2 + 2 * B * H * D * 2 + B * 4
-        row = _bound(ms, plain, lib, nbytes, 4 * H * D * n, BF16_FLOPS_PER_S,
-                     f"B={B} Sq=1 ctx {min(ctx)}-{max(ctx)} of {S} H={H} "
-                     f"KV={KV} D={D} bf16")
-        # bf16 at D 64 / 128 runs the wgmma kernel's 128 x 128 tiles, D 80
-        # the CUDA-core kernel's 64 x 64
-        tile = 128 if D % 64 == 0 else 64
-        row["tiles"] = {"query_rows_used": 1, "query_rows_per_tile": tile,
-                        "key_tiles": sum(-(-c // tile) for c in ctx),
-                        "live_keys": n}
-        return row
     prompts = _prompts()
     S = max(len(p) for p in prompts) + GENERATE["steps"]
-    row = at(*DECODE_SHAPES["llama2-7b"], [len(p) + 16 for p in prompts], S)
+    row = _time_decode_at(gen, *DECODE_SHAPES["llama2-7b"],
+                          [len(p) + 16 for p in prompts], S)
     row["at_other_shapes"] = [
-        at(*G7_ATTN, [len(p) + 16 for p in prompts[:4]], S),
-        at(*WHISPER_ATTN, [WHISPER_FRAMES] * 8, WHISPER_FRAMES),
-        at(*D80_ATTN, [GENERATE_HYBRID["prompt"] + 16]
-           * GENERATE_HYBRID["batch"], D80_DECODE_SLOTS)]
+        _time_decode_at(gen, *G7_ATTN, [len(p) + 16 for p in prompts[:4]],
+                        S),
+        _time_decode_at(gen, *WHISPER_ATTN, [WHISPER_FRAMES] * 8,
+                        WHISPER_FRAMES),
+        _time_decode_at(gen, *D80_ATTN, [GENERATE_HYBRID["prompt"] + 16]
+                        * GENERATE_HYBRID["batch"], D80_DECODE_SLOTS)]
     t = row["tiles"]
     row["note"] = (f"the flash forward kernel at Sq = 1: one query row fills "
                    f"1 of its 128-row wgmma tile (two 64-row consumer "
@@ -817,6 +807,39 @@ def time_decode(gen):
                    f"for {t['live_keys']} live keys per head. The reference "
                    f"has no Pallas kernel here (src/repro/kernels/ops.py:43, "
                    f"ref.decode_attention_reference)")
+    return row
+
+
+def _time_decode_at(gen, H, KV, D, ctx, S):
+    """decode_attention, bf16, one query row per sequence over contexts
+    `ctx` of an S-slot cache, beside its plain version and SDPA with a key
+    mask, and the kernel's tiles: the forward's 128 query rows x 128 keys
+    on the tensor cores (bf16 at D 64, 80, 128), 64 x 64 on the CUDA
+    cores."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_prefill as fp
+    B = len(ctx)
+    q, k, v, lens, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, 1, S,
+                                   ctx, 0)
+    ms = _time_ms(lambda: fp.decode_attention(q, k, v, lens))
+    plain = _time_ms(lambda: fp.decode_attention_plain(q, k, v, lens),
+                     reps=5)
+    mask = (torch.arange(S, device="cuda")[None] < lens[:, None])[
+        :, None, None]                                   # (B, 1, 1, S)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=KV != H))
+    n = sum(ctx)
+    nbytes = n * 2 * KV * D * 2 + 2 * B * H * D * 2 + B * 4
+    row = _bound(ms, plain, lib, nbytes, 4 * H * D * n, BF16_FLOPS_PER_S,
+                 f"B={B} Sq=1 ctx {min(ctx)}-{max(ctx)} of {S} H={H} "
+                 f"KV={KV} D={D} bf16")
+    row["kernel"] = _flash_kernel(D)
+    tile = 64 if D == 32 else 128
+    row["tiles"] = {"query_rows_used": 1, "query_rows_per_tile": tile,
+                    "key_tiles": sum(-(-c // tile) for c in ctx),
+                    "live_keys": n}
     return row
 
 
@@ -1463,8 +1486,8 @@ def time_flash_bwd(gen):
     the same at the MoE train path's shape (H = KV = 16, D 128) under
     "at_moe_train_shape", and at train-vlm's G = 7 (B 4, S 1024) and
     whisper-base's non-causal cross-attention (B 8, 448 rows over 1500
-    frames) and train-hybrid's D = 80 (B 4, S 1024, H = KV = 32; the
-    CUDA-core pair) under "at_other_shapes"."""
+    frames) and train-hybrid's D = 80 (B 4, S 1024, H = KV = 32) under
+    "at_other_shapes"; each row names its kernels ("kernel")."""
     rows = [_time_flash_bwd_at(gen, *FLASH_SHAPES["granite-3-2b"],
                                TRAIN["batch"], TRAIN["seq"]),
             _time_flash_bwd_at(gen, *MOE_TRAIN_ATTN, TRAIN_MOE["batch"],
@@ -1509,10 +1532,12 @@ def _time_flash_bwd_at(gen, H, KV, D, B, S, Skv=None, causal=True):
     # five products of 2 * D operations per visible (query, key) pair:
     # S and dP recomputed, dV, dQ, dK
     pairs = _flash_pairs(S, [0] * B, [Skv] * B) if causal else B * S * Skv
-    return _bound(ms, plain, lib, nbytes, 10 * D * H * pairs,
-                  BF16_FLOPS_PER_S,
-                  f"B={B} Sq={S} Skv={Skv} H={H} KV={KV} D={D} bf16 "
-                  f"{'causal' if causal else 'non-causal'}")
+    row = _bound(ms, plain, lib, nbytes, 10 * D * H * pairs,
+                 BF16_FLOPS_PER_S,
+                 f"B={B} Sq={S} Skv={Skv} H={H} KV={KV} D={D} bf16 "
+                 f"{'causal' if causal else 'non-causal'}")
+    row["kernel"] = _flash_kernel(D, bwd=True)
+    return row
 
 
 def _bound(ms, plain, lib, nbytes, flops, peak, shape):
@@ -3326,7 +3351,7 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
-        for extra in ("at_train_shape", "at_moe_train_shape",
+        for extra in ("kernel", "at_train_shape", "at_moe_train_shape",
                       "at_serve_shapes", "at_other_shapes",
                       "at_b1_ctx4096", "bound_ms_pcie", "copy_engine_ms",
                       "by_kernel_ms", "staged_bytes", "library_note",

@@ -37,28 +37,34 @@
 // K Q^T directly in dkdv, so that P^T and dS^T leave the accumulators in
 // the A-fragment layout of dV = P^T dout and dK = dS^T q without a trip
 // through shared memory (likewise dS for dq = dS K); tiles are bf16 in
-// shared memory, XOR-swizzled by 16-byte chunk so ldmatrix is
-// conflict-free, and double-buffered with cp.async (K/V in dq, q/dout
-// and their lse / Delta rows in dkdv). Both grids are 1-d and
+// shared memory, laid out so that ldmatrix is conflict-free
+// (`tile_row_bytes`, hopper.cuh: at D = 64 / 128 XOR-swizzled by 16-byte
+// chunk, at D = 80 -- 10 chunks, too few to XOR over 8 -- rows padded to
+// 176 bytes), and double-buffered with cp.async (K/V in dq, q/dout and
+// their lse / Delta rows in dkdv). Nothing else depends on D: a row is
+// D / 16 k16 steps and D / 8 n8 accumulator tiles (5 and 10 at D = 80).
+// Both grids are 1-d and
 // tile-major, heaviest tiles first under a causal mask (the last q
 // tiles for dq, the first key tiles for dkdv), so the long blocks do not
 // land in the last wave; at D = 64 the register caps leave room for 4
-// (dq) and 3 (dkdv) blocks per SM. P is recomputed as exp2(s * scale
-// * log2e - lse * log2e); P and dS are rounded to bf16 as the A operands
-// of dV, dK and dq, and every sum is f32. That P is not bit-identical to
-// the one the forward normalised (the forward's S comes from wgmma, in
-// another order); the card checks hold dq, dk and dv to autograd through
-// the plain f32 version within atol = 2e-2 * max|grad|, rtol = 2e-2.
+// (dq) and 3 (dkdv) blocks per SM. At D = 80 the dq kernel takes 67,584
+// bytes of shared memory and dkdv 68,608 (64 query rows a tile), so 3
+// blocks of each fit an SM; the D = 80 constants (kBq80, kMinDq80,
+// kMinDkdv80) come from a sweep on the card (below). P is
+// recomputed as exp2(s * scale * log2e - lse * log2e); P and dS are
+// rounded to bf16 as the A operands of dV, dK and dq, and every sum is
+// f32. That P is not bit-identical to the one the forward normalised
+// (the forward's S comes from wgmma, in another order); the card checks
+// hold dq, dk and dv to autograd through the plain f32 version within
+// atol = 2e-2 * max|grad|, rtol = 2e-2.
 //
 // f32 (the exact reference path of the card checks; no main path runs
-// it), bf16 at D = 32 (the smoke configs) and bf16 at D = 80 (zamba2's
-// shared attention): the CUDA-core kernels, 64 x 64 tiles, f32 FMAs
-// throughout, bound by FMA issue and shared-memory reads (100 KB of
-// shared memory for dq, 117 KB for dk/dv at D = 80). The mma.sync
-// kernels' swizzle XORs a row's 16-byte chunk index with row % 8, so a
-// row needs a multiple of 8 chunks (D % 64 == 0); a bf16 tensor with
-// D = 32 or 80 always takes the CUDA-core pair. That is a dispatch by shape, not a fallback: nothing retries
-// another kernel when a launch fails.
+// it) and bf16 at D = 32 (the smoke configs): the CUDA-core kernels,
+// 64 x 64 tiles, f32 FMAs throughout, bound by FMA issue and
+// shared-memory reads (100 KB of shared memory for dq, 117 KB for dk/dv
+// at D = 80). bf16 at D = 32 always takes the CUDA-core pair. That is a
+// dispatch by shape, not a fallback: nothing retries another kernel when
+// a launch fails.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -420,23 +426,35 @@ constexpr int BK = 64;        // keys per tile (both kernels)
 constexpr int THREADS = 128;  // four warps, 16 rows each
 constexpr float kLog2e = 1.4426950408889634f;
 
+// D = 80's dkdv query rows per tile and blocks per SM of both kernels,
+// from `tools/flash_d80_ab.py --sweep` on the card at B 4, S 1024,
+// H = KV = 32: dq capped to 168 registers for 3 blocks beat 2 or 1 by
+// 13-15 %; dkdv at 64 query rows (232 registers, 2 blocks) beat 32 rows
+// by 4-14 %
+constexpr int kBq80 = 64, kMinDq80 = 3, kMinDkdv80 = 2;
+
 // dkdv kernel: query rows per tile (fewer at D = 128, where the dk / dv
 // accumulators take twice the registers)
 template <int D>
-constexpr int dkdv_bq() { return D == 64 ? 64 : 32; }
+constexpr int dkdv_bq() { return D == 64 ? 64 : D == 80 ? kBq80 : 32; }
 
 // Blocks per SM the register allocation must leave room for. At D = 64
 // more resident warps hide ldmatrix / mma latency better (measured on
 // the card: dq at 4 blocks and dkdv at 3 beat the unconstrained
 // allocation); at D = 128 the cap would spill the accumulators.
 template <int D>
-constexpr int min_blocks_dq() { return D == 64 ? 4 : 1; }
+constexpr int min_blocks_dq() { return D == 64 ? 4 : D == 80 ? kMinDq80 : 1; }
 template <int D>
-constexpr int min_blocks_dkdv() { return D == 64 ? 3 : 1; }
+constexpr int min_blocks_dkdv() {
+  return D == 64 ? 3 : D == 80 ? kMinDkdv80 : 1;
+}
 
+// Tiles are [rows][D] bf16 at tile_row_bytes<D>() a row (hopper.cuh:
+// XOR-swizzled at D % 64 == 0, padded by 16 bytes at D = 80).
 template <int D>
 struct DqSmem {
-  static constexpr int TQ = BQ * D * 2, TK = BK * D * 2;
+  static constexpr int TQ = BQ * tile_row_bytes<D>();
+  static constexpr int TK = BK * tile_row_bytes<D>();
   static constexpr int Q = 0, DO = TQ, KV = 2 * TQ;   // KV: 2 x (K, V)
   static constexpr int BYTES = KV + 4 * TK;
 };
@@ -444,7 +462,8 @@ struct DqSmem {
 template <int D>
 struct KvSmem {
   static constexpr int BQ2 = dkdv_bq<D>();
-  static constexpr int TQ = BQ2 * D * 2, TK = BK * D * 2;
+  static constexpr int TQ = BQ2 * tile_row_bytes<D>();
+  static constexpr int TK = BK * tile_row_bytes<D>();
   static constexpr int K = 0, V = TK, ST = 2 * TK;
   // one stage: q tile, dout tile, lse[BQ2], delta[BQ2]
   static constexpr int STAGE = 2 * TQ + 2 * BQ2 * 4;
@@ -452,7 +471,8 @@ struct KvSmem {
 };
 
 // cp.async rows [row0, row0 + ROWS) of one head (rows `stride` elements
-// apart) into a swizzled bf16 tile; rows >= valid are zero-filled.
+// apart) into a swizzled or padded bf16 tile; rows >= valid are
+// zero-filled.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile_async(uint32_t dst,
                                                 const __nv_bfloat16* base,
@@ -478,7 +498,6 @@ flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H,
                  int KV, int q_offset, int causal, int window,
                  float scale) {
-  static_assert(D % 64 == 0, "swz<D> needs 8 chunks per row");
   using L = DqSmem<D>;
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t s0 = smem_u32(smem);
@@ -641,7 +660,6 @@ flash_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
                    __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
                    int KV, int q_offset, int causal, int window,
                    float scale) {
-  static_assert(D % 64 == 0, "swz<D> needs 8 chunks per row");
   using L = KvSmem<D>;
   constexpr int BQ2 = L::BQ2;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -851,16 +869,16 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   if (dtype == 0 && D == 64) REPRO_FLASH_BWD_CASE(float, 64);
   if (dtype == 0 && D == 80) REPRO_FLASH_BWD_CASE(float, 80);
   if (dtype == 0 && D == 128) REPRO_FLASH_BWD_CASE(float, 128);
-  // bf16 at D = 32 and 80: the CUDA-core pair, by shape (swz<D> needs
-  // D % 64 == 0)
+  // bf16 at D = 32 (only the smoke configs have it): the CUDA-core pair,
+  // by shape
   if (dtype == 1 && D == 32) REPRO_FLASH_BWD_CASE(__nv_bfloat16, 32);
-  if (dtype == 1 && D == 80) REPRO_FLASH_BWD_CASE(__nv_bfloat16, 80);
 #undef REPRO_FLASH_BWD_CASE
 #define REPRO_FLASH_BWD_TC_CASE(DD)                                         \
   return (int)tc::launch<DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,   \
                              Sq, Skv, H, KV, q_offset, causal, window,      \
                              scale, s)
   if (dtype == 1 && D == 64) REPRO_FLASH_BWD_TC_CASE(64);
+  if (dtype == 1 && D == 80) REPRO_FLASH_BWD_TC_CASE(80);
   if (dtype == 1 && D == 128) REPRO_FLASH_BWD_TC_CASE(128);
 #undef REPRO_FLASH_BWD_TC_CASE
   return (int)cudaErrorInvalidValue;

@@ -23,15 +23,15 @@
 // Two kernels, picked by dtype:
 //
 // bf16 (every main path): warpgroup MMA fed by TMA. At serving and
-// training shapes (256-1024 tokens, D = 64 / 128) the two products do
-// about 2 * 128 operations per byte of q/k/v/out moved, close to the
+// training shapes (256-1024 tokens, D = 64 / 80 / 128) the two products
+// do about 2 * 128 operations per byte of q/k/v/out moved, close to the
 // H100's ridge (~295), so the bound is the tensor cores' issue rate and
-// keeping them fed; at D = 64 the softmax's exponentials (one per score,
-// 16 per clock per SM) take as long as the products. One block per
-// (128-row q tile, head, batch), three warpgroups: a producer whose one
-// thread issues TMA loads (128-byte swizzle, out-of-bounds rows arrive
-// as zeros) of the q tile once and of 128-key K/V tiles into a ring of
-// 3 (D = 128) or 4 (D = 64) stages guarded by mbarrier full/empty
+// keeping them fed; at D = 64 and 80 the softmax's exponentials (one per
+// score, 16 per clock per SM) take about as long as the products. One
+// block per (128-row q tile, head, batch), three warpgroups: a producer
+// whose one thread issues TMA loads (out-of-bounds rows arrive as zeros)
+// of the q tile once and of 128-key K/V tiles into a ring of 3
+// (D = 128) or 4 (D = 64, 80) stages guarded by mbarrier full/empty
 // pairs, and two consumer warpgroups of 64 query rows each that run
 // S = Q K^T as wgmma m64n128k16 from shared memory (both K-major) and
 // O += P V as wgmma m64n64k16 with P converted in registers from the S
@@ -47,17 +47,27 @@
 // the last q tile, so the heaviest blocks of every head go first and
 // the long tiles do not land in the last wave.
 //
+// A tile row is stored as 64-column blocks of 128-byte rows under TMA's
+// 128-byte swizzle. D = 80 (zamba2's shared attention, 2560 / 32 heads;
+// 160-byte rows) adds a 16-column tail block of 32-byte rows under the
+// 32-byte swizzle, loaded by a second tensor map per operand (a box of
+// 16 columns at column 64): QK^T runs 4 k16 steps on the first block and
+// 1 on the tail (`sw32_desc`), and PV runs m64n64k16 on the first block
+// and m64n16k16 on the tail, so the products are exactly those of D = 80.
+// A stage is 2 x 128 x 80 x 2 = 40 KB; q (20 KB) and 4 stages take
+// 185,416 bytes of shared memory. The other design, padding D to two
+// 64-column blocks (TMA zero-fills columns 80-127), would cost D = 128's
+// shared memory (3 stages) and 1.3x the products (PV at N = 128).
+//
 // f32 (the exact reference path of the card checks; no main path runs
-// it), bf16 at D = 32 (the smoke configs) and bf16 at D = 80 (zamba2's
-// shared attention, 2560 / 32 heads): the CUDA-core kernel, bound by
-// f32 FMA issue. One block per (q-tile of 64 rows, head, batch), a loop
-// over 64-key tiles, f32 tiles in padded shared memory (78.6 KB at
-// D = 80), online softmax in registers. The tensor-core kernel stores a
-// tile as 64-column blocks with 128-byte rows (TMA's 128-byte swizzle),
-// so D = 32 would need a 64-byte swizzle variant and D = 80 (160-byte
-// rows) a tile of mixed block widths; a bf16 tensor with D = 32 or 80
-// always takes the CUDA-core kernel instead. That is a dispatch by shape, not a
-// fallback: nothing retries another kernel when a launch fails.
+// it) and bf16 at D = 32 (the smoke configs): the CUDA-core kernel,
+// bound by f32 FMA issue. One block per (q-tile of 64 rows, head,
+// batch), a loop over 64-key tiles, f32 tiles in padded shared memory
+// (78.6 KB at D = 80), online softmax in registers. D = 32 is narrower
+// than the tensor-core kernel's 64-column block (it would need the
+// 64-byte swizzle), so a bf16 tensor with D = 32 always takes the
+// CUDA-core kernel. That is a dispatch by shape, not a fallback: nothing
+// retries another kernel when a launch fails.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -250,22 +260,30 @@ constexpr int THREADS = 384;  // producer + two consumer warpgroups
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+constexpr int kMaxSmem = 232448;   // a block's shared memory on sm_90
+
 // Shared memory, from a 1024-byte aligned base: the q tile, then STAGES
 // x (K tile, V tile), then the mbarriers. Every tile is stored as D / 64
 // column blocks of [rows][64] bf16 (128-byte rows, TMA's 128-byte
-// swizzle), each block 1024-byte aligned. The K/V ring is as deep as
-// 227 KB allows (3 stages at D = 128, 4 at D = 64): a stage is held from
-// its tile's QK^T until its PV, issued beside the next tile's QK^T, is
-// done.
+// swizzle) and, where D % 64 == 16 (D = 80), one tail block of
+// [rows][16] (32-byte rows, TMA's 32-byte swizzle); each block is
+// 1024-byte aligned. The K/V ring is as deep as 227 KB allows, at most 4
+// (3 stages at D = 128, 4 at D = 64 and 80, where a fifth fits but
+// measured no faster on the card): a stage is held from its tile's QK^T
+// until its PV, issued beside the next tile's QK^T, is done.
 template <int D>
 struct Smem {
-  static constexpr int STAGES = D == 64 ? 4 : 3;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;    // one K or V tile
+  static constexpr int FIT =
+      (kMaxSmem - Q_BYTES - 1024 - 8 * 9) / (2 * KV_BYTES);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
   static constexpr int KV_OFF = Q_BYTES;
   static constexpr int BAR_OFF = KV_OFF + STAGES * 2 * KV_BYTES;
   // barriers: q, full[STAGES], empty[STAGES]; + slack to align the base
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(STAGES >= 2 && BYTES <= kMaxSmem,
+                "the q tile and a ring of two stages must fit");
 };
 
 // One online-softmax step of a consumer thread's two rows over a tile's
@@ -322,17 +340,25 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tq16,
+                const __grid_constant__ CUtensorMap tk16,
+                const __grid_constant__ CUtensorMap tv16,
                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                 const int* __restrict__ kv_len,
                 const int* __restrict__ q_offset, int q_offset_scalar,
                 int Sq, int Skv, int H, int KV, int causal, int window,
                 float scale_log2) {
-  static_assert(D % 64 == 0, "tiles are 64-column swizzled blocks");
+  // 64-column blocks, and at D = 80 a 16-column tail block (tq16, tk16,
+  // tv16 load it; unused otherwise)
+  constexpr int HALVES = D / 64, TAIL = D % 64;
+  static_assert(HALVES >= 1 && (TAIL == 0 || TAIL == 16),
+                "tiles are 64-column blocks and at most one 16-column tail");
   using L = Smem<D>;
   constexpr int STAGES = L::STAGES;
-  constexpr int HALVES = D / 64;
   constexpr int BLOCK_Q = BQ * 128;   // bytes of one 64-column block
   constexpr int BLOCK_K = BK * 128;
+  constexpr int TAIL_Q = HALVES * BLOCK_Q;   // offset of the tail block
+  constexpr int TAIL_K = HALVES * BLOCK_K;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
@@ -379,6 +405,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int hf = 0; hf < HALVES; ++hf)
         tma_load_4d(sQ + hf * BLOCK_Q, &tq, bar_q, hf * 64, h, q0, b);
+      if constexpr (TAIL > 0)
+        tma_load_4d(sQ + TAIL_Q, &tq16, bar_q, HALVES * 64, h, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES;
         if (it >= STAGES)   // consumers released this stage's last use
@@ -391,6 +419,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         for (int hf = 0; hf < HALVES; ++hf) {
           tma_load_4d(sk + hf * BLOCK_K, &tk, full, hf * 64, kvh, k0, b);
           tma_load_4d(sk + L::KV_BYTES + hf * BLOCK_K, &tv, full, hf * 64,
+                      kvh, k0, b);
+        }
+        if constexpr (TAIL > 0) {
+          tma_load_4d(sk + TAIL_K, &tk16, full, HALVES * 64, kvh, k0, b);
+          tma_load_4d(sk + L::KV_BYTES + TAIL_K, &tv16, full, HALVES * 64,
                       kvh, k0, b);
         }
       }
@@ -410,12 +443,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const int qp0 = qoff + q0 + r;
     const int wq_first = qoff + q0 + cw * 64, wq_last = wq_first + 63;
     const uint32_t qa = sQ + cw * 64 * 128;    // this warpgroup's rows
+    const uint32_t qa16 = sQ + TAIL_Q + cw * 64 * 32;   // and their tail
 
     float o[HALVES][32];
+    float o16[TAIL > 0 ? TAIL / 2 : 1];   // the tail's 64 x 16 columns
 #pragma unroll
     for (int hf = 0; hf < HALVES; ++hf)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[hf][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < TAIL / 2; ++i) o16[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     float corr[2] = {1.f, 1.f};   // rescales O before the next PV
     float sc[BK / 2];            // S, then P, of the newest tile
@@ -427,11 +464,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       reg_fence(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < 4 * HALVES; ++kk) {
         const int hf = kk / 4, kin = (kk % 4) * 32;
         wgmma_ss_m64n128k16(sc, sw128_desc(qa + hf * BLOCK_Q + kin, 16),
                             sw128_desc(sk + hf * BLOCK_K + kin, 16), kk > 0);
       }
+      if constexpr (TAIL > 0)   // the tail block is one k16 step
+        wgmma_ss_m64n128k16(sc, sw32_desc(qa16, 16),
+                            sw32_desc(sk + TAIL_K, 16), 1);
       wgmma_commit();
     };
     auto softmax = [&](int tile) {
@@ -456,7 +496,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     };
 
     // O = O * corr + P V for the tile in stage `s`; V MN-major, a k16
-    // step is 16 key rows (2048 bytes)
+    // step is 16 key rows (2048 bytes of a 64-column block, 512 of the
+    // tail block, whose N = 16 is one m64n16k16)
     auto issue_pv = [&](int s) {
       const uint32_t sv = sKV + s * 2 * L::KV_BYTES + L::KV_BYTES;
 #pragma unroll
@@ -465,21 +506,31 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         for (int i = 0; i < 32; ++i) o[hf][i] *= corr[(i >> 1) & 1];
         reg_fence(o[hf]);
       }
+      if constexpr (TAIL > 0) {
+#pragma unroll
+        for (int i = 0; i < TAIL / 2; ++i) o16[i] *= corr[(i >> 1) & 1];
+        reg_fence(o16);
+      }
       reg_fence(pa);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
         for (int hf = 0; hf < HALVES; ++hf)
           wgmma_rs_m64n64k16_tb(
               o[hf], pa[kk],
               sw128_desc(sv + hf * BLOCK_K + kk * 2048, BLOCK_K));
+        if constexpr (TAIL > 0)
+          wgmma_rs_m64n16k16_tb(o16, pa[kk],
+                                sw32_desc(sv + TAIL_K + kk * 512, BK * 32));
+      }
       wgmma_commit();
     };
     auto retire_pv = [&]() {
       wgmma_wait<0>();
 #pragma unroll
       for (int hf = 0; hf < HALVES; ++hf) reg_fence(o[hf]);
+      if constexpr (TAIL > 0) reg_fence(o16);
       reg_fence(pa);
     };
 
@@ -530,6 +581,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
           *reinterpret_cast<uint32_t*>(orow + hf * 64 + 8 * i + 2 * c) =
               pack_bf16(o[hf][e] * inv, o[hf][e + 1] * inv);
         }
+#pragma unroll
+      for (int i = 0; i < TAIL / 8; ++i) {
+        const int e = 4 * i + 2 * hi;
+        *reinterpret_cast<uint32_t*>(orow + HALVES * 64 + 8 * i + 2 * c) =
+            pack_bf16(o16[e] * inv, o16[e + 1] * inv);
+      }
     }
   }
 }
@@ -561,18 +618,21 @@ EncodeTiledFn encode_tiled() {
 }
 
 // Tensor map of a contiguous (B, S, NH, D) bf16 tensor, boxes of `rows`
-// rows x 64 columns of one head, 128-byte swizzle.
+// rows x `cols` columns of one head: 64 columns under the 128-byte
+// swizzle, or a 16-column tail under the 32-byte swizzle.
 bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int B,
-              int S, int NH, int D, int rows) {
+              int S, int NH, int D, int rows, int cols = 64) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)NH,
                               (cuuint64_t)max(S, 1), (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)NH * D * 2,
                                  (cuuint64_t)S * NH * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
              const_cast<void*>(ptr), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_32B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -585,10 +645,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    cudaStream_t stream) {
   EncodeTiledFn enc = encode_tiled();
   if (!enc) return cudaErrorNotSupported;
-  CUtensorMap mq, mk, mv;
+  CUtensorMap mq, mk, mv, mq16 = {}, mk16 = {}, mv16 = {};
   if (!make_map(enc, &mq, q, B, Sq, H, D, BQ) ||
       !make_map(enc, &mk, k, B, Skv, KV, D, BK) ||
       !make_map(enc, &mv, v, B, Skv, KV, D, BK))
+    return cudaErrorInvalidValue;
+  if (D % 64 != 0 &&
+      (!make_map(enc, &mq16, q, B, Sq, H, D, BQ, 16) ||
+       !make_map(enc, &mk16, k, B, Skv, KV, D, BK, 16) ||
+       !make_map(enc, &mv16, v, B, Skv, KV, D, BK, 16)))
     return cudaErrorInvalidValue;
   constexpr int smem = Smem<D>::BYTES;
   auto kern = flash_fwd_wgmma<D>;
@@ -597,7 +662,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   const int grid = (Sq + BQ - 1) / BQ * H * B;   // tile-major, 1-d
   kern<<<grid, THREADS, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, kv_len, q_offset,
+      mq, mk, mv, mq16, mk16, mv16, static_cast<__nv_bfloat16*>(out), lse,
+      kv_len, q_offset,
       q_offset_scalar, Sq, Skv, H, KV, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
@@ -628,17 +694,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 0 && D == 64) REPRO_FLASH_CASE(float, 64);
   if (dtype == 0 && D == 80) REPRO_FLASH_CASE(float, 80);
   if (dtype == 0 && D == 128) REPRO_FLASH_CASE(float, 128);
-  // bf16 at D = 32 is too narrow for the tensor-core kernel's 64-column
-  // swizzled blocks, and D = 80 (zamba2's shared attention) is not a
-  // whole number of them: both always take the CUDA-core kernel (by shape)
+  // bf16 at D = 32 is narrower than the tensor-core kernel's first
+  // 64-column block: it always takes the CUDA-core kernel (by shape)
   if (dtype == 1 && D == 32) REPRO_FLASH_CASE(__nv_bfloat16, 32);
-  if (dtype == 1 && D == 80) REPRO_FLASH_CASE(__nv_bfloat16, 80);
 #undef REPRO_FLASH_CASE
 #define REPRO_FLASH_TC_CASE(DD)                                             \
   return (int)tc::launch<DD>(q, k, v, out, lse, kv_len, q_offset,           \
                              q_offset_scalar, B, Sq, Skv, H, KV, causal,    \
                              window, scale, s)
+  // D = 80 (zamba2's shared attention): one 64-column block and a
+  // 16-column tail block
   if (dtype == 1 && D == 64) REPRO_FLASH_TC_CASE(64);
+  if (dtype == 1 && D == 80) REPRO_FLASH_TC_CASE(80);
   if (dtype == 1 && D == 128) REPRO_FLASH_TC_CASE(128);
 #undef REPRO_FLASH_TC_CASE
   return (int)cudaErrorInvalidValue;

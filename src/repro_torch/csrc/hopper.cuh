@@ -2,8 +2,8 @@
 // memory addresses, mbarriers, TMA tile loads and 1-d bulk copies, named
 // barriers, warpgroup MMA (wgmma) with its shared-memory descriptors, and
 // the warp-level tensor-core path (ldmatrix, mma.sync m16n8k16, cp.async,
-// and the fragment addressing of swizzled bf16 tiles) of the flash
-// backward and the paged prefill.
+// and the fragment addressing of swizzled or padded bf16 tiles) of the
+// flash backward and the paged prefill.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -153,6 +153,21 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
   return d;
 }
 
+// The same for the 32-byte swizzle that CU_TENSOR_MAP_SWIZZLE_32B writes:
+// rows of 16 elements (32 bytes), 8-row groups 256 bytes apart (SBO). A
+// K-major operand of 16 columns is one k16 step; an MN-major one of 16
+// columns is one N block (`lbo`, the distance to the next, unused at
+// N = 16), and a k16 step is 16 rows (512 bytes). The tile must start
+// 256-byte aligned.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo) {
+  uint64_t d = 0;
+  d |= (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)(256 >> 4) << 32;
+  d |= (uint64_t)3 << 62;
+  return d;
+}
+
 // D (64 x 128, f32) = A (64 x 16) . B (128 x 16)^T (+ D when scale_d),
 // A and B bf16 in shared memory behind K-major descriptors.
 __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da,
@@ -196,6 +211,21 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32],
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 16, f32) += A (64 x 16, bf16 in registers) . B (16 x 16), B as
+// in wgmma_rs_m64n64k16_tb.
+__device__ __forceinline__ void wgmma_rs_m64n16k16_tb(float (&d)[8],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -249,12 +279,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Bytes of one row of a bf16 tile of D columns in shared memory. At
+// D % 64 == 0 a row is D * 2 bytes and its 16-byte chunks are
+// XOR-swizzled by the row (chunk ^ row % 8); other widths (D = 80) cannot
+// XOR over 8 chunks, so their rows are padded by one chunk instead: an
+// odd pitch in chunks (11 at D = 80) puts 8 consecutive rows' chunks at
+// 8 distinct offsets mod 128 bytes. Either way ldmatrix's 8 row addresses
+// hit 8 different banks.
+template <int D>
+__host__ __device__ constexpr int tile_row_bytes() {
+  static_assert(D % 64 == 0 || (D / 8) % 2 == 0,
+                "a padded row needs an odd number of 16-byte chunks");
+  return D % 64 == 0 ? 2 * D : 2 * D + 16;
+}
+
 // Byte offset of element column `col` (a multiple of 8) of row `row` in a
-// bf16 tile of D columns whose 16-byte chunks are XOR-swizzled by the row
-// (chunk ^ row % 8), so that ldmatrix's 8 row addresses hit 8 banks.
+// bf16 tile of D columns laid out as tile_row_bytes<D> says.
 template <int D>
 __device__ __forceinline__ uint32_t swz(int row, int col) {
-  return (uint32_t)(row * D * 2 + ((((col >> 3) ^ (row & 7))) << 4));
+  if constexpr (D % 64 == 0)
+    return (uint32_t)(row * D * 2 + ((((col >> 3) ^ (row & 7))) << 4));
+  else
+    return (uint32_t)(row * tile_row_bytes<D>() + col * 2);
 }
 
 // The ldmatrix row address of this lane for a 16 x 16 block at (row0,

@@ -35,7 +35,8 @@ launches_decode = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims with a case in both flash sources: 80 is zamba2's shared
-# attention (bf16 takes the CUDA-core kernels there, by shape)
+# attention (bf16 takes the tensor-core kernels there, as at 64 and 128:
+# the forward with a 16-column tail block, the backward on padded tiles)
 _HEAD_DIMS = (32, 64, 80, 128)
 
 

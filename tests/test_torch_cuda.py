@@ -73,7 +73,7 @@ def test_flash_kernel_window(window):
 
 
 # G = H / KV in {1, 4, 8} at D = 64 and 128, the smoke configs' D = 32,
-# and zamba2's D = 80 (bf16 on the CUDA-core kernels, by shape) at G 1, 4
+# and zamba2's D = 80 (bf16 on the tensor-core kernels) at G 1, 4
 GQA_SHAPES = [(8, 8, 64), (8, 2, 64), (8, 1, 64), (8, 8, 128), (8, 2, 128),
               (8, 1, 128), (8, 2, 32), (4, 4, 32), (8, 8, 80), (8, 2, 80)]
 # the forward's tile edges (128 query rows x 128 keys): (B, Sq, Skv,
@@ -695,7 +695,7 @@ def test_flash_backward_matches_autograd(dtype, tol, H, KV, D, case):
 @pytest.mark.parametrize("case", ["ragged", "window"])
 def test_flash_backward_tile_edges(dtype, tol, H, KV, D, case):
     """Sq and Skv off the 64-row grid (a chunk at q_offset 37), with and
-    without a window, at G in {1, 4, 8} and D in {32, 64, 128}."""
+    without a window, at G in {1, 4, 8} and D in {32, 64, 80, 128}."""
     _need_cuda()
     B, Sq, Skv = 1, 300, 337
     kw = {"causal": True, "q_offset": 37,
@@ -813,33 +813,73 @@ def test_flash_g7_forward_and_backward(dtype, tol, case):
         _close_grad(a, b, tol)
 
 
+# zamba2-2.7b's shared attention at D 80 (H = KV = 32): (B, Sq, Skv, KV,
+# kwargs). Sq and Skv off the 128-row / 128-key tiles (300 / 337 at
+# q_offset 37), a window below one 128-key tile, G = 2, a ragged kv_len,
+# and decode (Sq = 1, ragged kv_len over a 1056-slot cache)
+D80_CASES = {
+    "causal 1024": (2, 1024, 1024, 32, {}),
+    "ragged q_offset 37": (1, 300, 337, 32, {"q_offset": 37}),
+    "window": (1, 300, 337, 32, {"q_offset": 37, "window": 100}),
+    "window below one tile": (2, 300, 337, 32, {"q_offset": 37,
+                                                "window": 50}),
+    "G 2": (1, 300, 337, 16, {"q_offset": 37}),
+    "kv_len": (2, 200, 256, 32, {"kv_len": [131, 256]}),
+    "decode": (4, 1, 1056, 32, {"kv_len": [1, 129, 1000, 1056]}),
+}
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("case", ["causal 1024", "ragged q_offset 37",
-                                  "window", "kv_len"])
+@pytest.mark.parametrize("case", list(D80_CASES))
 def test_flash_d80_forward_and_backward(dtype, tol, case):
-    """zamba2-2.7b's shared attention (H = KV = 32, D 80: bf16 on the
-    CUDA-core kernels, by shape): forward and backward against the plain
-    version and autograd through it, and the forward with a ragged
-    kv_len (as prefill passes it)."""
+    """zamba2-2.7b's shared attention (H 32, D 80: bf16 on the
+    tensor-core kernels, f32 on the CUDA-core ones): forward and backward
+    against the plain version and autograd through it. With a ragged
+    kv_len the forward takes it (as prefill passes it) and the backward,
+    which takes none (training passes none), runs per row on the keys cut
+    to that row's kv_len: its dq, dk and dv equal autograd through the
+    plain version with kv_len, whose dk and dv are 0 past kv_len. Decode
+    is `decode_attention`, one launch on the same forward kernel."""
     _need_cuda()
-    H, KV, D = 32, 32, 80
-    B, Sq, Skv, kw = {"causal 1024": (2, 1024, 1024, {}),
-                      "ragged q_offset 37": (1, 300, 337, {"q_offset": 37}),
-                      "window": (1, 300, 337, {"q_offset": 37,
-                                               "window": 100}),
-                      "kv_len": (2, 200, 256, {})}[case]
+    H, D = 32, 80
+    B, Sq, Skv, KV, kw = D80_CASES[case]
+    kw = dict(kw)
     q = _randn((B, Sq, H, D), dtype, 80)
     k = _randn((B, Skv, KV, D), dtype, 81)
     v = _randn((B, Skv, KV, D), dtype, 82)
-    if case == "kv_len":
-        kw["kv_len"] = torch.tensor([131, 256], dtype=torch.int32,
-                                    device="cuda")
-        got = flash_prefill.flash_attention(q, k, v, **kw)
-        want = flash_prefill.flash_attention_plain(q, k, v, **kw)
+    do = _randn((B, Sq, H, D), dtype, 83)
+    lens = kw.pop("kv_len", None)
+    if case == "decode":
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        nd = flash_prefill.launches_decode
+        got = flash_prefill.decode_attention(q, k, v, kv_len)
+        want = flash_prefill.decode_attention_plain(q, k, v, kv_len)
+        assert flash_prefill.launches_decode == nd + 1
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
         return
-    do = _randn((B, Sq, H, D), dtype, 83)
+    if lens is not None:
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = flash_prefill.flash_attention(q, k, v, kv_len=kv_len, **kw)
+        want = flash_prefill.flash_attention_plain(q, k, v, kv_len=kv_len,
+                                                   **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        flash_prefill.flash_attention_plain(*leaves, kv_len=kv_len,
+                                            **kw).backward(do)
+        for b, L in enumerate(lens):
+            cut = [q[b:b + 1], k[b:b + 1, :L], v[b:b + 1, :L]]
+            cut = [t.contiguous().requires_grad_() for t in cut]
+            out = flash_prefill.flash_attention(*cut, **kw)
+            torch.testing.assert_close(out.detach()[0].float(),
+                                       got[b].float(), atol=tol, rtol=tol)
+            out.backward(do[b:b + 1])
+            _close_grad(cut[0].grad[0], leaves[0].grad[b], tol)
+            for g, w in zip(cut[1:], leaves[1:]):
+                _close_grad(g.grad[0], w.grad[b, :L], tol)
+                assert not w.grad[b, L:].any()
+        return
     outs, grads = [], []
     for fn in (flash_prefill.flash_attention,
                flash_prefill.flash_attention_plain):

@@ -8,7 +8,11 @@ so a paged call at D = 80 raises before any launch. Each source's C
 entry point has a case for every head dim of its own list in both
 dtypes (read from the `dtype == N && D == NN` cases of its source). A
 head dim outside either makes a CUDA tensor raise; the plain versions
-take any, so the other CPU tests never show it."""
+take any, so the other CPU tests never show it. The route of each case
+is read there too: in both flash sources bf16 at D 64, 80 and 128 takes
+the tensor-core kernels (the `*_TC_CASE` macro), f32 at every D and
+bf16 at D 32 the CUDA-core templates, and no bf16 instantiation of a
+CUDA-core template at D 80 is left."""
 import importlib
 import pathlib
 import pkgutil
@@ -84,3 +88,34 @@ def test_kernel_dispatch_covers_every_head_dim(source):
     assert want <= cases, f"{source}: no case for {sorted(want - cases)}"
     assert {d for _, d in cases} <= set(ATTENTION_SOURCES[source]), (
         f"{source}: a case outside its wrapper's list")
+
+
+def _routes(text):
+    """{(dtype, D): the macro of that case} of a source's C entry."""
+    return {(int(t), int(d)): m for t, d, m in re.findall(
+        r"if \(dtype == (\d) && D == (\d+)\) (REPRO_\w+)\(", text)}
+
+
+@pytest.mark.parametrize("source", list(ATTENTION_SOURCES))
+def test_bf16_d80_route(source):
+    """bf16 at D 80 dispatches to the tensor-core case in both flash
+    sources (f32 at D 80 and bf16 at D 32 keep the CUDA-core case, and
+    no bf16 CUDA-core template at D 80 is instantiated); the paged
+    sources have no D 80 at all."""
+    text = (CSRC / source).read_text()
+    if source.startswith("paged"):
+        dims = {int(d) for d in re.findall(r"dtype == \d && D == (\d+)\)",
+                                           text)}
+        assert dims and 80 not in dims, dims
+        assert not re.search(r"\b80\s*>", text), (
+            f"{source}: instantiates a D = 80 template")
+        return
+    routes = _routes(text)
+    tc = {"flash_prefill.cu": "REPRO_FLASH_TC_CASE",
+          "flash_backward.cu": "REPRO_FLASH_BWD_TC_CASE"}[source]
+    assert routes[(1, 80)] == tc
+    assert routes[(1, 64)] == routes[(1, 128)] == tc
+    assert routes[(0, 80)] == routes[(1, 32)] == tc.replace("_TC", "")
+    assert all(m != tc for (t, _), m in routes.items() if t == 0)
+    assert not re.search(r"__nv_bfloat16,\s*80\b", text), (
+        f"{source}: a bf16 CUDA-core instantiation at D = 80 is left")
