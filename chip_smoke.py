@@ -75,7 +75,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            f32 for the norm's elementwise math; H100 SXM data sheet).
            The RMSNorm forward is also timed at llama2-7b's serve shapes
            (1024 x 4096 prefill, 8 x 4096 decode), where the serve
-           path's launches run.
+           path's launches run. The examples' own training shapes are
+           held and timed too: flash forward and backward at train_tiny's
+           G = 3 (H 12, KV 4, D 64, B 4 x S 256, causal) and RMSNorm both
+           ways at its d 768 (1024 rows) and quickstart's d 256 (512
+           rows), checked in bf16 and f32 and timed in f32, their dtype.
   d32      every attention kernel (flash forward and backward, paged
            decode, paged prefill over one pool and two) against its plain
            version at head dim 32, the smoke configs' (granite-3-2b H 8
@@ -211,14 +215,38 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            backward and decode_attention at D 80 and RMSNorm at d 2048,
            2560, 4096 and 5120 at these paths' shapes (their train rows
            and 4-row decode steps), and times them.
+  examples the port's examples (`repro_torch.examples`) on the card, each
+           at its own size, launch counts zeroed just before each part
+           and read just after: quickstart (granite-3-2b smoke, f32: 60
+           AdamW steps of 8 x 64 tokens, then 6 requests through a
+           ServingSession over a layerkv engine on a 24-block pool, r0
+           streamed), serve_comparison (10 requests: vllm on 1024 blocks
+           as ground truth, then vllm and layerkv on 20; losslessness and
+           the TTFT ratio), train_tiny (TINY_100M: 12 layers, d 768, 32k
+           vocab, f32, 50 steps of 4 x 256, its npz + manifest checkpoint
+           written to a temporary directory and removed). Asserts finite
+           losses, RMSNorm and flash forward and backward launched in
+           each training part, flash prefill, paged decode and RMSNorm in
+           each engine part, r0's stream equal to its output; prints the
+           losses, tokens/s, TTFT, offload / reload counts and the
+           stream agreement (on a mismatch the diverging step's top-2
+           logit gap in f32, teacher-forced at B 1).
+  dryrun   `python -m repro_torch.launch.dryrun` in a subprocess on two
+           pairs of the 16x16 placeholder mesh (CPU only, fake tensors:
+           no kernel runs), chatglm3-6b x decode_32k and granite-3-2b x
+           train_4k, then `roofline.analysis` over their records (the
+           H100's spec-sheet peaks), then `python -m
+           repro_torch.examples.offload_dryrun`. Both records must be
+           ok; prints bytes per rank, FLOPs, collective counts and the
+           three roofline terms.
   profile  (only with --profile) torch.profiler over a few decode-only
            steps of an exclusive vllm llama2-7b run at B = 8, over one
            more layerkv run of the fused path (the paged kernels' device
            time and launches, the two-pool calls apart, the side
            stream's staging copies with the share that overlaps compute
            kernels, and staging host calls, runs and host time per
-           step), and over one
-           train step after each train phase: wall and device-busy
+           step), and over one train step after each train phase and
+           of train_tiny: wall and device-busy
            time, device ops, top device ops; for the hybrid and ssm
            paths each sequence core's device span (`_ssm_ranges`).
 
@@ -324,6 +352,12 @@ DECODE_SHAPES = {"llama2-7b": FLASH_SHAPES["llama2-7b"],
                  "qwen2-vl-7b": G7_ATTN, "whisper-base": WHISPER_ATTN,
                  "zamba2-2.7b": D80_ATTN,
                  "granite-3-2b smoke": SMOKE_SHAPES["granite-3-2b smoke"]}
+# the examples phase (f32): quickstart trains granite-3-2b smoke (d 256,
+# D 32) on batches of QUICK_TRAIN; train_tiny trains TINY_100M (d 768,
+# 12 query heads over 4 KV heads of 64: G = 3) on tiny_batch x tiny_seq
+EXAMPLES = dict(quick_steps=60, tiny_steps=50, tiny_batch=4, tiny_seq=256)
+QUICK_TRAIN = (8, 64)
+TINY_ATTN, TINY_D = (12, 4, 64), 768
 # RMSNorm shapes: the train path's activations, llama2-7b prefill / decode,
 # and qwen2-vl-7b's (d 3584: 448 16-byte vectors a row, not a multiple of
 # the 256 lanes of the reduction tree) at train-vlm's 4 x 1024 rows and
@@ -350,7 +384,13 @@ NORM_SHAPES = {"train": (TRAIN["batch"], TRAIN["seq"], 2048),
                "xlstm-1.3b train d 4096": (TRAIN_SSM["batch"],
                                            TRAIN_SSM["seq"], 4096),
                "xlstm-1.3b decode d 2048": (GENERATE_SSM["batch"], 1, 2048),
-               "xlstm-1.3b decode d 4096": (GENERATE_SSM["batch"], 1, 4096)}
+               "xlstm-1.3b decode d 4096": (GENERATE_SSM["batch"], 1, 4096),
+               # the examples' training norms: train_tiny's d 768 (192
+               # 16-byte vectors a row in bf16, 96 in f32: fewer than the
+               # reduction tree's 256 lanes) and quickstart's d 256
+               "train_tiny d 768": (EXAMPLES["tiny_batch"],
+                                    EXAMPLES["tiny_seq"], TINY_D),
+               "quickstart d 256": (*QUICK_TRAIN, 256)}
 
 
 def _say(*a):
@@ -473,9 +513,10 @@ def check_flash(gen, sizes=None):
     frames, cross-attention from 448 decoder rows or one decode row to
     1500 frames, with and without enc_len, and the causal 448-token
     decoder); zamba2-2.7b's D = 80 (H = KV = 32) on the engine and edge
-    cases and at train-hybrid's and generate-hybrid's B 4 x S 1024. With
-    `sizes` ({name: (H, KV, D)}), the engine and edge cases at those
-    shapes only."""
+    cases and at train-hybrid's and generate-hybrid's B 4 x S 1024;
+    train_tiny's G = 3 (TINY_ATTN) on the edge cases and at its B 4 x
+    S 256. With `sizes` ({name: (H, KV, D)}), the engine and edge cases
+    at those shapes only."""
     import torch
     from repro_torch.kernels import flash_prefill as fp
     worst = {}
@@ -517,6 +558,9 @@ def check_flash(gen, sizes=None):
     hybrid = engine_cases + edge_cases + [
         (f"train-/generate-hybrid B {Bh} S {Sh}", Bh, Sh, Sh, [Sh] * Bh, 0,
          0)]
+    Bt, St = EXAMPLES["tiny_batch"], EXAMPLES["tiny_seq"]
+    tiny = edge_cases + [(f"train_tiny B {Bt} S {St}", Bt, St, St,
+                          [St] * Bt, 0, 0)]
     shapes = [(arch, hkd, engine_cases + edge_cases)
               for arch, hkd in (sizes or FLASH_SHAPES).items()]
     if sizes is None:
@@ -525,7 +569,8 @@ def check_flash(gen, sizes=None):
         shapes += [(TRAIN_MOE["arch"], MOE_TRAIN_ATTN, moe_train),
                    ("qwen2-vl-7b G=7", G7_ATTN, vlm),
                    ("whisper-base", WHISPER_ATTN, whisper),
-                   ("zamba2-2.7b D=80", D80_ATTN, hybrid)]
+                   ("zamba2-2.7b D=80", D80_ATTN, hybrid),
+                   ("train_tiny G=3", TINY_ATTN, tiny)]
     for arch, (H, KV, D), cases in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
@@ -715,9 +760,10 @@ def time_flash(gen):
     whisper-base's non-causal cross-attention (B 8, 448 rows over 1500
     frames) and encoder (B 8, 1500 x 1500), and zamba2-2.7b's D = 80 at
     train-hybrid's and generate-hybrid's B 4 x S 1024 (H = KV = 32,
-    causal). Returns the serve shape's row with the train shapes' under
-    "at_train_shape" and "at_moe_train_shape"; each row names the kernel
-    the dispatch takes ("kernel")."""
+    causal), and train_tiny's G = 3 in f32 at its B 4 x S 256 (TINY_ATTN,
+    causal: the CUDA-core kernel). Returns the serve shape's row with the
+    train shapes' under "at_train_shape" and "at_moe_train_shape"; each
+    row names the kernel the dispatch takes ("kernel")."""
     S = TRAIN["seq"]
     B8, T, F = ENCDEC["batch"], WHISPER_TEXT, WHISPER_FRAMES
     rows = [_time_flash_fwd_at(gen, *FLASH_SHAPES["llama2-7b"], 1, S, S,
@@ -734,19 +780,23 @@ def time_flash(gen):
         _time_flash_fwd_at(gen, *WHISPER_ATTN, B8, T, F, False),
         _time_flash_fwd_at(gen, *WHISPER_ATTN, B8, F, F, False),
         _time_flash_fwd_at(gen, *D80_ATTN, TRAIN_HYBRID["batch"],
-                           TRAIN_HYBRID["seq"], TRAIN_HYBRID["seq"], True)]
+                           TRAIN_HYBRID["seq"], TRAIN_HYBRID["seq"], True),
+        _time_flash_fwd_at(gen, *TINY_ATTN, EXAMPLES["tiny_batch"],
+                           EXAMPLES["tiny_seq"], EXAMPLES["tiny_seq"], True,
+                           dtype="float32")]
     return rows[0]
 
 
-def _time_flash_fwd_at(gen, H, KV, D, B, Sq, Skv, causal, lens_arg=False):
-    """One bf16 forward shape beside its plain version and SDPA; with
-    `lens_arg` the kernel also takes kv_len (every key valid), as the
-    engine's prefill passes it."""
+def _time_flash_fwd_at(gen, H, KV, D, B, Sq, Skv, causal, lens_arg=False,
+                       dtype="bfloat16"):
+    """One forward shape (bf16 unless `dtype`) beside its plain version
+    and SDPA; with `lens_arg` the kernel also takes kv_len (every key
+    valid), as the engine's prefill passes it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill as fp
-    q, k, v, lens, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, Sq,
-                                   Skv, [Skv] * B, 0)
+    q, k, v, lens, _ = _flash_case(gen, H, KV, D, getattr(torch, dtype), B,
+                                   Sq, Skv, [Skv] * B, 0)
     lens = lens if lens_arg else None   # the train path passes none
     ms = _time_ms(lambda: fp.flash_attention(q, k, v, kv_len=lens,
                                              causal=causal))
@@ -759,18 +809,30 @@ def _time_flash_fwd_at(gen, H, KV, D, B, Sq, Skv, causal, lens_arg=False):
         + (lens.numel() * 4 if lens is not None else 0)
     pairs = _flash_pairs(Sq, [0] * B, [Skv] * B) if causal \
         else B * Sq * Skv
-    row = _bound(ms, plain, lib, nbytes, 4 * D * H * pairs,
-                 BF16_FLOPS_PER_S,
-                 f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} bf16 "
-                 f"{'causal' if causal else 'non-causal'}")
-    row["kernel"] = _flash_kernel(D)
+    row = _bound(ms, plain, lib, nbytes, 4 * D * H * pairs, _peak(dtype),
+                 f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
+                 f"{_short(dtype)} {'causal' if causal else 'non-causal'}")
+    row["kernel"] = _flash_kernel(D, dtype=dtype)
     return row
 
 
-def _flash_kernel(D, bwd=False):
+def _peak(dtype):
+    """The card's peak rate for a product in `dtype`: the tensor cores'
+    for bf16, the CUDA cores' for f32 (the flash kernels' f32 route)."""
+    return BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+
+
+def _short(dtype):
+    return {"bfloat16": "bf16", "float32": "f32"}[dtype]
+
+
+def _flash_kernel(D, bwd=False, dtype="bfloat16"):
     """The kernel that flash_prefill.cu (with `bwd` flash_backward.cu)
-    dispatches bf16 at head dim D to: the tensor cores at D 64, 80 and
-    128, the CUDA-core template at D 32."""
+    dispatches `dtype` at head dim D to: bf16 on the tensor cores at D
+    64, 80 and 128, the CUDA-core template at D 32 and in f32."""
+    if dtype == "float32":
+        return (f"flash_bwd_{{dq,dkdv}}_kernel<float, {D}> (CUDA cores)"
+                if bwd else f"flash_fwd_kernel<float, {D}> (CUDA cores)")
     if D == 32:
         return ("flash_bwd_{dq,dkdv}_kernel<bf16, 32> (CUDA cores)" if bwd
                 else "flash_fwd_kernel<bf16, 32> (CUDA cores)")
@@ -1332,7 +1394,9 @@ def check_flash_bwd(gen, sizes=None):
     the edges of the kernels' tiling: Sq and Skv off the 64-row grid (a
     chunk at q_offset 37), a sliding window, and G in {1, 4, 8} at D in
     {64, 128}; zamba2-2.7b's D = 80 (H = KV = 32) at train-hybrid's B 4
-    x S 1024 and at the two edge cases; bf16 and f32. With `sizes`
+    x S 1024 and at the two edge cases; train_tiny's G = 3 (TINY_ATTN)
+    at its B 4 x S 256 and at the chunk edge case; bf16 and f32. With
+    `sizes`
     ({name: (H, KV, D)}), B 1 S 512 and the two edge cases at those
     shapes only. Returns the worst error per dtype."""
     import torch
@@ -1368,7 +1432,11 @@ def check_flash_bwd(gen, sizes=None):
                D80_ATTN, TRAIN_HYBRID["seq"], TRAIN_HYBRID["seq"], 0, 0),
               ("D=80 Sq 1000 Skv 1037 q_offset 37", 1, D80_ATTN, 1000,
                1037, 37, 0),
-              ("D=80 window 200", 1, D80_ATTN, 1000, 1037, 37, 200)]
+              ("D=80 window 200", 1, D80_ATTN, 1000, 1037, 37, 200),
+              ("train_tiny TINY_100M G=3", EXAMPLES["tiny_batch"],
+               TINY_ATTN, EXAMPLES["tiny_seq"], EXAMPLES["tiny_seq"], 0, 0),
+              ("G=3 Sq 1000 Skv 1037 q_offset 37", 1, TINY_ATTN, 1000, 1037,
+               37, 0)]
     if sizes is not None:
         cases = [c for name, hkd in sizes.items() for c in (
             (name, 1, hkd, 512, 512, 0, 0),
@@ -1403,39 +1471,39 @@ def check_flash_bwd(gen, sizes=None):
     return worst
 
 
-def _norm_inputs(gen, shape):
+def _norm_inputs(gen, shape, dtype="bfloat16"):
     import torch
     d = shape[-1]
-    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")) \
-        .to(torch.bfloat16)
+    dt = getattr(torch, dtype)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dt)
     return x, w, x.numel() // d, d
 
 
-def time_rmsnorm_fwd(gen, shape):
-    """The RMSNorm forward at `shape` (bf16) beside its plain version and
-    F.rms_norm."""
+def time_rmsnorm_fwd(gen, shape, dtype="bfloat16"):
+    """The RMSNorm forward at `shape` (bf16 unless `dtype`) beside its
+    plain version and F.rms_norm."""
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as rn
-    x, w, rows, d = _norm_inputs(gen, shape)
-    n = rows * d
+    x, w, rows, d = _norm_inputs(gen, shape, dtype)
+    n, e = rows * d, x.element_size()
     return _bound(
         _time_ms(lambda: rn.rmsnorm(x, w)),
         _time_ms(lambda: rn.rmsnorm_plain(x, w), reps=5),
         _time_ms(lambda: F.rms_norm(x, (d,), w, eps=1e-6)),
-        2 * n * 2 + d * 2, 4 * n, F32_FLOPS_PER_S,
-        f"{rows} rows x d={d} bf16")
+        2 * n * e + d * e, 4 * n, F32_FLOPS_PER_S,
+        f"{rows} rows x d={d} {_short(dtype)}")
 
 
-def time_rmsnorm_bwd(gen, shape):
-    """The RMSNorm backward at `shape` (bf16) beside autograd through its
-    plain version and through F.rms_norm."""
+def time_rmsnorm_bwd(gen, shape, dtype="bfloat16"):
+    """The RMSNorm backward at `shape` (bf16 unless `dtype`) beside
+    autograd through its plain version and through F.rms_norm."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as rn
-    x, w, rows, d = _norm_inputs(gen, shape)
-    n = rows * d
-    dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    x, w, rows, d = _norm_inputs(gen, shape, dtype)
+    n, e = rows * d, x.element_size()
+    dy = torch.randn(shape, generator=gen, device="cuda").to(x.dtype)
     _, rstd = rn._forward(x, w, 1e-6, keep_rstd=True)
 
     def grad_ms(fn, reps):
@@ -1447,8 +1515,8 @@ def time_rmsnorm_bwd(gen, shape):
         _time_ms(lambda: rn.rmsnorm_bwd(dy, x, w, rstd)),
         grad_ms(rn.rmsnorm_plain, 5),
         grad_ms(lambda a, b: F.rms_norm(a, (d,), b, eps=1e-6), 20),
-        3 * n * 2 + 2 * d * 2 + n // d * 4, 10 * n, F32_FLOPS_PER_S,
-        f"{rows} rows x d={d} bf16")
+        3 * n * e + 2 * d * e + n // d * 4, 10 * n, F32_FLOPS_PER_S,
+        f"{rows} rows x d={d} {_short(dtype)}")
 
 
 def time_rmsnorm(gen):
@@ -1461,7 +1529,9 @@ def time_rmsnorm(gen):
     zamba2-2.7b's d 2560 and 5120 and xlstm-1.3b's d 4096
     ("at_other_shapes": the train paths' 4 x 1024 rows, and for the
     forward the generate paths' 4-row decode steps, xlstm-1.3b's at d
-    2048 and 4096)."""
+    2048 and 4096; then the examples' f32 training norms, train_tiny's d
+    768 and quickstart's d 256, both ways)."""
+    examples = ("train_tiny d 768", "quickstart d 256")
     other_train = ("qwen2-vl-7b train", "zamba2-2.7b train d 2560",
                    "zamba2-2.7b train d 5120", "xlstm-1.3b train d 4096")
     other_decode = ("qwen2-vl-7b decode", "zamba2-2.7b decode d 2560",
@@ -1472,10 +1542,12 @@ def time_rmsnorm(gen):
         time_rmsnorm_fwd(gen, NORM_SHAPES[k])
         for k in ("llama2-7b prefill", "llama2-7b decode")]
     fwd["at_other_shapes"] = [time_rmsnorm_fwd(gen, NORM_SHAPES[k])
-                              for k in other_train + other_decode]
+                              for k in other_train + other_decode] + [
+        time_rmsnorm_fwd(gen, NORM_SHAPES[k], "float32") for k in examples]
     bwd = time_rmsnorm_bwd(gen, NORM_SHAPES["train"])
     bwd["at_other_shapes"] = [time_rmsnorm_bwd(gen, NORM_SHAPES[k])
-                              for k in other_train]
+                              for k in other_train] + [
+        time_rmsnorm_bwd(gen, NORM_SHAPES[k], "float32") for k in examples]
     return fwd, bwd
 
 
@@ -1486,7 +1558,8 @@ def time_flash_bwd(gen):
     the same at the MoE train path's shape (H = KV = 16, D 128) under
     "at_moe_train_shape", and at train-vlm's G = 7 (B 4, S 1024) and
     whisper-base's non-causal cross-attention (B 8, 448 rows over 1500
-    frames) and train-hybrid's D = 80 (B 4, S 1024, H = KV = 32) under
+    frames) and train-hybrid's D = 80 (B 4, S 1024, H = KV = 32) and
+    train_tiny's G = 3 in f32 (B 4, S 256: the CUDA-core pair) under
     "at_other_shapes"; each row names its kernels ("kernel")."""
     rows = [_time_flash_bwd_at(gen, *FLASH_SHAPES["granite-3-2b"],
                                TRAIN["batch"], TRAIN["seq"]),
@@ -1499,19 +1572,21 @@ def time_flash_bwd(gen):
         _time_flash_bwd_at(gen, *WHISPER_ATTN, ENCDEC["batch"],
                            WHISPER_TEXT, WHISPER_FRAMES, causal=False),
         _time_flash_bwd_at(gen, *D80_ATTN, TRAIN_HYBRID["batch"],
-                           TRAIN_HYBRID["seq"])]
+                           TRAIN_HYBRID["seq"]),
+        _time_flash_bwd_at(gen, *TINY_ATTN, EXAMPLES["tiny_batch"],
+                           EXAMPLES["tiny_seq"], dtype="float32")]
     return rows[0]
 
 
-def _time_flash_bwd_at(gen, H, KV, D, B, S, Skv=None, causal=True):
+def _time_flash_bwd_at(gen, H, KV, D, B, S, Skv=None, causal=True,
+                       dtype="bfloat16"):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill as fp
     Skv = Skv or S
-    q, k, v, _, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, S, Skv,
-                                [Skv] * B, 0)
-    do = torch.randn(q.shape, generator=gen, device="cuda") \
-        .to(torch.bfloat16)
+    q, k, v, _, _ = _flash_case(gen, H, KV, D, getattr(torch, dtype), B, S,
+                                Skv, [Skv] * B, 0)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
     out, lse = fp._launch_fwd(q, k, v, causal, 0, None, 0, D ** -0.5,
                               keep_lse=True)
     ms = _time_ms(lambda: fp.flash_attention_bwd(q, k, v, out, do, lse,
@@ -1528,15 +1603,15 @@ def _time_flash_bwd_at(gen, H, KV, D, B, S, Skv=None, causal=True):
         a, b, c, is_causal=causal, enable_gqa=KV != H),
         [t.transpose(1, 2).contiguous() for t in (q, k, v)],
         do.transpose(1, 2).contiguous(), 20)
-    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + lse.numel() * 4
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + lse.numel() * 4
     # five products of 2 * D operations per visible (query, key) pair:
     # S and dP recomputed, dV, dQ, dK
     pairs = _flash_pairs(S, [0] * B, [Skv] * B) if causal else B * S * Skv
-    row = _bound(ms, plain, lib, nbytes, 10 * D * H * pairs,
-                 BF16_FLOPS_PER_S,
-                 f"B={B} Sq={S} Skv={Skv} H={H} KV={KV} D={D} bf16 "
-                 f"{'causal' if causal else 'non-causal'}")
-    row["kernel"] = _flash_kernel(D, bwd=True)
+    row = _bound(ms, plain, lib, nbytes, 10 * D * H * pairs, _peak(dtype),
+                 f"B={B} Sq={S} Skv={Skv} H={H} KV={KV} D={D} "
+                 f"{_short(dtype)} {'causal' if causal else 'non-causal'}")
+    row["kernel"] = _flash_kernel(D, bwd=True, dtype=dtype)
     return row
 
 
@@ -3188,6 +3263,238 @@ def model_size(cfg):
     return main + f32, main * w + f32 * 4
 
 
+# -------------------------------------------------------------- examples --
+
+# the examples' own sizes (src/repro_torch/examples): quickstart's 60
+# steps, train_tiny's `--steps 50` at its default batch and sequence
+ENGINE_KERNELS = ("flash_attention", "paged_attention", "rmsnorm")
+
+
+def _check_train_result(tag, res, vocab):
+    import math
+    vals = res.losses + res.grad_norms
+    if not all(math.isfinite(x) for x in vals):
+        raise AssertionError(f"[{tag}] non-finite loss or grad norm: {vals}")
+    if abs(res.losses[0] - math.log(vocab)) > 1.0:
+        raise AssertionError(f"[{tag}] step-0 loss {res.losses[0]} is not "
+                             f"near ln(vocab) = {math.log(vocab):.3f}")
+
+
+def _check_kernels(tag, launches, kernels, device):
+    import torch
+    missing = [k for k in kernels if not launches[k]]
+    if torch.device(device).type == "cuda" and missing:
+        raise AssertionError(f"[{tag}] kernels never launched: {missing}")
+
+
+def _divergence_gap(model, prompt, got, want):
+    """Where two greedy streams of one prompt first differ: (step, the
+    gap between the two largest f32 logits there, teacher-forced at
+    B 1 on the common prefix)."""
+    import torch
+    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    toks = torch.tensor([list(prompt) + list(want[:j])],
+                        device=model.device)
+    with torch.no_grad():
+        logits = model.train_logits({"tokens": toks}, remat=False)[0, -1]
+    top = torch.topk(logits.float(), 2).values
+    return j, float(top[0] - top[1])
+
+
+def run_examples(device="cuda", quick_steps=60, tiny_steps=50, tiny_batch=4,
+                 tiny_seq=256):
+    """The examples phase (module docstring): returns one entry
+    per part, each with its launch counts."""
+    import shutil
+    import statistics
+    import tempfile
+    from repro_torch.examples import quickstart, serve_comparison, train_tiny
+    out = {}
+    cfg = quickstart.config()
+
+    _zero_launches()
+    res = quickstart.train_part(cfg, device=device, steps=quick_steps,
+                                verbose=False)
+    _sync(device)
+    out["quickstart-train"] = {"losses": res.losses, "step_s": res.step_s,
+                               "tokens_per_s": res.tokens_per_s,
+                               "launches": _launches()}
+    _check_train_result("quickstart-train", res, cfg.vocab_size)
+    _check_kernels("quickstart-train", out["quickstart-train"]["launches"],
+                   TRAIN_KERNELS, device)
+    _say(f"[examples] quickstart: loss {res.losses[0]:.4f} -> "
+         f"{res.final_loss:.4f} over {quick_steps} steps, "
+         f"{res.tokens_per_s:.0f} tokens/s")
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    eng, done, streamed = quickstart.serve_part(cfg, device=device,
+                                                verbose=False)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    tokens = {r.rid: r.generated for r in done}
+    if streamed != tokens["r0"] or any(len(t) != 8 for t in tokens.values()):
+        raise AssertionError(f"[examples] quickstart: r0 streamed "
+                             f"{streamed}, output {tokens['r0']}")
+    off, rel = quickstart.transfers(eng)
+    out["quickstart-serve"] = {"tokens": tokens, "wall_s": wall,
+                               "ttft_s": {r.rid: r.ttft for r in done},
+                               "offloads": off, "reloads": rel,
+                               "launches": _launches()}
+    _check_kernels("quickstart-serve", out["quickstart-serve"]["launches"],
+                   ENGINE_KERNELS, device)
+    _say(f"[examples] quickstart serving: 6 requests in {wall:.3f} s wall, "
+         f"r0 {streamed}, {off} offloads / {rel} reloads")
+    del eng
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    cmp = serve_comparison.compare(cfg, device=device)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    truth, out_v, out_l = cmp["truth"], cmp["vllm"], cmp["layerkv"]
+    tv = statistics.mean(r.ttft for r in out_v.values())
+    tl = statistics.mean(r.ttft for r in out_l.values())
+    entry = {"mismatches": cmp["mismatches"], "offloads": cmp["offloads"],
+             "reloads": cmp["reloads"], "wall_s": wall,
+             "mean_ttft_vllm_s": tv, "mean_ttft_layerkv_s": tl,
+             "tokens": {rid: r.generated for rid, r in out_l.items()},
+             "launches": _launches()}
+    _check_kernels("serve-comparison", entry["launches"], ENGINE_KERNELS,
+                   device)
+    if cmp["mismatches"]:
+        # the first diverging request: its step and top-2 logit gap
+        from repro_torch.models import DecoderModel
+        wl = {r.rid: r for r in serve_comparison.make_workload(cfg)}
+        model = DecoderModel(cfg, device=device, seed=7)
+        rid = next(r for r in truth
+                   if truth[r].generated != out_l[r].generated)
+        step, gap = _divergence_gap(model, wl[rid].prompt,
+                                    out_l[rid].generated,
+                                    truth[rid].generated)
+        entry["divergence"] = {"rid": rid, "step": step, "top2_gap": gap}
+        _say(f"[examples] serve_comparison: {rid} first differs at step "
+             f"{step}, top-2 logit gap there {gap:.3e} (f32, B 1)")
+    out["serve-comparison"] = entry
+    _say(f"[examples] serve_comparison: losslessness "
+         f"{len(truth) - cmp['mismatches']}/{len(truth)} identical under "
+         f"{cmp['offloads']} offloads / {cmp['reloads']} reloads; mean "
+         f"TTFT (engine clock) request-wise {tv * 1e6:.1f} us, layer-wise "
+         f"{tl * 1e6:.1f} us ({tv / max(tl, 1e-12):.2f}x); three runs "
+         f"{wall:.3f} s wall")
+
+    ckpt = tempfile.mkdtemp(prefix="tiny100m_ckpt_")
+    try:
+        _zero_launches()
+        res = train_tiny.run(steps=tiny_steps, batch=tiny_batch,
+                             seq=tiny_seq, ckpt=ckpt, device=device,
+                             verbose=False)
+        _sync(device)
+        written = os.path.exists(os.path.join(ckpt, "manifest.json"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    tail = res.step_s[1:] or res.step_s
+    steady = sorted(tail)[len(tail) // 2]
+    out["train-tiny"] = {"losses": res.losses, "step_s": res.step_s,
+                         "steady_step_s": steady,
+                         "tokens_per_s": tiny_batch * tiny_seq / steady,
+                         "checkpoint_written": written,
+                         "launches": _launches()}
+    _check_train_result("train-tiny", res, train_tiny.TINY_100M.vocab_size)
+    _check_kernels("train-tiny", out["train-tiny"]["launches"],
+                   TRAIN_KERNELS, device)
+    if not written:
+        raise AssertionError("[examples] train_tiny wrote no checkpoint")
+    _say(f"[examples] train_tiny: loss {res.losses[0]:.4f} -> "
+         f"{res.final_loss:.4f} over {tiny_steps} steps of {tiny_batch} x "
+         f"{tiny_seq}; steady step {steady:.4f} s = "
+         f"{tiny_batch * tiny_seq / steady:.0f} tokens/s")
+    return out
+
+
+def phase_examples(profile=False):
+    t0 = time.perf_counter()
+    out = run_examples(**EXAMPLES)
+    if profile:
+        from repro_torch.examples.train_tiny import TINY_100M
+        out["train-tiny"]["profile"] = _profile_train(
+            TINY_100M, EXAMPLES["tiny_batch"], EXAMPLES["tiny_seq"])
+    _say(f"[examples] phase {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------- dryrun --
+
+DRYRUN_PAIRS = (("chatglm3-6b", "decode_32k"), ("granite-3-2b", "train_4k"))
+
+
+def run_dryrun(out_dir, pairs=DRYRUN_PAIRS, offload=True):
+    """The dryrun phase: each pair in a fresh `python -m
+    repro_torch.launch.dryrun` process (the process group is
+    process-global) appending to one records file, the roofline over
+    it, and the offload example in its own process. Returns the records
+    and the roofline rows; raises unless every record is ok."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.launch.dryrun import missing_torch_internals
+    _say(f"[dryrun] torch {torch.__version__}")
+    missing = missing_torch_internals()
+    if missing:
+        raise RuntimeError(f"[dryrun] this torch lacks the private names the "
+                           f"dry run patches or imports: {missing}")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(os.path.abspath(out_dir), "dryrun_16x16.json")
+    if os.path.exists(path):
+        os.remove(path)
+    for arch, shape in pairs:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", path,
+             "--append"], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"[dryrun] {arch} x {shape}: exit "
+                               f"{proc.returncode}\n{proc.stderr[-3000:]}")
+    with open(path) as f:
+        recs = json.load(f)
+    from repro_torch.roofline.analysis import analyze_file
+    rows = analyze_file(path)
+    for rec in recs:
+        if not rec["ok"]:
+            raise AssertionError(f"[dryrun] {rec['arch']} x {rec['shape']}"
+                                 f": {rec['error']}")
+        _say(f"[dryrun] {rec['arch']} x {rec['shape']}: "
+             f"{rec['bytes_per_device'] / 2**30:.3f} GiB a rank "
+             f"(arguments {rec['memory']['argument_size']}), flops a rank "
+             f"{rec['flops']:.4e}, collectives {rec['collectives']['counts']}"
+             f" ({rec['collectives']['total_bytes']} bytes), "
+             f"{rec['wall_s']} s on the CPU; notes {rec['notes']}")
+    for r in rows:
+        _say(f"[dryrun] roofline {r.row()}")
+    out = {"records": recs, "roofline": [dc.asdict(r) for r in rows]}
+    if offload:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.examples.offload_dryrun"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"[dryrun] offload_dryrun: exit "
+                               f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        out["offload"] = proc.stdout.strip().splitlines()
+        for line in out["offload"]:
+            _say(f"[dryrun] {line}")
+    return out
+
+
+def phase_dryrun():
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = run_dryrun(d)
+    _say(f"[dryrun] phase {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 # ------------------------------------------------------------------- main --
 
 _NO_PALLAS_BWD = ("the JAX package has no Pallas backward: its training "
@@ -3335,7 +3642,12 @@ def main(argv=None) -> int:
             phase_generate_recurrent(tag, settings, args.profile)
             if kernels is None else
             phase_train_recurrent(tag, settings, kernels, args.profile))
+    gc.collect()
     torch.cuda.empty_cache()
+    paths.update(phase_examples(profile=args.profile))
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = phase_dryrun()
 
     rows = []
     for name, (err, t) in kern.items():
@@ -3374,7 +3686,7 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"nvidia_smi": smi, "kernels": rows, "paths": paths,
-                       "device": device,
+                       "dryrun": dry, "device": device,
                        "seconds": time.perf_counter() - t0}, f, indent=1,
                       default=str)
     _say(f"[done] {time.perf_counter() - t0:.1f}s")

@@ -1,0 +1,473 @@
+"""The DTensor forms of the model's `replaceable` operations
+(`repro_torch.models.act_sharding`), which the dry run
+(`repro_torch.launch.dryrun`) installs for the length of a step: GSPMD
+partitions the plain forms silently, DTensor refuses them or gathers in
+full. Each form is called as `form(plain, *args)` and falls back on the
+plain body where its input is a plain tensor.
+
+Two of them change a layout only because DTensor must (`split_heads`,
+`attention`): a tensor can only be viewed as heads when every shard
+holds whole heads. Each redistribution they make is noted (`notes`), so
+the dry run's record says why its collective is there.
+"""
+from __future__ import annotations
+
+from repro_torch.models.act_sharding import is_dtensor
+
+_NOTES: set = set()
+
+
+def notes() -> list:
+    """The redistributions `split_heads` / `gqa_heads` made since the last
+    `clear_notes`, one line each."""
+    return sorted(_NOTES)
+
+
+def clear_notes():
+    _NOTES.clear()
+
+
+def pin_grad(plain, x):
+    """DTensor `x` whose gradient is redistributed to `x`'s own placements
+    as it arrives. A scalar loss's gradient reaches the graph replicated
+    (the backward of a mean), and DTensor's ops keep a replicated operand
+    replicated, so without a pin the whole backward would run on every
+    rank in full. Identity on a plain tensor or without grad."""
+    if not is_dtensor(x) or not x.requires_grad:
+        return x
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    # a partial-sum output's gradient is the same on every rank
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+
+    def hook(g):
+        return g if tuple(g.placements) == pl else g.redistribute(mesh, pl)
+    x.register_hook(hook)
+    return x
+
+
+def _sharded_dims(x, dim):
+    """The mesh dims whose placement shards tensor dim `dim` of `x`."""
+    return [i for i, p in enumerate(x.placements)
+            if p.is_shard() and p.dim == dim]
+
+
+def _replicate_dims(x, mesh_dims):
+    from torch.distributed.tensor import Replicate
+    pl = list(x.placements)
+    for i in mesh_dims:
+        pl[i] = Replicate()
+    return x.redistribute(x.device_mesh, tuple(pl))
+
+
+def split_heads(plain, t, n_heads: int):
+    """A flat projection (..., n_heads * hd) viewed as heads: where its
+    last dim is sharded over mesh dims whose extent does not divide
+    `n_heads`, replicate it there first (a shard must hold whole heads;
+    GSPMD would reshard silently)."""
+    if is_dtensor(t):
+        dims = _sharded_dims(t, t.ndim - 1)
+        size = 1
+        for i in dims:
+            size *= t.device_mesh.size(i)
+        if dims and n_heads % size:
+            names = [t.device_mesh.mesh_dim_names[i] for i in dims]
+            _NOTES.add(f"{n_heads} heads of {t.shape[-1] // n_heads} do "
+                       f"not divide {names} ({size}); replicated there "
+                       f"before the head view")
+            t = _replicate_dims(t, dims)
+    return plain(t, n_heads)
+
+
+def gqa_heads(q, k, v):
+    """q (B, Sq, H, hd) and k, v (B, Skv, KV, hd) about to enter
+    attention, which views q's H as (KV, G): where q's heads are sharded
+    over mesh dims whose extent does not divide KV, give k and v all H
+    heads, G = 1, sharded like q's (no collective: each shard keeps its
+    own heads' copy). Identity on plain tensors."""
+    if not is_dtensor(q):
+        return q, k, v
+    H, KV = q.shape[2], k.shape[2]
+    dims = _sharded_dims(q, 2)
+    size = 1
+    for i in dims:
+        size *= q.device_mesh.size(i)
+    if not dims or KV % size == 0:
+        return q, k, v
+    names = [q.device_mesh.mesh_dim_names[i] for i in dims]
+    _NOTES.add(f"attention: {KV} KV heads do not divide {names} ({size}); "
+               f"K/V expanded to the {H} query heads, sharded like them")
+    B, Skv, _, hd = k.shape
+    G = H // KV
+    qpl = tuple(q.placements)
+
+    def expand(t):
+        if is_dtensor(t):
+            t = _replicate_dims(t, _sharded_dims(t, 2))
+        t = t.unsqueeze(3).expand(B, Skv, KV, G, hd).reshape(B, Skv, H, hd)
+        return t.redistribute(t.device_mesh, tuple(
+            qp if i in dims else tp for i, (qp, tp)
+            in enumerate(zip(qpl, t.placements))))
+    return q, expand(k), expand(v)
+
+
+def reduce_partials(x):
+    """A DTensor holding partial sums (a row-parallel product's output
+    added to the residual) reduced to real values before a norm reads
+    it (Megatron's all-reduce after the row-parallel projection); GSPMD
+    places that reduction itself, DTensor would carry the partial sums
+    into the norm and then replicate the next product's weights.
+    Identity on a plain tensor."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+
+
+def attention(plain, q, k, v, **kw):
+    """`plain(q, k, v, **kw)` (the flash attention), on plain tensors as
+    it is. On DTensors (K/V first given whole heads: `gqa_heads`)
+    sharded alike on batch and heads (never on the sequence) attention
+    is local to each shard, as GSPMD partitions it: `plain` runs on the
+    local shards, as one tile of the whole sequence (a
+    fake step holds no memory; the same function and FLOPs as the tiled
+    loop in far fewer dispatches), and the result is a DTensor with q's
+    placements. (Flattening a data-sharded batch with model-sharded heads
+    into one batched product leaves a strided shard, whose backward
+    DTensor would gather in full.)"""
+    if not is_dtensor(q):
+        return plain(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor
+    q, k, v = gqa_heads(q, k, v)
+    q = reduce_partials(q)
+    mesh, pl = q.device_mesh, tuple(q.placements)
+    k, v = (t.redistribute(mesh, pl) if tuple(t.placements) != pl else t
+            for t in (k, v))
+    if is_dtensor(kw.get("kv_len")):
+        kw["kv_len"] = kw["kv_len"].to_local()
+    out = plain(q.to_local(), k.to_local(), v.to_local(),
+                q_chunk=q.to_local().shape[1],
+                kv_chunk=k.to_local().shape[1], **kw)
+    return DTensor.from_local(out, mesh, pl, shape=q.shape,
+                              stride=q.stride())
+
+
+def norm(plain, x, *args, **kwargs):
+    """A norm (`rmsnorm`, `layernorm`) of `x` with its partial sums
+    reduced first (`reduce_partials`)."""
+    return plain(reduce_partials(x), *args, **kwargs)
+
+
+def cross_entropy(plain, logits, labels, mask=None):
+    """The loss: on DTensor logits with no mask, the vocab-parallel form
+    (`sharded_cross_entropy`)."""
+    if mask is None and is_dtensor(logits):
+        return sharded_cross_entropy(logits, labels)
+    return plain(logits, labels, mask)
+
+
+def sharded_cross_entropy(logits, labels):
+    """Mean next-token cross-entropy of DTensor logits (B, S, V) whose
+    vocab dim may be sharded, in the vocab-parallel form (Megatron's, and
+    GSPMD's partitioning of it): each rank's max, sum of exponentials
+    and label logit over its own vocab slice, as partial values reduced
+    by (B, S)-sized all-reduces; the logits are never gathered, and
+    their gradient stays on each rank's slice."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    x = logits.float()
+    mesh = x.device_mesh
+    bd, vd = _sharded_dims(x, 0), _sharded_dims(x, 2)
+    pl_x = tuple(Shard(0) if i in bd else Shard(2) if i in vd
+                 else Replicate() for i in range(mesh.ndim))
+    pl_b = tuple(Shard(0) if i in bd else Replicate()
+                 for i in range(mesh.ndim))
+    if tuple(x.placements) != pl_x:
+        x = x.redistribute(mesh, pl_x)
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh,
+                                    (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+    lab = labels.redistribute(mesh, pl_b).to_local().long()
+    xl = x.to_local()
+    B_l, S, V_l = xl.shape
+    off = 0
+    for i in vd:                    # this rank's slice of the vocab
+        off = off * mesh.size(i) + mesh.get_local_rank(i)
+    off *= V_l
+    n_b = x.shape[0] // B_l
+
+    def reduced(t, op):
+        """A rank's partial (B_l, S) value, reduced over the vocab dims."""
+        pl = tuple(Partial(op) if i in vd else p for i, p in enumerate(pl_b))
+        return DTensor.from_local(t, mesh, pl, shape=(B_l * n_b, S),
+                                  stride=(S, 1)
+                                  ).redistribute(mesh, pl_b).to_local()
+    m = reduced(xl.detach().amax(dim=-1), "max")
+    sumexp = reduced(torch.exp(xl - m[..., None]).sum(dim=-1), "sum")
+    mine = (lab >= off) & (lab < off + V_l)
+    picked = torch.gather(xl, -1, (lab - off).clamp(0, V_l - 1)[..., None])
+    ll = reduced(torch.where(mine, picked[..., 0],
+                             torch.zeros((), device=xl.device)), "sum")
+    nll = m + torch.log(sumexp) - ll
+    return DTensor.from_local(nll, mesh, pl_b, shape=(B_l * n_b, S),
+                              stride=(S, 1)).mean()
+
+
+def decode_attention(plain, q, k_cache, v_cache, kv_len):
+    """`plain(q, k_cache, v_cache, kv_len)` (decode attention: q (B, 1, H,
+    D) over caches (B, S, KV, D)), on plain tensors as it is. On a DTensor
+    cache sharded on its sequence, flash-decoding, as the reference's
+    cache layout intends (`launch/specs.py`: GSPMD's partial softmax):
+    q is replicated over the sequence's mesh dims, each rank attends to
+    its own keys (its slice's positions masked by `kv_len`) and keeps
+    its row's log-sum-exp, and the partial results combine by a max and
+    two sums over those mesh dims."""
+    if not is_dtensor(k_cache) or not _sharded_dims(k_cache, 1):
+        return plain(q, k_cache, v_cache, kv_len)
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = k_cache.device_mesh
+    seq = _sharded_dims(k_cache, 1)
+    bat = _sharded_dims(k_cache, 0)
+    pl = [Replicate()] * mesh.ndim
+    for i in bat:
+        pl[i] = Shard(0)
+
+    def rows(t):      # a plain tensor stands for the whole (replicated) one
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, tuple(pl)).to_local()
+    q, kv_len = rows(q), rows(torch.as_tensor(kv_len, device=q.device))
+    k, v = k_cache.to_local(), v_cache.to_local()
+    B, _, H, D = q.shape
+    S_loc, KV = k.shape[1], k.shape[2]
+    split = 0
+    for i in seq:                   # this rank's slice of the sequence
+        split = split * mesh.size(i) + mesh.get_local_rank(i)
+    k_pos = split * S_loc + torch.arange(S_loc, device=k.device)
+    valid = k_pos[None, :] < kv_len.reshape(-1, 1).long()     # (B, S_loc)
+    qh = (q.float() * D ** -0.5).reshape(B, KV, H // KV, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qh, k.float())
+    s = torch.where(valid[:, None, None], s,
+                    torch.full((), -1e30, device=s.device))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    den = p.sum(-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float()) / den[..., None]
+    lse = torch.where(valid.any(-1)[:, None, None], m + torch.log(den),
+                      torch.full((), float("-inf"), device=s.device))
+    # stack the splits on a new leading dim, sharded over the sequence's
+    # mesh dims, and combine there
+    spl = list(pl)
+    for i in bat:
+        spl[i] = Shard(1)
+    for i in seq:
+        spl[i] = Shard(0)
+    o = DTensor.from_local(o.reshape(1, B, H, D), mesh, tuple(spl))
+    lse = DTensor.from_local(lse.reshape(1, B, H), mesh, tuple(spl))
+    mx = lse.amax(0)
+    w = torch.exp(lse - mx)
+    out = (o * w[..., None]).sum(0) / w.sum(0)[..., None]
+    return out.reshape(out.shape[0], 1, H, D).to(q.dtype)
+
+
+def replicated(plain, x):
+    """A DTensor replicated on every mesh dim (differentiable: its
+    gradient returns to x's layout); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    rep = (Replicate(),) * x.device_mesh.ndim
+    x = reduce_partials(x)
+    return x if tuple(x.placements) == rep \
+        else x.redistribute(x.device_mesh, rep)
+
+
+def gathered(plain, *xs):
+    """Each DTensor in `xs` gathered in full on every rank and returned as
+    a plain tensor (which the dry run's implicit replication reads as
+    replicated); plain tensors as they are."""
+    out = []
+    for x in xs:
+        if is_dtensor(x):
+            from torch.distributed.tensor import Replicate
+            x = x.redistribute(x.device_mesh,
+                               (Replicate(),) * x.device_mesh.ndim
+                               ).to_local()
+        out.append(x)
+    return tuple(out)
+
+
+def slstm_scan(plain, pre, c, n, m, h, r):
+    """The sLSTM's token loop (`ssm._slstm_scan`) on each rank's own
+    batch rows (`batch_local`): its state and gates are batch-major, its
+    recurrent weights `r` replicated."""
+    return batch_local(plain, (pre, c, n, m, h), (r,))
+
+
+def batch_local(fn, batched, replicated=()):
+    """`fn(*batched, *replicated)`, whose inputs and outputs (a tensor or
+    nested tuples of tensors) are all batch-major but `replicated`. On
+    plain tensors as it is. On DTensors `fn` runs on each rank's own
+    batch rows (the mesh dims that shard the first batched input's batch
+    dim; every other dim replicated), as plain tensors: a long
+    elementwise recurrence (the sLSTM's token loop) then costs plain
+    dispatches, not DTensor ones. The outputs are DTensors sharded the
+    same way."""
+    x0 = batched[0]
+    if not is_dtensor(x0):
+        return fn(*batched, *replicated)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.utils._pytree import tree_map
+    mesh = x0.device_mesh
+    dims = _sharded_dims(x0, 0)
+    pl = tuple(Shard(0) if i in dims else Replicate()
+               for i in range(mesh.ndim))
+    rep = (Replicate(),) * mesh.ndim
+    n = 1
+    for i in dims:
+        n *= mesh.size(i)
+
+    def rows(t):      # a plain tensor stands for the whole (replicated) one
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, rep, run_check=False)
+        return t.redistribute(mesh, pl).to_local()
+    # a replicated input's gradient from one rank's rows is a partial sum
+    # over the batch dims
+    part = tuple(Partial() if i in dims else Replicate()
+                 for i in range(mesh.ndim))
+    local = [rows(t) for t in batched] + \
+        [t.redistribute(mesh, rep).to_local(grad_placements=part)
+         if is_dtensor(t) else t for t in replicated]
+    out = fn(*local)
+    return tree_map(
+        lambda t: DTensor.from_local(
+            t, mesh, pl, shape=(t.shape[0] * n, *t.shape[1:]),
+            stride=t.contiguous().stride()), out)
+
+
+def log_sigmoid(plain, x):
+    """`plain(x)`; on a DTensor `-softplus(-x)`, the same function
+    through an op DTensor shards pointwise (it has no strategy for
+    log_sigmoid's forward, which returns a second buffer)."""
+    import torch.nn.functional as F
+    if not is_dtensor(x):
+        return plain(x)
+    return -F.softplus(-x)
+
+
+def bincount(plain, x, n: int):
+    """`plain(x, n)`; on a DTensor (no sharding strategy for bincount)
+    the sum of a one-hot comparison, which reduces over a sharded x by a
+    small all-reduce."""
+    import torch
+    if not is_dtensor(x):
+        return plain(x, n)
+    return (x[:, None] == torch.arange(n, device=x.device)).sum(0)
+
+
+def embed(plain, table, tokens):
+    """`plain(table, tokens)`; on a DTensor table whose vocab dim is
+    sharded, the
+    vocab-parallel lookup: each rank looks up the tokens in its own
+    vocab slice (zeros elsewhere) and the partial rows are summed by one
+    all-reduce, where indexing would gather the whole table."""
+    if not is_dtensor(table):
+        return plain(table, tokens)
+    import torch
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    vd = _sharded_dims(table, 0)
+    pl_t = tuple(Shard(0) if i in vd else Replicate()
+                 for i in range(mesh.ndim))
+    if tuple(table.placements) != pl_t:
+        table = table.redistribute(mesh, pl_t)
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+    bd = [i for i in _sharded_dims(tokens, 0) if i not in vd]
+    pl_b = tuple(Shard(0) if i in bd else Replicate()
+                 for i in range(mesh.ndim))
+    tok = tokens.redistribute(mesh, pl_b).to_local().long()
+    # each rank's table gradient covers its own tokens only: a partial
+    # sum over the token dims
+    tl = table.to_local(grad_placements=tuple(
+        Partial() if i in bd else p for i, p in enumerate(pl_t)))
+    V_l = tl.shape[0]
+    off = 0
+    for i in vd:                    # this rank's slice of the vocab
+        off = off * mesh.size(i) + mesh.get_local_rank(i)
+    off *= V_l
+    mine = ((tok >= off) & (tok < off + V_l))[..., None]
+    rows = F.embedding((tok - off).clamp(0, V_l - 1), tl)
+    out = torch.where(mine, rows, torch.zeros((), dtype=rows.dtype))
+    n_b = tokens.shape[0] // tok.shape[0]
+    shape = (out.shape[0] * n_b, *out.shape[1:])
+    pl = tuple(Partial() if i in vd else p for i, p in enumerate(pl_b))
+    return DTensor.from_local(out, mesh, pl, shape=shape,
+                              stride=out.stride()).redistribute(mesh, pl_b)
+
+
+def write_prefix(plain, layer, t):
+    """`plain(layer, t)`: `layer[:, :W] = t` in place, W = t.shape[1], a
+    prefill's K/V into one layer's cache (B, S_buf, ...). On a DTensor
+    layer a slice of its
+    sharded sequence dim is not a safe destination (DTensor writes the
+    wrong rows), so the whole layer is written: t itself when it fills
+    the layer, else the layer gathered along its sequence, written
+    there, and laid out again."""
+    W = t.shape[1]
+    if not is_dtensor(layer):
+        return plain(layer, t)
+    if W == layer.shape[1]:
+        layer.copy_(t)
+        return layer
+    seq = _sharded_dims(layer, 1)
+    full = _replicate_dims(layer, seq)
+    full[:, :W] = _replicate_dims(t, _sharded_dims(t, 1)) \
+        if is_dtensor(t) else t
+    layer.copy_(full.redistribute(layer.device_mesh, layer.placements))
+    return layer
+
+
+def write_rows(plain, cache, rows, idx, val):
+    """`plain(cache, rows, idx, val)`: `cache[rows, idx] = val` in place,
+    a decode step's new K/V row per sequence. On a DTensor whose written
+    dims are sharded no in-place scatter keeps the layout, so the row is selected in elementwise
+    (`where` over a one-hot of `idx` along dim 1), as GSPMD lowers an
+    update into a sharded dim."""
+    if not is_dtensor(cache):
+        return plain(cache, rows, idx, val)
+    import torch
+    S = cache.shape[1]
+    hit = torch.arange(S, device=cache.device)[None, :] == idx[:, None]
+    hit = hit.reshape(*hit.shape, *([1] * (cache.ndim - 2)))
+    if is_dtensor(hit):      # laid out like the cache: no gather of it
+        hit = hit.redistribute(cache.device_mesh, cache.placements)
+    cache.copy_(torch.where(hit, val[:, None].to(cache.dtype), cache))
+    return cache
+
+
+def routed_dropless(plain, p, xf, flat_e, counts, gate2, T, K, E):
+    """The MoE's dropless routing: a fake step cannot read the counts on
+    the host, so the reference's own dropless form, the capacity dispatch
+    at C = T*K slots."""
+    from repro_torch.models import moe
+    return moe._routed_capacity(p, xf, flat_e, counts, gate2, T, K, E,
+                                T * K)[0]
+
+
+# the `replaceable` functions' names -> their DTensor forms
+FORMS = {
+    "pin_grad": pin_grad, "split_heads": split_heads,
+    "attention": attention, "rmsnorm": norm, "layernorm": norm,
+    "cross_entropy": cross_entropy, "decode_attention": decode_attention,
+    "embed": embed, "write_prefix": write_prefix, "write_rows": write_rows,
+    "routed_dropless": routed_dropless, "bincount": bincount,
+    "replicated": replicated, "gathered": gathered,
+    "log_sigmoid": log_sigmoid, "slstm_scan": slstm_scan,
+}

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.act_sharding import replaceable
 
 
 # ---------------------------------------------------------------------------
@@ -41,10 +42,12 @@ def embed_init(gen, vocab, dim, dtype, device):
 # norms
 # ---------------------------------------------------------------------------
 
+@replaceable
 def rmsnorm(x, w, eps=1e-6):
     return ops.rmsnorm(x, w, eps)
 
 
+@replaceable
 def layernorm(x, w, b, eps=1e-5):
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
@@ -154,18 +157,28 @@ def init_attention(cfg: ModelConfig, gen, dtype, device):
     return p
 
 
+@replaceable
+def split_heads(t, n_heads: int):
+    """A flat projection (..., n_heads * hd) viewed as (..., n_heads,
+    hd)."""
+    return t.reshape(*t.shape[:-1], n_heads, t.shape[-1] // n_heads)
+
+
+@replaceable
+def attention(q, k, v, **kwargs):
+    """The flash attention (`ops.flash_attention`)."""
+    return ops.flash_attention(q, k, v, **kwargs)
+
+
 def qkv_proj(cfg: ModelConfig, p, x):
     """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
-    B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, cfg.n_q_heads, hd),
-            k.reshape(B, S, cfg.n_kv_heads, hd),
-            v.reshape(B, S, cfg.n_kv_heads, hd))
+    return (split_heads(q, cfg.n_q_heads), split_heads(k, cfg.n_kv_heads),
+            split_heads(v, cfg.n_kv_heads))
 
 
 def attn_out(cfg: ModelConfig, p, o):
@@ -179,8 +192,7 @@ def self_attention(cfg: ModelConfig, p, x, positions, *, causal=True,
     q, k, v = qkv_proj(cfg, p, x)
     q = apply_rope(cfg, q, positions)
     k = apply_rope(cfg, k, positions)
-    o = ops.flash_attention(q, k, v, causal=causal, window=window,
-                            kv_len=kv_len)
+    o = attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
     return attn_out(cfg, p, o), (k, v)
 
 
@@ -188,26 +200,22 @@ def cross_attention(cfg: ModelConfig, p, x, k, v, enc_len=None):
     """Decoder queries x (B, S, d) over encoder keys / values k, v
     (B, T, KV, hd) (`cross_kv`), non-causal; enc_len (B,) masks keys past
     it."""
-    B, S, _ = x.shape
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(B, S, cfg.n_q_heads, cfg.resolved_head_dim)
-    o = ops.flash_attention(q, k, v, causal=False, kv_len=enc_len)
+    q = split_heads(q, cfg.n_q_heads)
+    o = attention(q, k, v, causal=False, kv_len=enc_len)
     return attn_out(cfg, p, o)
 
 
 def cross_kv(cfg: ModelConfig, p, enc_out):
     """Encoder output (B, T, d) -> the cross-attention's k, v
     (B, T, KV, hd)."""
-    B, T, _ = enc_out.shape
-    hd = cfg.resolved_head_dim
     k = enc_out @ p["wk"]
     v = enc_out @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    return (k.reshape(B, T, cfg.n_kv_heads, hd),
-            v.reshape(B, T, cfg.n_kv_heads, hd))
+    return split_heads(k, cfg.n_kv_heads), split_heads(v, cfg.n_kv_heads)
 
 
 def decode_self_attention(cfg: ModelConfig, p, x, positions):

@@ -46,6 +46,10 @@ from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers, moe, ssm
+from repro_torch.models.act_sharding import (constrain, constrain_compute,
+                                             constrain_kv,
+                                             constrain_kv_stack,
+                                             replaceable)
 
 def layer_params(tree, l: int):
     """Layer `l`'s slice of layer-stacked params (views, no copy)."""
@@ -106,6 +110,7 @@ def mask_pad_logits(cfg: ModelConfig, logits):
     return logits.masked_fill(iota >= cfg.vocab_size, -1e30)
 
 
+@replaceable
 def cross_entropy(logits, labels, mask=None):
     """logits (B,S,V) any-dtype, labels (B,S) int."""
     logits = logits.float()
@@ -142,6 +147,35 @@ def dequantize(q, scale, dtype):
     return (q.float() * scale.float()[..., None]).to(dtype)
 
 
+@replaceable
+def embed(table, tokens):
+    """The embedding rows of `tokens`."""
+    return table[tokens]
+
+
+@replaceable
+def write_rows(cache, rows, idx, val):
+    """`cache[rows, idx] = val` in place: a decode step's new K/V row per
+    sequence."""
+    cache[rows, idx] = val
+    return cache
+
+
+@replaceable
+def write_prefix(layer, t):
+    """`layer[:, :W] = t` in place, W = t.shape[1]: a prefill's K/V into
+    one layer's cache (B, S_buf, ...)."""
+    layer[:, :t.shape[1]] = t
+    return layer
+
+
+@replaceable
+def decode_attention(q, k_cache, v_cache, kv_len):
+    """One query row per sequence over a dense cache
+    (`ops.decode_attention`)."""
+    return ops.decode_attention(q, k_cache, v_cache, kv_len)
+
+
 def attn_decode(cfg: ModelConfig, p, h, k_cache, v_cache, kv_len,
                 positions, write_idx):
     """Self-attention of one new token per sequence over a dense cache:
@@ -150,10 +184,10 @@ def attn_decode(cfg: ModelConfig, p, h, k_cache, v_cache, kv_len,
     kv_len (B,) counts the valid slots with the new one."""
     q, k, v = layers.decode_self_attention(cfg, p, h, positions)
     rows = torch.arange(k_cache.shape[0], device=k_cache.device)
-    k_cache[rows, write_idx] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, write_idx] = v[:, 0].to(v_cache.dtype)
-    return layers.attn_out(cfg, p, ops.decode_attention(q, k_cache, v_cache,
-                                                        kv_len))
+    write_rows(k_cache, rows, write_idx, k[:, 0].to(k_cache.dtype))
+    write_rows(v_cache, rows, write_idx, v[:, 0].to(v_cache.dtype))
+    return layers.attn_out(cfg, p, decode_attention(q, k_cache, v_cache,
+                                                    kv_len))
 
 
 def block_forward(cfg: ModelConfig, p, x, positions, *, window=0,
@@ -320,7 +354,7 @@ class DecoderModel(_Model):
         """vlm: the stub frontend's `embeds` replace the token embedding."""
         if self.cfg.family == "vlm" and "embeds" in batch:
             return batch["embeds"].to(self.dtype)
-        return self.params["embed"][batch["tokens"]]
+        return embed(self.params["embed"], batch["tokens"])
 
     def _positions(self, batch, B, S):
         if self.cfg.pos_emb == "mrope" and "mrope_pos" in batch:
@@ -341,8 +375,9 @@ class DecoderModel(_Model):
         positions = self._positions(batch, B, S)
 
         def block(x, lp):
-            x, _, aux = block_forward(cfg, lp, x, positions)
-            return x, aux.get("lb_loss"), aux.get("dropped_frac")
+            x, _, aux = block_forward(cfg, lp, constrain_compute(x),
+                                      positions)
+            return constrain(x), aux.get("lb_loss"), aux.get("dropped_frac")
 
         lbs, drops = [], []
         for lp in unbind_layers(p["layers"]):
@@ -354,7 +389,7 @@ class DecoderModel(_Model):
         if cfg.family == "moe":
             aux = {"lb_loss": torch.stack(lbs).mean(),
                    "dropped_frac": torch.stack(drops).mean()}
-        x = layers.apply_norm(cfg, p["final_norm"], x)
+        x = layers.apply_norm(cfg, p["final_norm"], constrain_compute(x))
         return self.unembed(x), aux
 
     def unembed(self, x):
@@ -380,9 +415,10 @@ class DecoderModel(_Model):
         S_buf = cache["k"].shape[2]
         W = min(S, S_buf)   # sliding-window cache keeps the trailing W
         for l in range(cfg.n_layers):
-            x, kv, _ = block_forward(cfg, layer_params(p["layers"], l), x,
-                                     positions, kv_len=kv_len,
-                                     dropless=dropless)
+            x, kv, _ = block_forward(cfg, layer_params(p["layers"], l),
+                                     constrain_compute(x), positions,
+                                     kv_len=kv_len, dropless=dropless)
+            x, kv = constrain(x), constrain_kv(kv)
             for name, t in zip(("k", "v"), kv):
                 t = t[:, S - W:]
                 if cfg.kv_quant:
@@ -390,12 +426,13 @@ class DecoderModel(_Model):
                     cache[name][l, :, :W] = codes
                     cache[f"{name}_scale"][l, :, :W] = scale
                 else:
-                    cache[name][l, :, :W] = t
+                    write_prefix(cache[name][l], t)
+        cache["k"], cache["v"] = constrain_kv_stack(cache["k"], cache["v"])
         new_len = (kv_len.to(torch.int32) if kv_len is not None
                    else torch.full((B,), S, dtype=torch.int32,
                                    device=self.device))
         cache["len"] = new_len
-        x = layers.apply_norm(cfg, p["final_norm"], x)
+        x = layers.apply_norm(cfg, p["final_norm"], constrain_compute(x))
         if kv_len is not None:
             last = x[torch.arange(B, device=self.device), new_len.long() - 1]
         else:
@@ -411,7 +448,7 @@ class DecoderModel(_Model):
         requantized), and returns (logits (B, padded_vocab), cache)."""
         cfg, p = self.cfg, self.params
         B = tokens.shape[0]
-        x = p["embed"][tokens.reshape(B, 1)]
+        x = embed(p["embed"], tokens.reshape(B, 1))
         write_idx, kv_len = decode_slots(cache)
         positions = positions_for(cfg, B, 1, self.device,
                                   offset=cache["len"])
@@ -430,7 +467,7 @@ class DecoderModel(_Model):
                     cache[name][l, rows, write_idx] = codes
                     cache[f"{name}_scale"][l, rows, write_idx] = scale
         cache["len"] = cache["len"] + 1
-        x = layers.apply_norm(cfg, p["final_norm"], x)
+        x = layers.apply_norm(cfg, p["final_norm"], constrain_compute(x))
         return self.unembed(x[:, 0]), cache
 
 
@@ -480,24 +517,26 @@ class EncDecModel(_Model):
         x = enc_embeds.to(self.dtype) \
             + layers.sinusoid_pos_emb(pos, cfg.d_model).to(self.dtype)
         for lp in unbind_layers(p["enc_layers"]):
+            x = constrain_compute(x)
             h = layers.apply_norm(cfg, lp["attn_norm"], x)
             a, _ = layers.self_attention(cfg, lp["attn"], h, pos,
                                          causal=False)
             x = x + a
             h = layers.apply_norm(cfg, lp["mlp_norm"], x)
-            x = x + layers.mlp(cfg, lp["mlp"], h)
-        return layers.apply_norm(cfg, p["enc_norm"], x)
+            x = constrain(x + layers.mlp(cfg, lp["mlp"], h))
+        return layers.apply_norm(cfg, p["enc_norm"], constrain_compute(x))
 
     def _dec_embed(self, tokens, offset=0):
         B, S = tokens.shape
         pos = positions_for(self.cfg, B, S, self.device, offset)
-        x = self.params["embed"][tokens] \
+        x = embed(self.params["embed"], tokens) \
             + layers.sinusoid_pos_emb(pos, self.cfg.d_model).to(self.dtype)
         return x, pos
 
     def _dec_block(self, lp, x, pos, enc):
         """Full-sequence decoder block: (x, (k, v), (ck, cv))."""
         cfg = self.cfg
+        x = constrain_compute(x)
         h = layers.apply_norm(cfg, lp["attn_norm"], x)
         a, kv = layers.self_attention(cfg, lp["attn"], h, pos, causal=True)
         x = x + a
@@ -505,7 +544,8 @@ class EncDecModel(_Model):
         ck, cv = layers.cross_kv(cfg, lp["cross"], enc)
         x = x + layers.cross_attention(cfg, lp["cross"], h, ck, cv)
         h = layers.apply_norm(cfg, lp["mlp_norm"], x)
-        return x + layers.mlp(cfg, lp["mlp"], h), kv, (ck, cv)
+        return (constrain(x + layers.mlp(cfg, lp["mlp"], h)),
+                constrain_kv(kv), (ck, cv))
 
     def unembed(self, x):
         return mask_pad_logits(self.cfg, x @ self.params["embed"].T)
@@ -524,7 +564,7 @@ class EncDecModel(_Model):
         for lp in unbind_layers(p["dec_layers"]):
             x = (checkpoint(block, x, lp, enc, use_reentrant=False)
                  if remat else block(x, lp, enc))
-        x = layers.apply_norm(cfg, p["final_norm"], x)
+        x = layers.apply_norm(cfg, p["final_norm"], constrain_compute(x))
         return self.unembed(x), {}
 
     def init_cache(self, B, cache_len, cache_dtype=None):
@@ -555,13 +595,13 @@ class EncDecModel(_Model):
         for l in range(cfg.n_layers):
             x, (k, v), (ck, cv) = self._dec_block(
                 layer_params(p["dec_layers"], l), x, pos, enc)
-            cache["k"][l, :, :S] = k
-            cache["v"][l, :, :S] = v
+            write_prefix(cache["k"][l], k)
+            write_prefix(cache["v"][l], v)
             cache["ck"][l] = ck
             cache["cv"][l] = cv
         cache["len"] = torch.full((B,), S, dtype=torch.int32,
                                   device=self.device)
-        x = layers.apply_norm(cfg, p["final_norm"], x)
+        x = layers.apply_norm(cfg, p["final_norm"], constrain_compute(x))
         return self.unembed(x[:, -1]), cache
 
     def decode(self, tokens, cache):
@@ -582,7 +622,7 @@ class EncDecModel(_Model):
             h = layers.apply_norm(cfg, lp["mlp_norm"], x)
             x = x + layers.mlp(cfg, lp["mlp"], h)
         cache["len"] = cache["len"] + 1
-        x = layers.apply_norm(cfg, p["final_norm"], x)
+        x = layers.apply_norm(cfg, p["final_norm"], constrain_compute(x))
         return self.unembed(x[:, 0]), cache
 
 
@@ -661,21 +701,21 @@ class HybridModel(_Model):
         `torch.utils.checkpoint`, as the reference's `jax.checkpoint
         (sb_fn)`."""
         cfg, p = self.cfg, self.params
-        x = p["embed"][batch["tokens"]]
+        x = embed(p["embed"], batch["tokens"])
         B, S = x.shape[:2]
         pos = positions_for(cfg, B, S, self.device)
         window = cfg.sliding_window if S > cfg.sliding_window > 0 else 0
 
         def superblock(x, sb):
-            x, _ = self._shared_attn_full(x, pos, window)
+            x, _ = self._shared_attn_full(constrain_compute(x), pos, window)
             for lp in unbind_layers(sb):
                 x, _ = self._mamba_layer(lp, x)
-            return x
+            return constrain(x)
 
         for sb in unbind_layers(p["mamba_sb"]):
             x = (checkpoint(superblock, x, sb, use_reentrant=False)
                  if remat else superblock(x, sb))
-        x = layers.apply_norm(cfg, p["final_norm"], x)
+        x = layers.apply_norm(cfg, p["final_norm"], constrain_compute(x))
         return self.unembed(x), {}
 
     def init_cache(self, B, cache_len, cache_dtype=None):
@@ -703,7 +743,7 @@ class HybridModel(_Model):
         final SSD state and conv tail go into `cache` in place; returns
         (last-position logits, cache)."""
         cfg, p = self.cfg, self.params
-        x = p["embed"][batch["tokens"]]
+        x = embed(p["embed"], batch["tokens"])
         B, S = x.shape[:2]
         pos = positions_for(cfg, B, S, self.device)
         S_buf = cache["k"].shape[2]
@@ -711,17 +751,19 @@ class HybridModel(_Model):
         W = min(S, S_buf)
         n_sb, per_sb = self._sb()
         for i in range(n_sb):
-            x, (k, v) = self._shared_attn_full(x, pos, window)
-            cache["k"][i, :, :W] = k[:, S - W:]
-            cache["v"][i, :, :W] = v[:, S - W:]
+            x, kv = self._shared_attn_full(constrain_compute(x), pos, window)
+            k, v = constrain_kv(kv)
+            write_prefix(cache["k"][i], k[:, S - W:])
+            write_prefix(cache["v"][i], v[:, S - W:])
             for j in range(per_sb):
                 x, (st, conv) = self._mamba_layer(
                     layer_params(p["mamba_sb"], (i, j)), x)
                 cache["ssm_state"][i, j] = st
                 cache["conv"][i, j] = conv
+            x = constrain(x)
         cache["len"] = torch.full((B,), S, dtype=torch.int32,
                                   device=self.device)
-        x = layers.apply_norm(cfg, p["final_norm"], x)
+        x = layers.apply_norm(cfg, p["final_norm"], constrain_compute(x))
         return self.unembed(x[:, -1]), cache
 
     def decode(self, tokens, cache):
@@ -732,7 +774,7 @@ class HybridModel(_Model):
         cfg, p = self.cfg, self.params
         sp = p["shared_attn"]
         B = tokens.shape[0]
-        x = p["embed"][tokens.reshape(B, 1)]
+        x = embed(p["embed"], tokens.reshape(B, 1))
         write_idx, kv_len = decode_slots(cache)
         pos = positions_for(cfg, B, 1, self.device, offset=cache["len"])
         n_sb, per_sb = self._sb()
@@ -752,7 +794,7 @@ class HybridModel(_Model):
                 cache["ssm_state"][i, j] = st
                 cache["conv"][i, j] = conv
         cache["len"] = cache["len"] + 1
-        x = layers.apply_norm(cfg, p["final_norm"], x)
+        x = layers.apply_norm(cfg, p["final_norm"], constrain_compute(x))
         return self.unembed(x[:, 0]), cache
 
 
@@ -802,20 +844,21 @@ class XLSTMModel(_Model):
         """(logits, {}) for batch tokens (B, S); with `remat` each
         superblock is checkpointed, as the reference's."""
         cfg, p = self.cfg, self.params
-        x = p["embed"][batch["tokens"]]
+        x = embed(p["embed"], batch["tokens"])
 
         def superblock(x, mp, sp):
+            x = constrain_compute(x)
             for lp in unbind_layers(mp):
                 h = layers.apply_norm(cfg, lp["norm"], x)
                 x = x + ssm.mlstm_forward(cfg, lp["mlstm"], h)[0]
             h = layers.apply_norm(cfg, sp["norm"], x)
-            return x + ssm.slstm_forward(cfg, sp["slstm"], h)[0]
+            return constrain(x + ssm.slstm_forward(cfg, sp["slstm"], h)[0])
 
         for mp, sp in zip(unbind_layers(p["mlstm_sb"]),
                           unbind_layers(p["slstm_sb"])):
             x = (checkpoint(superblock, x, mp, sp, use_reentrant=False)
                  if remat else superblock(x, mp, sp))
-        x = layers.apply_norm(cfg, p["final_norm"], x)
+        x = layers.apply_norm(cfg, p["final_norm"], constrain_compute(x))
         return self.unembed(x), {}
 
     def init_cache(self, B, cache_len, cache_dtype=None):
@@ -846,6 +889,7 @@ class XLSTMModel(_Model):
         n_sb, n_m = self._sb()
         mkeys, skeys = ("mC", "mn", "mm"), ("sc", "sn", "sm", "sh")
         for i in range(n_sb):
+            x = constrain_compute(x)
             for j in range(n_m):
                 lp = layer_params(p["mlstm_sb"], (i, j))
                 h = layers.apply_norm(cfg, lp["norm"], x)
@@ -861,28 +905,28 @@ class XLSTMModel(_Model):
             out, st = ssm.slstm_forward(cfg, sp["slstm"], h,
                                         state=tuple(cache[k][i]
                                                     for k in skeys))
-            x = x + out
+            x = constrain(x + out)
             for k, t in zip(skeys, st):
                 cache[k][i] = t
         return x
 
     def prefill(self, batch, cache):
         cfg, p = self.cfg, self.params
-        x = p["embed"][batch["tokens"]]
+        x = embed(p["embed"], batch["tokens"])
         B, S = x.shape[:2]
         x = self._run_with_state(x, cache, decode_mode=False)
         cache["len"] = torch.full((B,), S, dtype=torch.int32,
                                   device=self.device)
-        x = layers.apply_norm(cfg, p["final_norm"], x)
+        x = layers.apply_norm(cfg, p["final_norm"], constrain_compute(x))
         return self.unembed(x[:, -1]), cache
 
     def decode(self, tokens, cache):
         cfg, p = self.cfg, self.params
         B = tokens.shape[0]
-        x = p["embed"][tokens.reshape(B, 1)]
+        x = embed(p["embed"], tokens.reshape(B, 1))
         x = self._run_with_state(x, cache, decode_mode=True)
         cache["len"] = cache["len"] + 1
-        x = layers.apply_norm(cfg, p["final_norm"], x)
+        x = layers.apply_norm(cfg, p["final_norm"], constrain_compute(x))
         return self.unembed(x[:, 0]), cache
 
 

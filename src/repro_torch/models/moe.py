@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import act_sharding
+from repro_torch.models.act_sharding import pin_grad, replaceable
 from repro_torch.models.layers import dense_init
 
 
@@ -92,18 +94,18 @@ def moe_ffn(cfg: ModelConfig, p, x, *, capacity_factor=CAPACITY_FACTOR,
     B, S, d = x.shape
     T = B * S
     E, K = m.n_experts, m.top_k
-    xf = x.reshape(T, d)
+    xf = pin_grad(act_sharding.constrain_moe_tokens(x.reshape(T, d)))
 
     logits = xf.float() @ p["router"]                        # (T, E) f32
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, K, dim=-1)     # (T, K)
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)
-    flat_e = expert_idx.reshape(T * K)
-    counts = torch.bincount(flat_e, minlength=E)
+    flat_e = act_sharding.constrain_moe_tokens(expert_idx.reshape(T * K))
+    counts = bincount(flat_e, E)
     gate2 = gate_vals.to(x.dtype)
     if dropless:
-        routed = _routed_grouped(p, xf, flat_e, counts, gate2, T, K)
+        routed = routed_dropless(p, xf, flat_e, counts, gate2, T, K, E)
         aux = {}
     else:
         C = max(1, int(T * K / E * capacity_factor))
@@ -116,7 +118,36 @@ def moe_ffn(cfg: ModelConfig, p, x, *, capacity_factor=CAPACITY_FACTOR,
     if m.n_shared:
         sp = p["shared"]
         out = out + (F.silu(xf @ sp["wg"]) * (xf @ sp["wu"])) @ sp["wd"]
-    return out.reshape(B, S, d), aux
+    # a DTensor gradient may arrive laid out otherwise than this output;
+    # its reshape backward needs the output's own layout
+    return pin_grad(out.reshape(B, S, d)), aux
+
+
+@replaceable
+def bincount(x, n: int):
+    """The count of each of the `n` values in the 1-d integer `x`."""
+    return torch.bincount(x, minlength=n)
+
+
+@replaceable
+def replicated(x):
+    """`x`, in full on every rank (the dry run's form gathers a DTensor)."""
+    return x
+
+
+@replaceable
+def gathered(*xs):
+    """`xs`, each in full on every rank as a plain tensor (the dry run's
+    form gathers DTensors)."""
+    return xs
+
+
+@replaceable
+def routed_dropless(p, xf, flat_e, counts, gate2, T, K, E):
+    """Dropless routing: the grouped form, which reads the counts on the
+    host (the dry run's fake step cannot: its form is the capacity
+    dispatch at C = T*K)."""
+    return _routed_grouped(p, xf, flat_e, counts, gate2, T, K)
 
 
 def _routed_grouped(p, xf, flat_e, counts, gate2, T, K):
@@ -149,6 +180,9 @@ def _routed_capacity(p, xf, flat_e, counts, gate2, T, K, E, C):
     Returns (routed (T, d), keep (T*K,) bool)."""
     d = xf.shape[1]
     n = T * K
+    # on DTensors the routing's index math runs on every rank in full
+    # (gathered expert ids: T*K integers), as plain tensors
+    flat_e, counts = gathered(flat_e, counts)
     # each pair's exclusive position within its expert in flat (T*K)
     # order: a stable sort by expert keeps that order inside an expert,
     # so position = rank in the sort - the expert's first rank
@@ -172,17 +206,23 @@ def _routed_capacity(p, xf, flat_e, counts, gate2, T, K, E, C):
     # 276 ms deepseek-moe-16b train step on the H100 (chip_smoke.py
     # --profile)
     filled = (slot_src < T)[:, None].to(xf.dtype)
-    buf = (xf.index_select(0, torch.clamp(slot_src, max=T - 1))
-           * filled).reshape(E, C, d)
+    # (on DTensors both gathers read a replicated source: the tokens'
+    # all-gather, which DTensor's own gather rule would issue too, with a
+    # backward it can run)
+    buf = act_sharding.constrain_moe_buffer(
+        (replicated(xf).index_select(
+            0, torch.clamp(slot_src, max=T - 1)) * filled).reshape(E, C, d))
 
     # expert compute: (E, C, d) x (E, d, f)
     h = F.silu(torch.bmm(buf, p["we_gate"])) * torch.bmm(buf, p["we_up"])
-    flat_out = torch.bmm(h, p["we_down"]).reshape(E * C, d)
+    flat_out = replicated(act_sharding.constrain_moe_buffer(
+        torch.bmm(h, p["we_down"])).reshape(E * C, d))
 
     routed = torch.zeros((T, d), dtype=xf.dtype, device=xf.device)
     slot2, keep2 = slot.reshape(T, K), keep.reshape(T, K)
     for kk in range(K):  # K gathers of (T, d), never (T*K, d)
-        g = flat_out.index_select(0, slot2[:, kk])
+        g = act_sharding.constrain_moe_tokens(
+            flat_out.index_select(0, slot2[:, kk]))
         routed = routed + g * (gate2[:, kk]
                                * keep2[:, kk].to(xf.dtype))[:, None]
     return routed, keep

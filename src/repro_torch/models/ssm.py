@@ -22,10 +22,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import act_sharding, layers
+from repro_torch.models.act_sharding import pin_grad, replaceable
 
 MAMBA_HEAD_DIM = 64
 NEG = -1e30   # the reference's log-space mask value
+
+
+@replaceable
+def log_sigmoid(x):
+    """`F.logsigmoid(x)`."""
+    return F.logsigmoid(x)
 
 
 def _tril(n, device):
@@ -159,7 +166,7 @@ def mamba_forward(cfg: ModelConfig, p, x, *, state=None, conv_cache=None,
     y, fstate = ssd_chunked(xs, dtp, A, Bm, Cm, chunk=chunk,
                             initial_state=state)
     y = y + (p["D"][:, None] * xs.float()).to(y.dtype)
-    y = y.reshape(B_, S, d_in)
+    y = pin_grad(y.reshape(B_, S, d_in))   # as in mLSTM
     y = layers.rmsnorm(y * F.silu(z), p["norm_w"])
     return y @ p["w_out"], (fstate, new_conv)
 
@@ -240,7 +247,7 @@ def _mlstm_core_chunked(q, k, v, ig, fg, *, chunk=128, state=None):
     qf = (q.float() * scale).reshape(B, nc, chunk, H, hd)
     kf = k.float().reshape(B, nc, chunk, H, hd)
     vf = v.float().reshape(B, nc, chunk, H, hd)
-    logf = F.logsigmoid(fg.float()).reshape(B, nc, chunk, H)
+    logf = log_sigmoid(fg.float()).reshape(B, nc, chunk, H)
     logi = ig.float().reshape(B, nc, chunk, H)
     cumf = torch.cumsum(logf, dim=2)   # inclusive within-chunk
 
@@ -254,7 +261,8 @@ def _mlstm_core_chunked(q, k, v, ig, fg, *, chunk=128, state=None):
     s_end = chunk_f[:, :, None, :] - cumf + logi        # (B, nc, Q, H)
     m_loc = torch.amax(s_end, dim=2)                    # (B, nc, H)
     w_end = torch.exp(s_end - m_loc[:, :, None, :])
-    C_loc = torch.einsum("bcjh,bcjhd,bcjhe->bchde", w_end, kf, vf)
+    C_loc = act_sharding.constrain_state(
+        torch.einsum("bcjh,bcjhd,bcjhe->bchde", w_end, kf, vf))
     n_loc = torch.einsum("bcjh,bcjhd->bchd", w_end, kf)
 
     # inter-chunk scan over (C, n, m): elementwise only
@@ -277,7 +285,8 @@ def _mlstm_core_chunked(q, k, v, ig, fg, *, chunk=128, state=None):
         C = C * w_old[..., None, None] + C_loc[:, c] * w_new[..., None, None]
         n = n * w_old[..., None] + n_loc[:, c] * w_new[..., None]
         m = m_new
-    C_in = torch.stack(ent_C, dim=1)    # (B, nc, H, hd, hd) entry states
+    # (B, nc, H, hd, hd) chunk-entry states
+    C_in = act_sharding.constrain_state(torch.stack(ent_C, dim=1))
     n_in = torch.stack(ent_n, dim=1)
     m_in = torch.stack(ent_m, dim=1)    # (B, nc, H)
 
@@ -305,18 +314,18 @@ def _mlstm_core_chunked(q, k, v, ig, fg, *, chunk=128, state=None):
 
 def mlstm_forward(cfg: ModelConfig, p, x, *, state=None, chunk=128):
     """x: (B, S, d) -> (out, (C, n, m))."""
-    d_in, H, hd = mlstm_dims(cfg)
+    d_in, H, _ = mlstm_dims(cfg)
     B, S, _ = x.shape
     up = x @ p["w_up"]
     xi, z = up[..., :d_in], up[..., d_in:]
-    q = (xi @ p["wq"]).reshape(B, S, H, hd)
-    k = (xi @ p["wk"]).reshape(B, S, H, hd)
-    v = (xi @ p["wv"]).reshape(B, S, H, hd)
+    q, k, v = (layers.split_heads(xi @ p[w], H) for w in ("wq", "wk", "wv"))
     ig = xi.float() @ p["w_i"] + p["b_i"]
     fg = xi.float() @ p["w_f"] + p["b_f"]
     h, new_state = _mlstm_core_chunked(q, k, v, ig, fg, chunk=chunk,
                                        state=state)
-    h = h.reshape(B, S, d_in)
+    # a DTensor gradient must arrive in the forward's layout to be viewed
+    # back into heads
+    h = pin_grad(h.reshape(B, S, d_in))
     h = layers.rmsnorm(h * F.silu(z), p["norm_w"])
     return h @ p["w_down"], new_state
 
@@ -328,13 +337,13 @@ def mlstm_decode(cfg: ModelConfig, p, x, state):
     B = x.shape[0]
     up = x @ p["w_up"]
     xi, z = up[..., :d_in], up[..., d_in:]
-    q = (xi @ p["wq"]).reshape(B, H, hd).float() * hd ** -0.5
-    k = (xi @ p["wk"]).reshape(B, H, hd).float()
-    v = (xi @ p["wv"]).reshape(B, H, hd).float()
+    q, k, v = (layers.split_heads(xi @ p[w], H).reshape(B, H, hd).float()
+               for w in ("wq", "wk", "wv"))
+    q = q * hd ** -0.5
     ig = (xi.float() @ p["w_i"] + p["b_i"])[:, 0]       # (B, H)
     fg = (xi.float() @ p["w_f"] + p["b_f"])[:, 0]
     C, n, m = state
-    logf = F.logsigmoid(fg)
+    logf = log_sigmoid(fg)
     m_new = torch.maximum(logf + m, ig)
     w_old = torch.exp(logf + m - m_new)
     w_new = torch.exp(ig - m_new)
@@ -379,15 +388,23 @@ def slstm_forward(cfg: ModelConfig, p, x, *, state=None):
     hd = d // H
     B, S, _ = x.shape
     pre = (x @ p["w_gates"]).float() + p["b_gates"]     # (B, S, 4d)
-    pre = pre.reshape(B, S, 4, H, hd)
+    pre = layers.split_heads(pre, 4).reshape(B, S, 4, H, hd)
     if state is None:
         z = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
         state = (z, z, z - 10.0, z)
-    c, n, m, h = state
-    r = p["r_gates"]
-    one = torch.ones((), dtype=torch.float32, device=x.device)
+    hs, state = slstm_scan(pre, *state, p["r_gates"])
+    hs = pin_grad(hs.reshape(B, S, d).to(x.dtype))
+    hs = layers.rmsnorm(hs, p["norm_w"])
+    return hs @ p["w_out"], state
+
+
+@replaceable
+def slstm_scan(pre, c, n, m, h, r):
+    """The sLSTM recurrence over pre (B, S, 4, H, hd) from the state (c,
+    n, m, h): (every step's h stacked (B, S, H, hd), the last state)."""
+    one = torch.ones((), dtype=torch.float32, device=pre.device)
     hs = []
-    for t in range(S):
+    for t in range(pre.shape[1]):
         g = pre[:, t] + torch.einsum("ghde,bhd->bghe", r, h)  # (B,4,H,hd)
         ig, fg, zg, og = g.unbind(1)
         logf = F.logsigmoid(fg)
@@ -401,9 +418,7 @@ def slstm_forward(cfg: ModelConfig, p, x, *, state=None):
         h = torch.sigmoid(og) * c / torch.maximum(n, one)
         m = m_new
         hs.append(h)
-    hs = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    hs = layers.rmsnorm(hs, p["norm_w"])
-    return hs @ p["w_out"], (c, n, m, h)
+    return torch.stack(hs, dim=1), (c, n, m, h)
 
 
 def slstm_decode(cfg: ModelConfig, p, x, state):

@@ -260,3 +260,52 @@ def test_chip_smoke_recurrent_sizes_fit_one_card():
     assert 1.30e9 < sz["train_ssm_params"] < 1.32e9
     assert sz["train_hybrid_reckon_bytes"] < 30e9
     assert sz["train_ssm_reckon_bytes"] < 16e9
+
+
+# ------------------------------------------------ examples and dry run --
+
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads (TINY_100M's products oversubscribe a shared
+    CPU otherwise), restored after the test."""
+    import torch
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def test_chip_smoke_examples_dry_run(two_threads):
+    """The examples phase (`run_examples`) on the CPU, cut to 2 quickstart
+    steps and 1 train_tiny step of 1 x 32 (the card runs 60 and 50 of
+    4 x 256): every part finite, r0's stream whole, serve_comparison
+    lossless under forced offload and reload, train_tiny's checkpoint
+    written."""
+    out = chip_smoke.run_examples("cpu", quick_steps=2, tiny_steps=1,
+                                  tiny_batch=1, tiny_seq=32)
+    assert set(out) == {"quickstart-train", "quickstart-serve",
+                        "serve-comparison", "train-tiny"}
+    assert all("launches" in v for v in out.values())
+    assert len(out["quickstart-train"]["losses"]) == 2
+    assert len(out["quickstart-serve"]["tokens"]) == 6
+    sc = out["serve-comparison"]
+    assert sc["mismatches"] == 0 and sc["offloads"] > 0 and sc["reloads"] > 0
+    assert out["train-tiny"]["checkpoint_written"]
+    assert chip_smoke.EXAMPLES == dict(quick_steps=60, tiny_steps=50,
+                                       tiny_batch=4, tiny_seq=256)
+
+
+def test_chip_smoke_dryrun_phase(tmp_path):
+    """The dryrun phase (`run_dryrun`) on one quick pair (the card runs
+    chatglm3-6b decode_32k and granite-3-2b train_4k, and the offload
+    example): a fresh process per pair, an ok record, its roofline row."""
+    out = chip_smoke.run_dryrun(str(tmp_path),
+                                pairs=(("whisper-base", "long_500k"),),
+                                offload=False)
+    (rec,) = out["records"]
+    assert rec["ok"] and rec["mesh"] == "16x16"
+    (row,) = out["roofline"]
+    assert row["arch"] == "whisper-base" and row["dominant"] in (
+        "compute", "memory", "collective")
+    assert chip_smoke.DRYRUN_PAIRS == (("chatglm3-6b", "decode_32k"),
+                                       ("granite-3-2b", "train_4k"))

@@ -1,0 +1,216 @@
+"""Port parity, the dry run: `repro_torch.launch.dryrun.run_one` on the
+16x16 placeholder mesh (a fake process group, made once for this module
+and destroyed after it) gives a record with the reference's keys whose
+`memory.argument_size` is exactly the reference's per-device argument
+bytes: the sum of `NamedSharding.shard_shape` bytes of the reference's
+`input_specs` on the same leaves (the reference's optimizer step and
+cache window are scalars the port keeps as Python ints). Full configs
+where a step takes seconds (chatglm3-6b decode_32k, with its host
+offload split); the train and prefill steps at the smoke configs
+through test-only shapes (a full train_4k step takes a minute or more).
+Also: the `constrain*` functions are the identity on plain tensors and
+give the spec's placements on a DTensor."""
+import dataclasses
+import math
+
+import jax
+import pytest
+import torch
+from jax.sharding import AbstractMesh
+
+from repro.configs import SHAPES as JSHAPES
+from repro.configs import get_config as jget_config
+from repro.configs import get_smoke_config as jget_smoke
+from repro.configs.base import InputShape as JInputShape
+from repro.launch import specs as jspecs
+from repro_torch.configs import SHAPES, get_config, get_smoke_config
+from repro_torch.configs.base import InputShape
+from repro_torch.examples import offload_dryrun
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import act_sharding
+from torch_parity import two_threads  # noqa: F401 (a fixture)
+
+# every test here on two intra-op threads (`two_threads`)
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+MESH = AbstractMesh((16, 16), ("data", "model"))
+# the reference's record keys (src/repro/launch/dryrun.py: run_one)
+REF_KEYS = {"arch", "shape", "mesh", "n_devices", "microbatches", "ok",
+            "lower_s", "compile_s", "memory", "bytes_per_device", "flops",
+            "bytes_accessed", "collectives", "wall_s"}
+REF_MEMORY = {"argument_size", "output_size", "temp_size", "alias_size",
+              "host_argument_size", "host_temp_size"}
+TEST_SHAPES = {"train_test": (64, 64, "train"),
+               "prefill_test": (128, 16, "prefill")}
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    import torch.distributed as dist
+    yield make_production_mesh()
+    dist.destroy_process_group()
+
+
+@pytest.fixture
+def test_shapes(monkeypatch):
+    """Test-only input shapes, in both packages' SHAPES."""
+    for name, (S, B, kind) in TEST_SHAPES.items():
+        monkeypatch.setitem(SHAPES, name, InputShape(name, S, B, kind))
+        monkeypatch.setitem(JSHAPES, name, JInputShape(name, S, B, kind))
+
+
+def _ref_argument_bytes(jcfg, shape_name, microbatches=1):
+    """Per-device argument bytes of the reference's plan, without the
+    scalars the port keeps as Python ints (optimizer step, cache
+    window)."""
+    _, args, shard, _ = jspecs.input_specs(jcfg, shape_name, MESH,
+                                           microbatches=microbatches)
+    total = 0
+    for (path, a), s in zip(jax.tree_util.tree_flatten_with_path(args)[0],
+                            jax.tree_util.tree_leaves(shard)):
+        if a.ndim == 0:
+            continue
+        total += math.prod(s.shard_shape(a.shape)) * a.dtype.itemsize
+    return total
+
+
+@pytest.fixture(scope="module")
+def chatglm_decode(mesh):
+    return dryrun.run_one("chatglm3-6b", "decode_32k", False)
+
+
+def test_record_keys_and_argument_bytes_full_config(chatglm_decode):
+    rec = chatglm_decode
+    assert rec["ok"], rec.get("traceback")
+    assert REF_KEYS <= set(rec) and set(rec["memory"]) == REF_MEMORY
+    assert rec["n_devices"] == 256 and rec["mesh"] == "16x16"
+    assert rec["memory"]["argument_size"] == _ref_argument_bytes(
+        jget_config("chatglm3-6b"), "decode_32k")
+    assert rec["memory"]["host_argument_size"] == 0
+    assert rec["memory"]["temp_size"] is None     # not measured
+    # the cache is written in place: its bytes alias the arguments
+    assert 0 < rec["memory"]["alias_size"] <= rec["memory"]["output_size"]
+    assert rec["flops"] > 0 and "whole step" in rec["flops_scope"]
+    coll = rec["collectives"]
+    assert coll["total_bytes"] == sum(coll["bytes"].values())
+    # the same collectives as CommDebugMode counts, under its legacy names
+    assert sum(coll["counts"].values()) == \
+        sum(coll["comm_debug_counts"].values())
+    # chatglm3's 2 KV heads cannot split over 16: the record says so
+    assert any("2 heads" in n for n in rec["notes"])
+
+
+def test_offload_split_puts_exactly_the_kv_shards_on_the_host(
+        chatglm_decode):
+    base = chatglm_decode
+    off = offload_dryrun.lower_decode(offload=True)
+    m0, m1 = base["memory"], off["memory"]
+    _, args, shard, _ = jspecs.input_specs(jget_config("chatglm3-6b"),
+                                           "decode_32k", MESH)
+    kv = sum(math.prod(shard[2][k].shard_shape(args[2][k].shape))
+             * args[2][k].dtype.itemsize for k in ("k", "v"))
+    assert m1["host_argument_size"] == kv > 0
+    assert m1["argument_size"] + m1["host_argument_size"] == \
+        m0["argument_size"]
+    assert off["flops"] == base["flops"]      # the same step
+    assert offload_dryrun.kv_per_gpu() == kv   # the cost model's count
+
+
+@pytest.mark.parametrize("arch,shape_name", [
+    ("granite-3-2b", "train_test"), ("granite-3-2b", "prefill_test")])
+def test_smoke_records_match_reference_bytes(mesh, test_shapes, arch,
+                                             shape_name):
+    """The train step (microbatches, AdamW, FSDP) and prefill at the
+    smoke configs in f32: ok, and the reference's argument bytes."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    jcfg = dataclasses.replace(jget_smoke(arch), dtype="float32")
+    rec = dryrun.run_one(arch, shape_name, False, microbatches=2, cfg=cfg)
+    assert rec["ok"], rec.get("traceback")
+    mb = 2 if SHAPES[shape_name].kind == "train" else 1
+    assert rec["microbatches"] == mb
+    assert rec["memory"]["argument_size"] == _ref_argument_bytes(
+        jcfg, shape_name, mb)
+    if SHAPES[shape_name].kind == "train":
+        # params and moments updated in place
+        assert rec["memory"]["alias_size"] > 0
+    assert rec["flops"] > 0
+
+
+def test_constrain_functions(mesh):
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    x = torch.ones(32, 16, 8)
+    # no spec, or a plain tensor: the identity
+    assert act_sharding.constrain(x) is x
+    assert act_sharding.constrain_compute(x) is x
+    with act_sharding.activation_sharding((("data",), "model", None),
+                                          (("data",), None, None)):
+        assert act_sharding.constrain(x) is x
+        assert act_sharding.constrain_compute(x) is x
+        with FakeTensorMode():
+            d = distribute_tensor(torch.empty(32, 16, 8), mesh,
+                                  [Replicate(), Replicate()])
+            assert act_sharding.constrain(d).placements == \
+                (Shard(0), Shard(1))
+            assert act_sharding.constrain_compute(d).placements == \
+                (Shard(0), Replicate())
+    with act_sharding.kv_sharding(("data", "model", None, None)):
+        with FakeTensorMode():
+            k = distribute_tensor(torch.empty(32, 64, 2, 8), mesh,
+                                  [Replicate(), Replicate()])
+            k2, v2 = act_sharding.constrain_kv((k, k))
+            assert k2.placements == v2.placements == (Shard(0), Shard(1))
+            s = distribute_tensor(torch.empty(4, 32, 64, 2, 8), mesh,
+                                  [Replicate(), Replicate()])
+            assert act_sharding.constrain_kv_stack(s, s)[0].placements == \
+                (Shard(1), Shard(2))
+    with act_sharding.moe_buffer_sharding(("model", "data", None)):
+        with FakeTensorMode():
+            b = distribute_tensor(torch.empty(16, 32, 8), mesh,
+                                  [Replicate(), Replicate()])
+            assert act_sharding.constrain_moe_buffer(b).placements == \
+                (Shard(1), Shard(0))
+            t = distribute_tensor(torch.empty(64, 8), mesh,
+                                  [Replicate(), Replicate()])
+            assert act_sharding.constrain_moe_tokens(t).placements == \
+                (Shard(0), Replicate())
+    assert act_sharding.placements(mesh, (("data",), None)) == \
+        (Shard(0), Replicate())
+
+
+def test_torch_has_the_internals_the_dry_run_patches():
+    """The dry run patches two private DTensor methods while a step runs
+    and builds its mesh on torch's test-only fake process group
+    (`dryrun.TORCH_INTERNALS`): a torch that moves one fails here, by
+    name, before any run of the dry run."""
+    assert dryrun.missing_torch_internals() == [], torch.__version__
+    import importlib
+    for mod, path in dryrun.TORCH_INTERNALS:
+        obj = importlib.import_module(mod)
+        for name in path.split("."):
+            obj = getattr(obj, name)
+        assert callable(obj), f"{mod}.{path}"
+
+
+def test_replaceable_runs_its_plain_body_unless_a_form_is_installed():
+    """The seam (`act_sharding.replaceable`): the plain body by default,
+    the installed form (given the plain body) inside `forms`, the plain
+    body again after it; and every DTensor form of the dry run is named
+    after a replaceable function of the model (a misnamed form would
+    never run)."""
+    from repro_torch.launch.dtensor_forms import FORMS
+    from repro_torch.models import layers, model, moe, ssm  # noqa: F401
+    x = torch.arange(12.0).reshape(1, 2, 6)
+    assert layers.split_heads(x, 3).shape == (1, 2, 3, 2)
+    seen = []
+
+    def form(plain, t, n):
+        seen.append(n)
+        return plain(t, n)
+    with act_sharding.forms({"split_heads": form}):
+        assert layers.split_heads(x, 2).shape == (1, 2, 2, 3)
+    layers.split_heads(x, 3)
+    assert seen == [2]
+    assert set(FORMS) <= act_sharding.REPLACEABLE
+

@@ -107,6 +107,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         SyntheticLM(cfg, DataConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train(cfg, steps=1)
+    # the ported examples, run as their CLIs are (no --device)
+    from repro_torch.examples import quickstart, serve_comparison, train_tiny
+    for example, argv in ((quickstart, []), (serve_comparison, []),
+                          (train_tiny, ["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            example.main(argv)
     # asking for the CPU is the only way onto it
     assert PagedExecutor(cfg, None, 8, 8, 8, device="cpu").device.type \
         == "cpu"

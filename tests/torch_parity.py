@@ -1,14 +1,17 @@
 """Helpers shared by the port's Model-API parity tests
-(tests/test_torch_{decode,vlm,encdec,hybrid,ssm}.py): both packages'
-smoke configs in f32, the reference's params from
-`build_model(cfg).init(PRNGKey(k))` handed to the port by
-`repro_torch.weights.from_jax_params`, and seeded numpy inputs
-converted for each side."""
+(tests/test_torch_{decode,vlm,encdec,hybrid,ssm}.py) and its examples'
+(tests/test_torch_examples*.py): both packages' smoke configs in f32,
+the reference's params from `build_model(cfg).init(PRNGKey(k))` handed
+to the port by `repro_torch.weights.from_jax_params`, seeded numpy
+inputs converted for each side, and the reference's example files."""
 import dataclasses
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke
@@ -16,6 +19,17 @@ from repro.models import build_model as jax_build
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import build_model
 from repro_torch.weights import from_jax_params
+
+
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads for one test (the examples' and the dry run's
+    products oversubscribe a CPU shared by the test workers otherwise),
+    restored after it."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
 
 
 def cfgs(arch, **kw):
@@ -34,6 +48,22 @@ def flat(tree, prefix=""):
         else:
             out[f"{prefix}{k}"] = np.asarray(v)
     return out
+
+
+def jax_flat_params(jcfg, seed):
+    """The reference's params for `jcfg` from PRNGKey(seed), flat."""
+    return flat(jax_build(jcfg).init(jax.random.PRNGKey(seed)))
+
+
+def ref_example(name):
+    """The reference's `examples/<name>.py`, loaded by path as a module."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" \
+        / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"ref_example_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def models(arch, seed=0, **kw):
