@@ -11,8 +11,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            compiler's register / spill report and warnings, the count of
            tensor-core instructions (HGMMA = wgmma, HMMA = mma.sync) in
            the SASS of the two flash libraries (it fails if the forward
-           has no HGMMA or the backward neither), and the card's name and
-           power limit as nvidia-smi gives them.
+           has no HGMMA or no HMMA, its bf16 and its 3xTF32 kernels, or
+           the backward neither), and the card's name and power limit as
+           nvidia-smi gives them.
   kernels  hold each kernel against its plain PyTorch version on the card,
            in bf16 (atol = rtol = 2e-2) and f32 (atol = rtol = 2e-5, the
            repo's Pallas-vs-reference tolerance): flash prefill at
@@ -80,12 +81,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            G = 3 (H 12, KV 4, D 64, B 4 x S 256, causal) and RMSNorm both
            ways at its d 768 (1024 rows) and quickstart's d 256 (512
            rows), checked in bf16 and f32 and timed in f32, their dtype.
+           f32 flash (every D) and bf16 flash at D 32 run the 3xTF32
+           kernels (mma.sync .tf32 on each operand's TF32 pair): held at
+           the f32 tolerance at D 32, 64, 80 and 128, on the edge cases
+           (Sq != Skv at q_offset 37, a window, a few rows past a
+           16-key tile), at G = 3 and for the one-row decode; and timed
+           in f32 at train_tiny's shape and granite-3-2b's train shape,
+           and at quickstart's (granite-3-2b smoke: B 8, S 64, H 8, KV 2,
+           D 32) in f32 and bf16, an f32 row's bound at a third of
+           TF32's 495 TFLOP/s (three passes a product), with the bound
+           at the f32 FMA peak beside it ("bound_ms_f32_fma"). The plain
+           versions run with TF32 off (torch's default; main sets and
+           prints it), so f32 means f32.
   d32      every attention kernel (flash forward and backward, paged
            decode, paged prefill over one pool and two) against its plain
            version at head dim 32, the smoke configs' (granite-3-2b H 8
-           KV 2, deepseek-moe-16b H 4 KV 4), in bf16 (the CUDA-core
-           kernels, picked by shape) and f32, on the kernels phase's
-           cases; the worst errors fold into the kernels' rows.
+           KV 2, deepseek-moe-16b H 4 KV 4), in bf16 (flash: the 3xTF32
+           kernels; paged: the CUDA-core ones, picked by shape) and f32,
+           on the kernels phase's cases; the worst errors fold into the
+           kernels' rows.
   smoke    the smoke configs (D = 32) through the engine on the card:
            granite-3-2b exclusive (serve-smoke) and fused (fused-smoke),
            deepseek-moe-16b fused (moe-smoke), each as `_serve_pair`
@@ -272,6 +286,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16
 PCIE_BYTES_PER_S = 64e9        # PCIe Gen5 x16, one direction (spec)
 F32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM data sheet, dense TF32
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 FLASH_SHAPES = {"llama2-7b": (32, 32, 128), "granite-3-2b": (32, 8, 64)}
 # (H, KV, D) that complete G = H / KV in {1, 4, 8} at D = 64 and 128 for
@@ -280,7 +295,8 @@ FLASH_GQA_SHAPES = [(32, 32, 64), (32, 4, 64), (32, 8, 128), (32, 4, 128)]
 # paged prefill's checks: FLASH_SHAPES and G = 16 (512 rows per 32-token
 # tile, the kernel's largest group)
 PP_SHAPES = {**FLASH_SHAPES, "G 16": (32, 2, 128)}
-# the smoke configs' attention (D = 32: bf16 takes the CUDA-core kernels)
+# the smoke configs' attention (D = 32: bf16 flash takes the 3xTF32
+# kernels, paged attention the CUDA-core ones)
 SMOKE_SHAPES = {"granite-3-2b smoke": (8, 2, 32),
                 "deepseek-moe-16b smoke": (4, 4, 32)}
 # the train path: model, steps, batch x sequence (tokens per step)
@@ -467,6 +483,9 @@ def phase_build():
              f"(cuobjdump -sass): {sass[name]}")
     if not sass["flash_prefill"]["HGMMA"]:
         raise AssertionError("the flash forward holds no HGMMA (wgmma)")
+    if not sass["flash_prefill"]["HMMA"]:
+        raise AssertionError("the flash forward holds no HMMA (its 3xTF32 "
+                             "kernel's mma.sync .tf32)")
     for name in ("flash_backward", "paged_prefill"):
         if not any(sass[name].values()):
             raise AssertionError(f"{name} holds no HMMA / HGMMA")
@@ -760,8 +779,10 @@ def time_flash(gen):
     whisper-base's non-causal cross-attention (B 8, 448 rows over 1500
     frames) and encoder (B 8, 1500 x 1500), and zamba2-2.7b's D = 80 at
     train-hybrid's and generate-hybrid's B 4 x S 1024 (H = KV = 32,
-    causal), and train_tiny's G = 3 in f32 at its B 4 x S 256 (TINY_ATTN,
-    causal: the CUDA-core kernel). Returns the serve shape's row with the
+    causal), and the f32 route (3xTF32): train_tiny's G = 3 at its B 4 x
+    S 256 (TINY_ATTN, causal), granite-3-2b's train shape in f32, and
+    quickstart's (QUICK_TRAIN, the smoke heads at D 32) in f32 and bf16.
+    Returns the serve shape's row with the
     train shapes' under "at_train_shape" and "at_moe_train_shape"; each
     row names the kernel the dispatch takes ("kernel")."""
     S = TRAIN["seq"]
@@ -783,8 +804,21 @@ def time_flash(gen):
                            TRAIN_HYBRID["seq"], TRAIN_HYBRID["seq"], True),
         _time_flash_fwd_at(gen, *TINY_ATTN, EXAMPLES["tiny_batch"],
                            EXAMPLES["tiny_seq"], EXAMPLES["tiny_seq"], True,
-                           dtype="float32")]
+                           dtype="float32"),
+        _time_flash_fwd_at(gen, *FLASH_SHAPES["granite-3-2b"],
+                           TRAIN["batch"], S, S, True, dtype="float32")] + [
+        _time_flash_fwd_at(gen, *SMOKE_SHAPES["granite-3-2b smoke"],
+                           QUICK_TRAIN[0], QUICK_TRAIN[1], QUICK_TRAIN[1],
+                           True, dtype=dtype)
+        for dtype in ("float32", "bfloat16")]
+    rows[0]["routes"] = _flash_routes()
     return rows[0]
+
+
+def _flash_routes(bwd=False):
+    """{dtype D: the kernel the dispatch takes} for every head dim."""
+    return {f"{_short(dtype)} D {D}": _flash_kernel(D, bwd, dtype)
+            for dtype in ("bfloat16", "float32") for D in (32, 64, 80, 128)}
 
 
 def _time_flash_fwd_at(gen, H, KV, D, B, Sq, Skv, causal, lens_arg=False,
@@ -809,17 +843,29 @@ def _time_flash_fwd_at(gen, H, KV, D, B, Sq, Skv, causal, lens_arg=False,
         + (lens.numel() * 4 if lens is not None else 0)
     pairs = _flash_pairs(Sq, [0] * B, [Skv] * B) if causal \
         else B * Sq * Skv
-    row = _bound(ms, plain, lib, nbytes, 4 * D * H * pairs, _peak(dtype),
-                 f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
-                 f"{_short(dtype)} {'causal' if causal else 'non-causal'}")
+    row = _flash_bound(ms, plain, lib, nbytes, 4 * D * H * pairs, dtype,
+                       f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
+                       f"{_short(dtype)} "
+                       f"{'causal' if causal else 'non-causal'}")
     row["kernel"] = _flash_kernel(D, dtype=dtype)
     return row
 
 
-def _peak(dtype):
-    """The card's peak rate for a product in `dtype`: the tensor cores'
-    for bf16, the CUDA cores' for f32 (the flash kernels' f32 route)."""
-    return BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+def _flash_bound(ms, plain, lib, nbytes, flops, dtype, shape):
+    """`_bound` of a flash row at the floor of its products: the bf16
+    tensor cores' rate for bf16 (at D 32 the 3xTF32 kernel takes one or
+    two TF32 passes a product, and the bf16 rate bounds the same work
+    lower), a third of TF32's for f32 (3xTF32: three passes a product).
+    An f32 row also gives the bound at the f32 FMA peak
+    ("bound_ms_f32_fma", 67 TFLOP/s), the CUDA-core kernels' bound, so
+    that it compares with their rows."""
+    f32 = dtype == "float32"
+    row = _bound(ms, plain, lib, nbytes, flops,
+                 TF32_FLOPS_PER_S / 3 if f32 else BF16_FLOPS_PER_S, shape)
+    if f32:
+        row["bound_ms_f32_fma"] = max(nbytes / HBM_BYTES_PER_S,
+                                      flops / F32_FLOPS_PER_S) * 1e3
+    return row
 
 
 def _short(dtype):
@@ -828,14 +874,14 @@ def _short(dtype):
 
 def _flash_kernel(D, bwd=False, dtype="bfloat16"):
     """The kernel that flash_prefill.cu (with `bwd` flash_backward.cu)
-    dispatches `dtype` at head dim D to: bf16 on the tensor cores at D
-    64, 80 and 128, the CUDA-core template at D 32 and in f32."""
-    if dtype == "float32":
-        return (f"flash_bwd_{{dq,dkdv}}_kernel<float, {D}> (CUDA cores)"
-                if bwd else f"flash_fwd_kernel<float, {D}> (CUDA cores)")
-    if D == 32:
-        return ("flash_bwd_{dq,dkdv}_kernel<bf16, 32> (CUDA cores)" if bwd
-                else "flash_fwd_kernel<bf16, 32> (CUDA cores)")
+    dispatches `dtype` at head dim D to: bf16 at D 64, 80 and 128 on
+    wgmma (forward) and mma.sync (backward), f32 at every D and bf16 at
+    D 32 in 3xTF32 on mma.sync .tf32."""
+    if dtype == "float32" or D == 32:
+        t = "float" if dtype == "float32" else "bf16"
+        return (f"tf::flash_bwd_{{dq,dkdv}}_tf32<{t}, {D}> (3xTF32, "
+                f"mma.sync)" if bwd
+                else f"tf::flash_fwd_tf32<{t}, {D}> (3xTF32, mma.sync)")
     return (f"tc::flash_bwd_{{dq,dkdv}}_mma<{D}> (mma.sync)" if bwd
             else f"tc::flash_fwd_wgmma<{D}> (wgmma + TMA)")
 
@@ -872,18 +918,19 @@ def time_decode(gen):
     return row
 
 
-def _time_decode_at(gen, H, KV, D, ctx, S):
-    """decode_attention, bf16, one query row per sequence over contexts
-    `ctx` of an S-slot cache, beside its plain version and SDPA with a key
-    mask, and the kernel's tiles: the forward's 128 query rows x 128 keys
-    on the tensor cores (bf16 at D 64, 80, 128), 64 x 64 on the CUDA
-    cores."""
+def _time_decode_at(gen, H, KV, D, ctx, S, dtype="bfloat16"):
+    """decode_attention (bf16 unless `dtype`), one query row per sequence
+    over contexts `ctx` of an S-slot cache, beside its plain version and
+    SDPA with a key mask, and the kernel's tiles: the wgmma forward's 128
+    query rows x 128 keys (bf16 at D 64, 80, 128), the 3xTF32 kernel's 64
+    rows x 64 keys (32 at D 128; f32, and bf16 at D 32), where the one
+    row's warp alone computes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_prefill as fp
     B = len(ctx)
-    q, k, v, lens, _ = _flash_case(gen, H, KV, D, torch.bfloat16, B, 1, S,
-                                   ctx, 0)
+    q, k, v, lens, _ = _flash_case(gen, H, KV, D, getattr(torch, dtype), B,
+                                   1, S, ctx, 0)
     ms = _time_ms(lambda: fp.decode_attention(q, k, v, lens))
     plain = _time_ms(lambda: fp.decode_attention_plain(q, k, v, lens),
                      reps=5)
@@ -893,14 +940,16 @@ def _time_decode_at(gen, H, KV, D, ctx, S):
     lib = _time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=KV != H))
     n = sum(ctx)
-    nbytes = n * 2 * KV * D * 2 + 2 * B * H * D * 2 + B * 4
-    row = _bound(ms, plain, lib, nbytes, 4 * H * D * n, BF16_FLOPS_PER_S,
-                 f"B={B} Sq=1 ctx {min(ctx)}-{max(ctx)} of {S} H={H} "
-                 f"KV={KV} D={D} bf16")
-    row["kernel"] = _flash_kernel(D)
-    tile = 64 if D == 32 else 128
-    row["tiles"] = {"query_rows_used": 1, "query_rows_per_tile": tile,
-                    "key_tiles": sum(-(-c // tile) for c in ctx),
+    es = q.element_size()
+    nbytes = n * 2 * KV * D * es + 2 * B * H * D * es + B * 4
+    row = _flash_bound(ms, plain, lib, nbytes, 4 * H * D * n, dtype,
+                       f"B={B} Sq=1 ctx {min(ctx)}-{max(ctx)} of {S} H={H} "
+                       f"KV={KV} D={D} {_short(dtype)}")
+    row["kernel"] = _flash_kernel(D, dtype=dtype)
+    wgmma = dtype == "bfloat16" and D != 32
+    rows, keys = (128, 128) if wgmma else (64, 32 if D == 128 else 64)
+    row["tiles"] = {"query_rows_used": 1, "query_rows_per_tile": rows,
+                    "key_tiles": sum(-(-c // keys) for c in ctx),
                     "live_keys": n}
     return row
 
@@ -1436,7 +1485,11 @@ def check_flash_bwd(gen, sizes=None):
               ("train_tiny TINY_100M G=3", EXAMPLES["tiny_batch"],
                TINY_ATTN, EXAMPLES["tiny_seq"], EXAMPLES["tiny_seq"], 0, 0),
               ("G=3 Sq 1000 Skv 1037 q_offset 37", 1, TINY_ATTN, 1000, 1037,
-               37, 0)]
+               37, 0),
+              ("G=3 window 200", 1, TINY_ATTN, 1000, 1037, 37, 200),
+              # 5 query rows (one warp's 16 partly live) over 37 keys (a
+              # 16-key tile and 5 rows past two)
+              ("G=3 Sq 5 Skv 37 q_offset 32", 2, TINY_ATTN, 5, 37, 32, 0)]
     if sizes is not None:
         cases = [c for name, hkd in sizes.items() for c in (
             (name, 1, hkd, 512, 512, 0, 0),
@@ -1558,9 +1611,11 @@ def time_flash_bwd(gen):
     the same at the MoE train path's shape (H = KV = 16, D 128) under
     "at_moe_train_shape", and at train-vlm's G = 7 (B 4, S 1024) and
     whisper-base's non-causal cross-attention (B 8, 448 rows over 1500
-    frames) and train-hybrid's D = 80 (B 4, S 1024, H = KV = 32) and
-    train_tiny's G = 3 in f32 (B 4, S 256: the CUDA-core pair) under
-    "at_other_shapes"; each row names its kernels ("kernel")."""
+    frames) and train-hybrid's D = 80 (B 4, S 1024, H = KV = 32) and the
+    f32 route (3xTF32) at train_tiny's G = 3 (B 4, S 256) and
+    granite-3-2b's train shape, and at quickstart's (the smoke heads at
+    D 32, B 8 x S 64) in f32 and bf16, under "at_other_shapes"; each row
+    names its kernels ("kernel")."""
     rows = [_time_flash_bwd_at(gen, *FLASH_SHAPES["granite-3-2b"],
                                TRAIN["batch"], TRAIN["seq"]),
             _time_flash_bwd_at(gen, *MOE_TRAIN_ATTN, TRAIN_MOE["batch"],
@@ -1574,7 +1629,13 @@ def time_flash_bwd(gen):
         _time_flash_bwd_at(gen, *D80_ATTN, TRAIN_HYBRID["batch"],
                            TRAIN_HYBRID["seq"]),
         _time_flash_bwd_at(gen, *TINY_ATTN, EXAMPLES["tiny_batch"],
-                           EXAMPLES["tiny_seq"], dtype="float32")]
+                           EXAMPLES["tiny_seq"], dtype="float32"),
+        _time_flash_bwd_at(gen, *FLASH_SHAPES["granite-3-2b"],
+                           TRAIN["batch"], TRAIN["seq"], dtype="float32")] + [
+        _time_flash_bwd_at(gen, *SMOKE_SHAPES["granite-3-2b smoke"],
+                           QUICK_TRAIN[0], QUICK_TRAIN[1], dtype=dtype)
+        for dtype in ("float32", "bfloat16")]
+    rows[0]["routes"] = _flash_routes(bwd=True)
     return rows[0]
 
 
@@ -1608,9 +1669,10 @@ def _time_flash_bwd_at(gen, H, KV, D, B, S, Skv=None, causal=True,
     # five products of 2 * D operations per visible (query, key) pair:
     # S and dP recomputed, dV, dQ, dK
     pairs = _flash_pairs(S, [0] * B, [Skv] * B) if causal else B * S * Skv
-    row = _bound(ms, plain, lib, nbytes, 10 * D * H * pairs, _peak(dtype),
-                 f"B={B} Sq={S} Skv={Skv} H={H} KV={KV} D={D} "
-                 f"{_short(dtype)} {'causal' if causal else 'non-causal'}")
+    row = _flash_bound(ms, plain, lib, nbytes, 10 * D * H * pairs, dtype,
+                       f"B={B} Sq={S} Skv={Skv} H={H} KV={KV} D={D} "
+                       f"{_short(dtype)} "
+                       f"{'causal' if causal else 'non-causal'}")
     row["kernel"] = _flash_kernel(D, bwd=True, dtype=dtype)
     return row
 
@@ -1678,10 +1740,12 @@ def phase_kernels():
         for also in [t[k] for k in ("at_train_shape", "at_moe_train_shape")
                      if k in t] + t.get("at_serve_shapes", []) \
                 + t.get("at_other_shapes", []):
+            fma = (f", at the f32 FMA peak {also['bound_ms_f32_fma']:.4f}"
+                   if "bound_ms_f32_fma" in also else "")
             _say(f"[kernels] {name} [{also['shape']}]: kernel_ms "
                  f"{also['ms']:.4f} plain_ms {also['plain_ms']:.4f} "
                  f"library_ms {lib(also)} bound_ms "
-                 f"{also['bound_ms']:.4f} ({also['bound_by']})")
+                 f"{also['bound_ms']:.4f} ({also['bound_by']}{fma})")
     b1 = paged_t["at_b1_ctx4096"]
     _say(f"[kernels] paged_attention [{b1['shape']}]: kernel_ms "
          f"{b1['ms']:.4f} plain_ms {b1['plain_ms']:.4f} bound_ms "
@@ -1972,9 +2036,10 @@ def _describe(tag, cfg):
 def phase_head_dim_32():
     """Every attention kernel against its plain version at D = 32, the
     smoke configs' head dim (granite-3-2b H 8 KV 2, deepseek-moe-16b H 4
-    KV 4), in bf16 (the CUDA-core kernels, which the dispatch picks by
-    shape) and f32, on the kernels phase's cases. Returns the worst
-    error per kernel and dtype."""
+    KV 4), in bf16 (flash's 3xTF32 kernels and paged attention's
+    CUDA-core ones, which the dispatch picks by shape) and f32, on the
+    kernels phase's cases. Returns the worst error per kernel and
+    dtype."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -3588,8 +3653,15 @@ def main(argv=None) -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, src)
-    torch.backends.cuda.matmul.allow_tf32 = False   # f32 means f32
+    # f32 means f32: the plain versions' products (and SDPA's, timed
+    # beside the kernels) run without TF32, torch's default for matmul
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    _say("[setup] TF32 off for f32 products outside the kernels: "
+         f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+         f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, precision "
+         f"{torch.get_float32_matmul_precision()}; torch {torch.__version__}")
 
     t0 = time.perf_counter()
     smi = phase_build()
@@ -3663,7 +3735,8 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"]})
-        for extra in ("kernel", "at_train_shape", "at_moe_train_shape",
+        for extra in ("kernel", "routes", "at_train_shape",
+                      "at_moe_train_shape",
                       "at_serve_shapes", "at_other_shapes",
                       "at_b1_ctx4096", "bound_ms_pcie", "copy_engine_ms",
                       "by_kernel_ms", "staged_bytes", "library_note",

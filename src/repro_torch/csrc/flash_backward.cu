@@ -15,15 +15,16 @@
 // j > q_offset + i - window; every key j < Skv is valid.
 //
 // Two kernels, in stream order, so every dq / dk / dv row has one
-// writer (no atomics; the result is deterministic):
+// writer (no atomics; the result is deterministic; the bf16 layout):
 //   dq    one block per (q tile, head, batch): loops over the key tiles
 //         the tile can see; also writes Delta (B,H,Sq) f32.
 //   dkdv  one block per (key tile of 64, KV head, batch): loops over the
 //         G query heads of its group and the q tiles that can see the
 //         key tile, so GQA needs no atomics.
 //
-// bf16 (the train path): every product on the tensor cores, as
-// mma.sync m16n8k16 (bf16 in, f32 accumulate). The backward needs five
+// bf16 at D = 64 / 80 / 128 (the train paths): every product on the
+// tensor cores, as mma.sync m16n8k16 (bf16 in, f32 accumulate). The
+// backward needs five
 // products per (q tile, key tile) pair -- S and dP recomputed, dV, dK,
 // dQ -- with operands in both orientations; ldmatrix gives each
 // orientation from one row-major bf16 tile (.trans for Q, dout and K as
@@ -58,364 +59,44 @@
 // hold dq, dk and dv to autograd through the plain f32 version within
 // atol = 2e-2 * max|grad|, rtol = 2e-2.
 //
-// f32 (the exact reference path of the card checks; no main path runs
-// it) and bf16 at D = 32 (the smoke configs): the CUDA-core kernels,
-// 64 x 64 tiles, f32 FMAs throughout, bound by FMA issue and
-// shared-memory reads (100 KB of shared memory for dq, 117 KB for dk/dv
-// at D = 80). bf16 at D = 32 always takes the CUDA-core pair. That is a
-// dispatch by shape, not a fallback: nothing retries another kernel when
-// a launch fails.
+// f32 at every D (the examples' training: train_tiny, quickstart) and
+// bf16 at D = 32 (the smoke configs): the same five products in 3xTF32
+// on the tensor cores (`tf::flash_bwd_{dq,dkdv}_tf32`; hopper.cuh: each
+// f32 product is three mma.sync m16n8k8 .tf32 passes on the operands'
+// TF32 pairs, ~2^-22 relative, at a third of TF32's 495 TFLOP/s). The
+// CUDA-core pair they replace was bound by scalar shared-memory reads of
+// padded f32 tiles (two FMAs a load), loaded tiles synchronously between
+// barriers, took 84-149 KB of shared memory, and its dk/dv grid of
+// (Skv / 64) x KV x B blocks left half the card idle at train_tiny's
+// shape (64 blocks). Here dq keeps the bf16 layout (four warps of 16
+// query rows) over K/V tiles of 32 keys in a two-stage cp.async ring,
+// each tile split into its TF32 hi and lo once as it lands (the other
+// operands are split in registers as they are read); dk/dv takes 16 keys
+// a block, split once, and its eight warps split the query loop (each
+// warp 8 of a stage's 64 rows), so the grid is (Skv / 16) x KV x B (256
+// blocks at train_tiny's shape) and a block's longest chain an eighth of
+// the 64-key layout's; the warps' partial dk / dv are summed through
+// shared memory in warp order (no atomics,
+// deterministic). Tiles are f32, XOR-swizzled by 16-byte chunk
+// (`f32_off`) so that fragments read both ways ([n][k] and [k][n]) are
+// free of bank conflicts; the k index of every product is permuted so
+// that S, P and dS leave the accumulators as A fragments. A warp skips
+// the tiles its rows all mask. bf16 inputs are widened to f32 as their
+// tiles land and take no lo passes (exact in TF32). That is a dispatch
+// by dtype and shape, not a fallback: nothing retries another kernel
+// when a launch fails.
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 thread grid
-constexpr int RPT = 4;        // tile rows per thread (row ty + 16 i)
-constexpr int CPT = 4;        // tile columns per thread (col tx + 16 j)
-
 __device__ __forceinline__ bool visible(int qpos, int kpos, int causal,
                                         int window) {
   return (!causal || qpos >= kpos) && (window <= 0 || kpos > qpos - window);
 }
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  // Qs, dOs, Ks, Vs [64][D+1]; Ss [BQ][BK+1]; Ls, Dl [BQ]; all f32
-  return sizeof(float) * (4 * 64 * (D + 1) + BQ * (BK + 1) + 2 * BQ);
-}
-
-template <int D>
-constexpr size_t dkdv_smem_bytes() {
-  // Ks, Vs, Qs, dOs [64][D+1]; Pt, dSt [BK][BQ+1]; Ls, Dl [BQ]; all f32
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    float* __restrict__ delta, T* __restrict__ dq, int Sq,
-                    int Skv, int H, int KV, int q_offset, int causal,
-                    int window, float scale) {
-  constexpr int OPT = D / 16;  // head-dim columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // [BQ][D+1], q * scale
-  float* dOs = Qs + BQ * (D + 1);    // [BQ][D+1]
-  float* Ks = dOs + BQ * (D + 1);    // [BK][D+1]
-  float* Vs = Ks + BK * (D + 1);     // [BK][D+1]
-  float* Ss = Vs + BK * (D + 1);     // [BQ][BK+1], dS
-  float* Ls = Ss + BQ * (BK + 1);    // [BQ], lse
-  float* Dl = Ls + BQ;               // [BQ], Delta
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = qt * BQ;
-  const int q_rows = min(BQ, Sq - q0);
-  const int q_first = q_offset + q0, q_last = q_first + q_rows - 1;
-  int k_end = Skv;
-  if (causal) k_end = min(k_end, q_last + 1);
-  const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
-  const int kt_begin = k_begin / BK;
-  const int kt_end = k_end > 0 ? (k_end + BK - 1) / BK : 0;
-
-  const size_t qhead = ((size_t)b * Sq * H + h) * D;   // row stride H*D
-  const T* kb = k + ((size_t)b * Skv * KV + kvh) * D;  // row stride KV*D
-  const T* vb = v + ((size_t)b * Skv * KV + kvh) * D;
-  const size_t lrow = ((size_t)b * H + h) * Sq + q0;
-
-  load_tile<T, D, THREADS>(q + qhead, q0, BQ, Sq, H * D, Qs, D + 1, scale);
-  load_tile<T, D, THREADS>(dout + qhead, q0, BQ, Sq, H * D, dOs, D + 1, 1.f);
-  __syncthreads();
-
-  // Delta = rowsum(dout * o): the 16 threads of a row (one half-warp)
-  // reduce over their columns by shuffle
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty + 16 * i;
-    float acc = 0.f;
-    if (r < q_rows) {
-      const T* orow = o + qhead + (size_t)(q0 + r) * H * D;
-#pragma unroll
-      for (int j = 0; j < OPT; ++j)
-        acc = fmaf(dOs[r * (D + 1) + tx + 16 * j], to_float(orow[tx + 16 * j]),
-                   acc);
-    }
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (tx == 0) {
-      Dl[r] = acc;
-      Ls[r] = r < q_rows ? lse[lrow + r] : 0.f;
-      if (r < q_rows) delta[lrow + r] = acc;
-    }
-  }
-
-  float acc[RPT][OPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < OPT; ++j) acc[i][j] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile's dS K is done with Ks / Ss
-    load_tile<T, D, THREADS>(kb, k0, BK, Skv, KV * D, Ks, D + 1, 1.f);
-    load_tile<T, D, THREADS>(vb, k0, BK, Skv, KV * D, Vs, D + 1, 1.f);
-    __syncthreads();
-
-    // S = (q * scale) K^T and dP = dout V^T, rows ty + 16 i, cols tx + 16 j
-    float s[RPT][CPT], dp[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], ov[RPT], kv[CPT], vv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-        ov[i] = dOs[(ty + 16 * i) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-        vv[j] = Vs[(tx + 16 * j) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = r < q_rows && k0 + c < Skv &&
-                        visible(q_first + r, k0 + c, causal, window);
-        const float p = ok ? expf(s[i][j] - Ls[r]) : 0.f;
-        Ss[r * (BK + 1) + c] = p * (dp[i][j] - Dl[r]);
-      }
-    }
-    __syncthreads();
-
-    // dq += dS K
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float sv[RPT], kv[OPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) sv[i] = Ss[(ty + 16 * i) * (BK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < OPT; ++j) kv[j] = Ks[c * (D + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < OPT; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= q_rows) continue;
-    T* row = dq + qhead + (size_t)(q0 + r) * H * D;
-#pragma unroll
-    for (int j = 0; j < OPT; ++j)
-      row[tx + 16 * j] = from_float<T>(acc[i][j] * scale);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int Sq, int Skv, int H, int KV,
-                      int q_offset, int causal, int window, float scale) {
-  constexpr int OPT = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;                  // [BK][D+1]
-  float* Vs = Ks + BK * (D + 1);     // [BK][D+1]
-  float* Qs = Vs + BK * (D + 1);     // [BQ][D+1], q * scale
-  float* dOs = Qs + BQ * (D + 1);    // [BQ][D+1]
-  float* Pt = dOs + BQ * (D + 1);    // [BK][BQ+1], P^T
-  float* dSt = Pt + BK * (BQ + 1);   // [BK][BQ+1], dS^T
-  float* Ls = dSt + BK * (BQ + 1);   // [BQ]
-  float* Dl = Ls + BQ;               // [BQ]
-
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KV;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = kt * BK;
-  const int k_rows = min(BK, Skv - k0);
-  const size_t khead = ((size_t)b * Skv * KV + kvh) * D;  // row stride KV*D
-
-  load_tile<T, D, THREADS>(k + khead, k0, BK, Skv, KV * D, Ks, D + 1, 1.f);
-  load_tile<T, D, THREADS>(v + khead, k0, BK, Skv, KV * D, Vs, D + 1, 1.f);
-
-  // query rows i (position q_offset + i) that can see a key of this tile
-  const int i_begin = causal ? max(0, k0 - q_offset) : 0;
-  int i_end = Sq;
-  if (window > 0) i_end = min(i_end, k0 + k_rows - 1 + window - q_offset);
-  const int qt_begin = i_begin / BQ;
-  const int qt_end = i_end > i_begin ? (i_end + BQ - 1) / BQ : qt_begin;
-
-  float dka[RPT][OPT], dva[RPT][OPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < OPT; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const size_t qhead = ((size_t)b * Sq * H + h) * D;   // row stride H*D
-    const size_t lhead = ((size_t)b * H + h) * Sq;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * BQ;
-      const int q_rows = min(BQ, Sq - q0);
-      __syncthreads();  // previous products are done with Qs, dOs, Pt, dSt
-      load_tile<T, D, THREADS>(q + qhead, q0, BQ, Sq, H * D, Qs, D + 1,
-                               scale);
-      load_tile<T, D, THREADS>(dout + qhead, q0, BQ, Sq, H * D, dOs, D + 1,
-                               1.f);
-      for (int r = threadIdx.x; r < BQ; r += THREADS) {
-        Ls[r] = r < q_rows ? lse[lhead + q0 + r] : 0.f;
-        Dl[r] = r < q_rows ? delta[lhead + q0 + r] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K (q * scale)^T and dP^T = V dout^T: rows are keys
-      // ty + 16 i, columns queries tx + 16 j
-      float st[RPT][CPT], dpt[RPT][CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 2
-      for (int d = 0; d < D; ++d) {
-        float kv[RPT], vv[RPT], qv[CPT], ov[CPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          kv[i] = Ks[(ty + 16 * i) * (D + 1) + d];
-          vv[i] = Vs[(ty + 16 * i) * (D + 1) + d];
-        }
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          qv[j] = Qs[(tx + 16 * j) * (D + 1) + d];
-          ov[j] = dOs[(tx + 16 * j) * (D + 1) + d];
-        }
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) {
-            st[i][j] = fmaf(qv[j], kv[i], st[i][j]);
-            dpt[i][j] = fmaf(ov[j], vv[i], dpt[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int kc = ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int qc = tx + 16 * j;
-          const bool ok = kc < k_rows && qc < q_rows &&
-                          visible(q_offset + q0 + qc, k0 + kc, causal, window);
-          const float p = ok ? expf(st[i][j] - Ls[qc]) : 0.f;
-          Pt[kc * (BQ + 1) + qc] = p;
-          dSt[kc * (BQ + 1) + qc] = p * (dpt[i][j] - Dl[qc]);
-        }
-      }
-      __syncthreads();
-
-      // dv += P^T dout, dk += dS^T (q * scale)
-#pragma unroll 2
-      for (int c = 0; c < BQ; ++c) {
-        float pv[RPT], sv[RPT], ov[OPT], qv[OPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          pv[i] = Pt[(ty + 16 * i) * (BQ + 1) + c];
-          sv[i] = dSt[(ty + 16 * i) * (BQ + 1) + c];
-        }
-#pragma unroll
-        for (int j = 0; j < OPT; ++j) {
-          ov[j] = dOs[c * (D + 1) + tx + 16 * j];
-          qv[j] = Qs[c * (D + 1) + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int j = 0; j < OPT; ++j) {
-            dva[i][j] = fmaf(pv[i], ov[j], dva[i][j]);
-            dka[i][j] = fmaf(sv[i], qv[j], dka[i][j]);
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int kc = ty + 16 * i;
-    if (kc >= k_rows) continue;
-    const size_t off = khead + (size_t)(k0 + kc) * KV * D;
-#pragma unroll
-    for (int j = 0; j < OPT; ++j) {
-      dk[off + tx + 16 * j] = from_float<T>(dka[i][j]);
-      dv[off + tx + 16 * j] = from_float<T>(dva[i][j]);
-    }
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, int B, int Sq,
-                   int Skv, int H, int KV, int q_offset, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  if (Sq > 0) {
-    constexpr size_t smem = dq_smem_bytes<D>();
-    auto kern = flash_bwd_dq_kernel<T, D>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((Sq + BQ - 1) / BQ, H, B);
-    kern<<<grid, THREADS, smem, stream>>>(
-        qt, kt, vt, static_cast<const T*>(o), dot, lse, delta,
-        static_cast<T*>(dq), Sq, Skv, H, KV, q_offset, causal, window, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (Skv > 0) {
-    constexpr size_t smem = dkdv_smem_bytes<D>();
-    auto kern = flash_bwd_dkdv_kernel<T, D>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((Skv + BK - 1) / BK, KV, B);
-    kern<<<grid, THREADS, smem, stream>>>(
-        qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
-        static_cast<T*>(dv), Sq, Skv, H, KV, q_offset, causal, window, scale);
-    return cudaGetLastError();
-  }
-  return cudaSuccess;
-}
-
 
 // ------------------------------------------------ bf16: mma.sync m16n8k16 --
 
@@ -427,7 +108,7 @@ constexpr int THREADS = 128;  // four warps, 16 rows each
 constexpr float kLog2e = 1.4426950408889634f;
 
 // D = 80's dkdv query rows per tile and blocks per SM of both kernels,
-// from `tools/flash_d80_ab.py --sweep` on the card at B 4, S 1024,
+// from `tools/flash_ab.py d80 --sweep` on the card at B 4, S 1024,
 // H = KV = 32: dq capped to 168 registers for 3 blocks beat 2 or 1 by
 // 13-15 %; dkdv at 64 query rows (232 registers, 2 blocks) beat 32 rows
 // by 4-14 %
@@ -845,6 +526,456 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace tc
 
+// ------------------------------------ f32 and bf16 at D = 32: 3xTF32 --
+
+namespace tf {
+
+constexpr int THREADS = 128;   // four warps
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dq's keys per tile below D = 128; dk/dv's warps a block (each takes
+// 64 / kWarpsKv of a stage's 64 query rows) and the blocks per SM its
+// register allocation must leave room for up to D = 64; from
+// `tools/flash_ab.py f32 --sweep` on the card
+constexpr int kBkDq = 32, kWarpsKv = 8, kMinKv = 2;
+
+// dq: query rows per block (16 a warp) and keys per tile (32 at D = 128,
+// where two stages of 64 f32 keys would leave room for one block an SM)
+constexpr int BQ = 64;
+template <int D>
+constexpr int dq_bk() { return D == 128 ? 32 : kBkDq; }
+template <int D>
+constexpr int min_kv() { return D <= 64 ? kMinKv : 1; }
+// dkdv: keys per block (the 16 rows of each warp's S^T), query rows per
+// stage, and threads
+constexpr int BKV = 16, BQ2 = 64, THREADS_KV = 32 * kWarpsKv;
+
+// Shared memory in floats, every tile f32 at f32_pitch<D>() a row.
+template <int D>
+struct DqSmem {
+  static constexpr int BK = dq_bk<D>();
+  static constexpr int TQ = BQ * f32_pitch<D>();
+  static constexpr int TK = BK * f32_pitch<D>();
+  static constexpr int Q = 0, DO = TQ, KV = 2 * TQ;   // KV: 2 x (K, V)
+  static constexpr int LO = KV + 4 * TK;   // f32: the tile's K, V lo
+  static constexpr int BYTES = 4 * (LO + 2 * TK);
+};
+// K and V (their TF32 hi, split once as they land) and their lo, then
+// the stages
+template <int D>
+struct KvSmem {
+  static constexpr int TK = BKV * f32_pitch<D>();
+  static constexpr int TQ = BQ2 * f32_pitch<D>();
+  static constexpr int K = 0, V = TK, LO = 2 * TK, ST = 4 * TK;
+  // one stage: q tile, dout tile, lse[BQ2], delta[BQ2]
+  static constexpr int STAGE = 2 * TQ + 2 * BQ2;
+  static constexpr int BYTES = 4 * (ST + 2 * STAGE);
+  static_assert(kWarpsKv * 2 * BKV * D <= 2 * STAGE,
+                "the warps' partial dk / dv fit in the stages");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_tf32(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ o,
+                  const T* __restrict__ dout, const float* __restrict__ lse,
+                  float* __restrict__ delta, T* __restrict__ dq, int Sq,
+                  int Skv, int H, int KV, int q_offset, int causal,
+                  int window, float scale) {
+  constexpr bool EXACT = !std::is_same<T, float>::value;
+  using L = DqSmem<D>;
+  constexpr int BK = L::BK;
+  extern __shared__ __align__(16) float fsmem[];
+  const TileOrder to = tile_order((Sq + BQ - 1) / BQ, H, causal);
+  const int qt = to.tile, h = to.head, b = to.batch;
+  const int kvh = h / (H / KV);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int q0 = qt * BQ;
+  const int q_rows = min(BQ, Sq - q0);
+  const int q_first = q_offset + q0, q_last = q_first + q_rows - 1;
+  int k_end = Skv;
+  if (causal) k_end = min(k_end, q_last + 1);
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  const int kt_begin = k_begin / BK;
+  const int kt_end = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+
+  const size_t qhead = ((size_t)b * Sq * H + h) * D;   // row stride H*D
+  const T* kb = k + ((size_t)b * Skv * KV + kvh) * D;  // row stride KV*D
+  const T* vb = v + ((size_t)b * Skv * KV + kvh) * D;
+  const size_t lrow = ((size_t)b * H + h) * Sq + q0;
+  auto load_kv = [&](int kt, int st) {
+    float* sk = fsmem + L::KV + 2 * st * L::TK;
+    load_tile_f32<D, BK, THREADS>(sk, kb, kt * BK, Skv, KV * D);
+    load_tile_f32<D, BK, THREADS>(sk + L::TK, vb, kt * BK, Skv, KV * D);
+  };
+
+  load_tile_f32<D, BQ, THREADS>(fsmem + L::Q, q + qhead, q0, Sq, H * D);
+  load_tile_f32<D, BQ, THREADS>(fsmem + L::DO, dout + qhead, q0, Sq, H * D);
+  if (kt_begin < kt_end) load_kv(kt_begin, 0);
+  cp_async_commit();
+
+  // Delta = rowsum(dout * o) for this thread's two rows (rq, rq + 8),
+  // each warp over its 16 rows, and the rows' lse in log2 units
+  const int rq = w * 16 + g;
+  float dl[2], ls[2];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int rr = w * 16 + i;
+    float acc = 0.f;
+    if (rr < q_rows) {
+      const size_t off = qhead + (size_t)(q0 + rr) * H * D;
+      for (int col = 2 * lane; col < D; col += 64) {
+        const float2 a = load2(o + off + col), d = load2(dout + off + col);
+        acc = fmaf(a.x, d.x, fmaf(a.y, d.y, acc));
+      }
+    }
+#pragma unroll
+    for (int sh = 16; sh > 0; sh >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, sh);
+    if (lane == 0 && rr < q_rows) delta[lrow + rr] = acc;
+    if (i == g) dl[0] = acc;
+    if (i == g + 8) dl[1] = acc;
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    ls[j] = rq + 8 * j < q_rows ? lse[lrow + rq + 8 * j] * kLog2e : 0.f;
+  const float scale_log2 = scale * kLog2e;
+  const int wq_first = q_first + w * 16, wq_last = wq_first + 15;
+  const bool live = w * 16 < q_rows;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) load_kv(kt + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    float* sK = fsmem + L::KV + 2 * st * L::TK;
+    const float* sV = sK + L::TK;
+    const float* kLo = fsmem + L::LO;   // f32: K lo, then V lo
+    if constexpr (!EXACT) {   // K and V (adjacent) to hi and lo, once
+      split_tile<THREADS>(sK, fsmem + L::LO, 2 * L::TK);
+      __syncthreads();
+    }
+    const int k0 = kt * BK;
+    const bool skip = !live || (causal && k0 > wq_last) ||
+                      (window > 0 && k0 + BK - 1 <= wq_first - window);
+    if (!skip) {
+      // S = Q K^T and dP = dout V^T, this warp's 16 rows x BK keys
+      float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        FragA qa, da;
+        ld_a<D, EXACT>(qa, fsmem + L::Q, w * 16, kk * 8, lane);
+        ld_a<D, EXACT>(da, fsmem + L::DO, w * 16, kk * 8, lane);
+#pragma unroll
+        for (int nn = 0; nn < BK / 8; ++nn) {
+          FragB kf, vf;
+          if constexpr (EXACT) {
+            ld_b_nk<D, true>(kf, sK, nn * 8, kk * 8, lane);
+            ld_b_nk<D, true>(vf, sV, nn * 8, kk * 8, lane);
+          } else {
+            ld_b_nk<D>(kf, sK, kLo, nn * 8, kk * 8, lane);
+            ld_b_nk<D>(vf, sV, kLo + L::TK, nn * 8, kk * 8, lane);
+          }
+          mma3<EXACT, EXACT>(s[nn], qa, kf);
+          mma3<EXACT, EXACT>(dp[nn], da, vf);
+        }
+      }
+      // P = exp2(s * scale * log2e - lse * log2e), dS = P (dP - Delta)
+      const bool edge = k0 + BK > Skv ||
+                        (causal && k0 + BK - 1 > wq_first) ||
+                        (window > 0 && k0 <= wq_last - window);
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int hi = j >> 1;
+          float p = ex2_approx(fmaf(s[i][j], scale_log2, -ls[hi]));
+          if (edge) {
+            const int kp = k0 + 8 * i + 2 * c + (j & 1);
+            if (!(kp < Skv && visible(q_first + rq + 8 * hi, kp, causal,
+                                      window)))
+              p = 0.f;
+          }
+          s[i][j] = p * (dp[i][j] - dl[hi]);
+        }
+      // dq += dS K: dS's n8 tile kc is the A fragment of k8 step kc
+#pragma unroll
+      for (int kc = 0; kc < BK / 8; ++kc) {
+        FragA dsa;
+        acc_a(dsa, s[kc]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          FragB kf;
+          if constexpr (EXACT)
+            ld_b_kn<D, true>(kf, sK, kc * 8, dn * 8, lane);
+          else
+            ld_b_kn<D>(kf, sK, kLo, kc * 8, dn * 8, lane);
+          mma3<false, EXACT>(acc[dn], dsa, kf);
+        }
+      }
+    }
+    __syncthreads();   // the next prefetch overwrites this stage
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = rq + 8 * hi;
+    if (row >= q_rows) continue;
+    T* drow = dq + qhead + (size_t)(q0 + row) * H * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      store2(drow + 8 * i + 2 * c, acc[i][2 * hi] * scale,
+             acc[i][2 * hi + 1] * scale);
+  }
+}
+
+// dk / dv of 16 keys: every warp computes S^T = K Q^T for the 16 keys
+// over its own RW of the stage's 64 query rows, so the query loop (the G
+// heads of the group x the q tiles that see the keys) is split kWarpsKv
+// ways; the warps' partial dk / dv are summed through shared memory in
+// warp order at the end (no atomics: the result is deterministic).
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS_KV, min_kv<D>())
+flash_bwd_dkdv_tf32(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, int Sq, int Skv, int H, int KV,
+                    int q_offset, int causal, int window, float scale) {
+  constexpr bool EXACT = !std::is_same<T, float>::value;
+  constexpr int RW = BQ2 / kWarpsKv;   // query rows a warp: RW / 8 n8 tiles
+  using L = KvSmem<D>;
+  extern __shared__ __align__(16) float fsmem[];
+  // causal: key tile 0 is seen by the most q tiles, so rank 0 = tile 0
+  const TileOrder to = tile_order((Skv + BKV - 1) / BKV, KV, false);
+  const int kt = to.tile, kvh = to.head, b = to.batch;
+  const int G = H / KV;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int k0 = kt * BKV;
+  const int k_rows = min(BKV, Skv - k0);
+  const size_t khead = ((size_t)b * Skv * KV + kvh) * D;  // row stride KV*D
+
+  load_tile_f32<D, BKV, THREADS_KV>(fsmem + L::K, k + khead, k0, Skv,
+                                    KV * D);
+  load_tile_f32<D, BKV, THREADS_KV>(fsmem + L::V, v + khead, k0, Skv,
+                                    KV * D);
+
+  // query rows i (position q_offset + i) that can see a key of this tile
+  const int i_begin = causal ? max(0, k0 - q_offset) : 0;
+  int i_end = Sq;
+  if (window > 0) i_end = min(i_end, k0 + k_rows - 1 + window - q_offset);
+  const int qt_begin = i_begin / BQ2;
+  const int qt_end = i_end > i_begin ? (i_end + BQ2 - 1) / BQ2 : qt_begin;
+  const int nqt = qt_end - qt_begin;
+  const int n_it = G * nqt;    // (head of the group, q tile) pairs
+
+  auto load_stage = [&](int it, int st) {
+    const int h = kvh * G + it / nqt;
+    const int q0 = (qt_begin + it % nqt) * BQ2;
+    const size_t qhead = ((size_t)b * Sq * H + h) * D;
+    const size_t lhead = ((size_t)b * H + h) * Sq;
+    float* sq = fsmem + L::ST + st * L::STAGE;
+    load_tile_f32<D, BQ2, THREADS_KV>(sq, q + qhead, q0, Sq, H * D);
+    load_tile_f32<D, BQ2, THREADS_KV>(sq + L::TQ, dout + qhead, q0, Sq,
+                                      H * D);
+    for (int i = threadIdx.x; i < BQ2; i += THREADS_KV) {
+      const bool ok = q0 + i < Sq;
+      const size_t at = lhead + (ok ? q0 + i : 0);
+      cp_async4(smem_u32(sq + 2 * L::TQ + i), lse + at, ok);
+      cp_async4(smem_u32(sq + 2 * L::TQ + BQ2 + i), delta + at, ok);
+    }
+  };
+  if (n_it > 0) load_stage(0, 0);
+  cp_async_commit();
+  // K and V are every iteration's A operands: split them once (the
+  // first iteration's barrier publishes the split)
+  if constexpr (!EXACT) {
+    cp_async_wait<0>();
+    __syncthreads();
+    split_tile<THREADS_KV>(fsmem + L::K, fsmem + L::LO, 2 * L::TK);
+  }
+
+  const float scale_log2 = scale * kLog2e;
+  const int k_last = k0 + k_rows - 1;
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dka[i][j] = dva[i][j] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = (qt_begin + it % nqt) * BQ2;
+    const float* sQ = fsmem + L::ST + st * L::STAGE;
+    const float* sO = sQ + L::TQ;
+    const float* ls = sQ + 2 * L::TQ;
+    const float* dl = ls + BQ2;
+    // this warp's query rows wr .. wr + RW - 1 of the stage
+    const int wr = w * RW;
+    const int wq_first = q_offset + q0 + wr, wq_last = wq_first + RW - 1;
+    const bool skip = q0 + wr >= Sq || (causal && wq_last < k0) ||
+                      (window > 0 && wq_first >= k_last + window);
+    if (!skip) {
+      // S^T = K Q^T and dP^T = V dout^T: 16 keys x this warp's RW rows
+      float s[RW / 8][4], dp[RW / 8][4];
+#pragma unroll
+      for (int i = 0; i < RW / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        FragA ka, va;
+        if constexpr (EXACT) {
+          ld_a<D, true>(ka, fsmem + L::K, 0, kk * 8, lane);
+          ld_a<D, true>(va, fsmem + L::V, 0, kk * 8, lane);
+        } else {
+          ld_a<D>(ka, fsmem + L::K, fsmem + L::LO, 0, kk * 8, lane);
+          ld_a<D>(va, fsmem + L::V, fsmem + L::LO + L::TK, 0, kk * 8, lane);
+        }
+#pragma unroll
+        for (int nn = 0; nn < RW / 8; ++nn) {
+          FragB qf, of;
+          ld_b_nk<D, EXACT>(qf, sQ, wr + nn * 8, kk * 8, lane);
+          ld_b_nk<D, EXACT>(of, sO, wr + nn * 8, kk * 8, lane);
+          mma3<EXACT, EXACT>(s[nn], ka, qf);
+          mma3<EXACT, EXACT>(dp[nn], va, of);
+        }
+      }
+      // P^T and dS^T = P^T (dP^T - Delta), masked to 0
+      const bool edge = q0 + wr + RW > Sq || k0 + BKV > Skv ||
+                        (causal && k_last > wq_first) ||
+                        (window > 0 && k0 <= wq_last - window);
+#pragma unroll
+      for (int i = 0; i < RW / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qc = wr + 8 * i + 2 * c + (j & 1);
+          float p = ex2_approx(fmaf(s[i][j], scale_log2, -ls[qc] * kLog2e));
+          if (edge) {
+            const int kp = k0 + g + 8 * (j >> 1);
+            if (!(kp < Skv && q0 + qc < Sq &&
+                  visible(q_offset + q0 + qc, kp, causal, window)))
+              p = 0.f;
+          }
+          s[i][j] = p;
+          dp[i][j] = p * (dp[i][j] - dl[qc]);
+        }
+      // dv += P^T dout, dk += dS^T q over this warp's rows (k8 step kc:
+      // rows wr + 8 kc ..), dout and q read [k][n]
+#pragma unroll
+      for (int kc = 0; kc < RW / 8; ++kc) {
+        FragA pa, dsa;
+        acc_a(pa, s[kc]);
+        acc_a(dsa, dp[kc]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          FragB of, qf;
+          ld_b_kn<D, EXACT>(of, sO, wr + kc * 8, dn * 8, lane);
+          ld_b_kn<D, EXACT>(qf, sQ, wr + kc * 8, dn * 8, lane);
+          mma3<false, EXACT>(dva[dn], pa, of);
+          mma3<false, EXACT>(dka[dn], dsa, qf);
+        }
+      }
+    }
+    __syncthreads();   // the next prefetch overwrites this stage
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warps' partial sums, in the stages: part[w][dk | dv][key][D]
+  float* part = fsmem + L::ST;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int at = (g + 8 * hi) * D + 8 * i + 2 * c;
+      float* pk = part + (2 * w) * BKV * D + at;
+      float* pv = part + (2 * w + 1) * BKV * D + at;
+      *reinterpret_cast<float2*>(pk) =
+          make_float2(dka[i][2 * hi], dka[i][2 * hi + 1]);
+      *reinterpret_cast<float2*>(pv) =
+          make_float2(dva[i][2 * hi], dva[i][2 * hi + 1]);
+    }
+  __syncthreads();
+  for (int e = 2 * threadIdx.x; e < BKV * D; e += 2 * THREADS_KV) {
+    const int row = e / D, col = e % D;
+    if (row >= k_rows) continue;
+    float2 sk = make_float2(0.f, 0.f), sv = sk;
+#pragma unroll
+    for (int ww = 0; ww < kWarpsKv; ++ww) {
+      const float2 a = *reinterpret_cast<const float2*>(
+          part + 2 * ww * BKV * D + e);
+      const float2 bb = *reinterpret_cast<const float2*>(
+          part + (2 * ww + 1) * BKV * D + e);
+      sk.x += a.x;
+      sk.y += a.y;
+      sv.x += bb.x;
+      sv.y += bb.y;
+    }
+    const size_t off = khead + (size_t)(k0 + row) * KV * D + col;
+    store2(dk + off, sk.x * scale, sk.y * scale);
+    store2(dv + off, sv.x, sv.y);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, int B, int Sq,
+                   int Skv, int H, int KV, int q_offset, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  if (Sq > 0) {
+    constexpr int smem = DqSmem<D>::BYTES;
+    auto kern = flash_bwd_dq_tf32<T, D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const int grid = (Sq + BQ - 1) / BQ * H * B;   // tile-major, 1-d
+    kern<<<grid, THREADS, smem, stream>>>(
+        qt, kt, vt, static_cast<const T*>(o), dot, lse, delta,
+        static_cast<T*>(dq), Sq, Skv, H, KV, q_offset, causal, window, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (Skv > 0) {
+    constexpr int smem = KvSmem<D>::BYTES;
+    auto kern = flash_bwd_dkdv_tf32<T, D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const int grid = (Skv + BKV - 1) / BKV * KV * B;
+    kern<<<grid, THREADS_KV, smem, stream>>>(
+        qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
+        static_cast<T*>(dv), Sq, Skv, H, KV, q_offset, causal, window, scale);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
+}
+
+}  // namespace tf
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -862,17 +993,18 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   using namespace repro_torch;
   if (B == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_BWD_CASE(T, DD)                                          \
-  return (int)launch<T, DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, \
-                            Skv, H, KV, q_offset, causal, window, scale, s)
-  if (dtype == 0 && D == 32) REPRO_FLASH_BWD_CASE(float, 32);
-  if (dtype == 0 && D == 64) REPRO_FLASH_BWD_CASE(float, 64);
-  if (dtype == 0 && D == 80) REPRO_FLASH_BWD_CASE(float, 80);
-  if (dtype == 0 && D == 128) REPRO_FLASH_BWD_CASE(float, 128);
-  // bf16 at D = 32 (only the smoke configs have it): the CUDA-core pair,
-  // by shape
-  if (dtype == 1 && D == 32) REPRO_FLASH_BWD_CASE(__nv_bfloat16, 32);
-#undef REPRO_FLASH_BWD_CASE
+#define REPRO_FLASH_BWD_TF32_CASE(T, DD)                                    \
+  return (int)tf::launch<T, DD>(q, k, v, o, dout, lse, delta, dq, dk, dv,   \
+                                B, Sq, Skv, H, KV, q_offset, causal,        \
+                                window, scale, s)
+  if (dtype == 0 && D == 32) REPRO_FLASH_BWD_TF32_CASE(float, 32);
+  if (dtype == 0 && D == 64) REPRO_FLASH_BWD_TF32_CASE(float, 64);
+  if (dtype == 0 && D == 80) REPRO_FLASH_BWD_TF32_CASE(float, 80);
+  if (dtype == 0 && D == 128) REPRO_FLASH_BWD_TF32_CASE(float, 128);
+  // bf16 at D = 32 (only the smoke configs have it): the 3xTF32 pair,
+  // widened to f32, by shape
+  if (dtype == 1 && D == 32) REPRO_FLASH_BWD_TF32_CASE(__nv_bfloat16, 32);
+#undef REPRO_FLASH_BWD_TF32_CASE
 #define REPRO_FLASH_BWD_TC_CASE(DD)                                         \
   return (int)tc::launch<DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,   \
                              Sq, Skv, H, KV, q_offset, causal, window,      \

@@ -20,9 +20,10 @@
 // masked scores, m + log(max(l, 1e-30)), is written too: the backward
 // kernels (flash_backward.cu) recompute P from it.
 //
-// Two kernels, picked by dtype:
+// Two kernels, picked by dtype and head dim:
 //
-// bf16 (every main path): warpgroup MMA fed by TMA. At serving and
+// bf16 at D = 64 / 80 / 128 (the serve and train paths): warpgroup MMA
+// fed by TMA. At serving and
 // training shapes (256-1024 tokens, D = 64 / 80 / 128) the two products
 // do about 2 * 128 operations per byte of q/k/v/out moved, close to the
 // H100's ridge (~295), so the bound is the tensor cores' issue rate and
@@ -59,196 +60,42 @@
 // 64-column blocks (TMA zero-fills columns 80-127), would cost D = 128's
 // shared memory (3 stages) and 1.3x the products (PV at N = 128).
 //
-// f32 (the exact reference path of the card checks; no main path runs
-// it) and bf16 at D = 32 (the smoke configs): the CUDA-core kernel,
-// bound by f32 FMA issue. One block per (q-tile of 64 rows, head,
-// batch), a loop over 64-key tiles, f32 tiles in padded shared memory
-// (78.6 KB at D = 80), online softmax in registers. D = 32 is narrower
-// than the tensor-core kernel's 64-column block (it would need the
-// 64-byte swizzle), so a bf16 tensor with D = 32 always takes the
-// CUDA-core kernel. That is a dispatch by shape, not a fallback: nothing
-// retries another kernel when a launch fails.
+// f32 at every D (the examples' path: train_tiny, quickstart's training
+// and the f32 engine runs of the smoke configs; the f32 teacher-forcing
+// checks) and bf16 at D = 32 (the smoke configs): 3xTF32 on the tensor
+// cores (`tf::flash_fwd_tf32`; hopper.cuh). The CUDA-core kernel it
+// replaces kept a 4 x 4 register tile per thread fed by scalar loads
+// from padded f32 tiles (two FMAs per shared load: bound by shared-memory
+// reads, at 12 % of the f32 FMA bound at train_tiny's shape), loaded K/V
+// synchronously between two barriers, and took expf. Here each f32
+// product is three mma.sync m16n8k8 .tf32 passes on the TF32 pair (hi,
+// lo) of its operands (~2^-22 relative a product, inside the f32 TOL) at a
+// third of TF32's 495 TFLOP/s. One block of four warps per (64-row q
+// tile, head, batch), each warp 16 query rows; K/V tiles of 64 keys (32
+// at D = 128) in a two-stage cp.async ring, each split into its TF32 hi
+// (in place) and lo (a second tile) once as it lands, which the card
+// measured 15 % faster than splitting each use in registers (q and P
+// are split in registers); f32 tiles XOR-swizzled by 16-byte chunk
+// (`f32_off`) so that both fragment reads are free of bank conflicts;
+// the k index of every product permuted so that S's accumulator is P's
+// A fragment as it stands (no trip through shared memory); the online
+// softmax in registers in the log2 domain (the wgmma kernel's
+// `softmax_step`). A warp skips a tile its rows all mask, and its whole
+// loop when its rows are past Sq (a decode call's one row). bf16 inputs
+// (D = 32, narrower than the wgmma kernel's 64-column block) are widened
+// to f32 as their tiles land; they are exact in TF32, so only P, which
+// the kernel computes, takes the lo passes. That is a dispatch by dtype
+// and shape, not a fallback: nothing retries another kernel when a
+// launch fails.
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
-
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 thread grid
-constexpr int RPT = BQ / 16;  // rows per thread (row ty + 16 i)
-constexpr int CPT = BK / 16;  // score columns per thread (col tx + 16 j)
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // Qs[BQ][D+1], Ks[BK][D+1], Vs[BK][D], Ps[BQ][BK+1], all f32
-  return sizeof(float) *
-         (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, const int* __restrict__ kv_len,
-                 const int* __restrict__ q_offset, int q_offset_scalar,
-                 int Sq, int Skv, int H, int KV, int causal, int window,
-                 float scale) {
-  constexpr int OPT = D / 16;  // output columns per thread (col tx + 16 j)
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // [BQ][D+1]
-  float* Ks = Qs + BQ * (D + 1);     // [BK][D+1]
-  float* Vs = Ks + BK * (D + 1);     // [BK][D]
-  float* Ps = Vs + BK * D;           // [BQ][BK+1]
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int G = H / KV;
-  const int kvh = h / G;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  const int q0 = qt * BQ;                        // first local q row
-  const int q_rows = min(BQ, Sq - q0);
-  const int qoff = q_offset ? q_offset[b] : q_offset_scalar;
-  const int kvl = kv_len ? min(kv_len[b], Skv) : Skv;
-
-  // key range any row of this tile can see: tiles outside it are dead
-  const int q_first = qoff + q0, q_last = qoff + q0 + q_rows - 1;
-  int k_end = kvl;
-  if (causal) k_end = min(k_end, q_last + 1);
-  int k_begin = 0;
-  if (window > 0) k_begin = max(0, q_first - window + 1);
-  const int kt_begin = k_begin / BK;
-  const int kt_end = k_end > 0 ? (k_end + BK - 1) / BK : 0;
-
-  const T* qb = q + ((size_t)b * Sq * H + h) * D;        // row stride H*D
-  const T* kb = k + ((size_t)b * Skv * KV + kvh) * D;    // row stride KV*D
-  const T* vb = v + ((size_t)b * Skv * KV + kvh) * D;
-
-  load_tile<T, D, THREADS>(qb, q0, BQ, Sq, H * D, Qs, D + 1, scale);
-
-  float m[RPT], l[RPT], o[RPT][OPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < OPT; ++j) o[i][j] = 0.f;
-  }
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile's PV is done with Vs / Ps
-    load_tile<T, D, THREADS>(kb, k0, BK, Skv, KV * D, Ks, D + 1, 1.f);
-    load_tile<T, D, THREADS>(vb, k0, BK, Skv, KV * D, Vs, D, 1.f);
-    __syncthreads();
-
-    // S = (q * scale) K^T for rows ty + 16 i, cols tx + 16 j
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // mask, then the online-softmax update; the 16 threads that share a
-    // row (same ty, one half-warp) reduce over their columns by shuffle
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int qpos = qoff + q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        bool ok = kpos < kvl;
-        if (causal) ok = ok && (qpos >= kpos);
-        if (window > 0) ok = ok && (kpos > qpos - window);
-        if (!ok) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < OPT; ++j) o[i][j] *= corr;
-    }
-    __syncthreads();
-
-    // O += P V for rows ty + 16 i, output columns tx + 16 j
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[RPT], vv[OPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = Ps[(ty + 16 * i) * (BK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < OPT; ++j) vv[j] = Vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < OPT; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= q_rows) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    if (lse && tx == 0)
-      lse[((size_t)b * H + h) * Sq + q0 + r] =
-          m[i] + logf(fmaxf(l[i], 1e-30f));
-    T* orow = out + (((size_t)b * Sq + q0 + r) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < OPT; ++j)
-      orow[tx + 16 * j] = from_float<T>(o[i][j] * inv);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, const int* kv_len, const int* q_offset,
-                   int q_offset_scalar, int B, int Sq, int Skv, int H,
-                   int KV, int causal, int window, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kern = flash_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, kv_len, q_offset,
-      q_offset_scalar, Sq, Skv, H, KV, causal, window, scale);
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------- bf16: wgmma + TMA --
 
@@ -670,6 +517,212 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace tc
 
+// ------------------------------------ f32 and bf16 at D = 32: 3xTF32 --
+
+namespace tf {
+
+constexpr int BQ = 64;        // query rows per block: four warps x 16
+constexpr int THREADS = 128;
+
+// keys per tile below D = 128, from `tools/flash_ab.py f32 --sweep` on
+// the card at D 64
+constexpr int kBkF = 64;
+
+// keys per tile: kBkF, or 32 at D = 128, where two stages of 64 f32 keys
+// would leave room for one block an SM
+template <int D>
+constexpr int block_k() { return D == 128 ? 32 : kBkF; }
+
+// Shared memory (floats): the q tile, two stages of (K tile, V tile),
+// then the lo of the current K and V tiles (f32: K and V are split into
+// TF32 pairs once per tile as they land); every tile f32 at
+// f32_pitch<D>() a row (hopper.cuh).
+template <int D>
+struct Smem {
+  static constexpr int BK = block_k<D>();
+  static constexpr int TQ = BQ * f32_pitch<D>();
+  static constexpr int TK = BK * f32_pitch<D>();
+  static constexpr int LO = TQ + 4 * TK;
+  static constexpr int BYTES = 4 * (LO + 2 * TK);
+};
+
+// T = float, or bf16 (D = 32: its values are exact in TF32, so only P,
+// which the kernel computes, takes the lo passes)
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_tf32(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ out,
+               float* __restrict__ lse, const int* __restrict__ kv_len,
+               const int* __restrict__ q_offset, int q_offset_scalar, int Sq,
+               int Skv, int H, int KV, int causal, int window,
+               float scale_log2) {
+  constexpr bool EXACT = !std::is_same<T, float>::value;
+  using L = Smem<D>;
+  constexpr int BK = L::BK;
+  extern __shared__ __align__(16) float fsmem[];
+  float* sQ = fsmem;
+  float* sKV = fsmem + L::TQ;   // stage s: K at 2 s TK, V at 2 s TK + TK
+  float* sLo = fsmem + L::LO;   // f32: K lo, then V lo
+
+  const TileOrder to = tile_order((Sq + BQ - 1) / BQ, H, causal);
+  const int qt = to.tile, h = to.head, b = to.batch;
+  const int kvh = h / (H / KV);
+  const int q0 = qt * BQ;
+  const int q_rows = min(BQ, Sq - q0);
+  const int qoff = q_offset ? q_offset[b] : q_offset_scalar;
+  const int kvl = kv_len ? min(kv_len[b], Skv) : Skv;
+
+  // key range any row of this tile can see: tiles outside it are dead
+  const int q_first = qoff + q0, q_last = qoff + q0 + q_rows - 1;
+  int k_end = kvl;
+  if (causal) k_end = min(k_end, q_last + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q_first - window + 1);
+  const int kt_begin = k_begin / BK;
+  const int kt_end = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+  const int n_tiles = max(0, kt_end - kt_begin);
+
+  const T* qb = q + ((size_t)b * Sq * H + h) * D;        // row stride H*D
+  const T* kb = k + ((size_t)b * Skv * KV + kvh) * D;    // row stride KV*D
+  const T* vb = v + ((size_t)b * Skv * KV + kvh) * D;
+  auto load_kv = [&](int it, int st) {
+    const int k0 = (kt_begin + it) * BK;
+    load_tile_f32<D, BK, THREADS>(sKV + 2 * st * L::TK, kb, k0, Skv, KV * D);
+    load_tile_f32<D, BK, THREADS>(sKV + (2 * st + 1) * L::TK, vb, k0, Skv,
+                                  KV * D);
+  };
+  load_tile_f32<D, BQ, THREADS>(sQ, qb, q0, Sq, H * D);
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int r = w * 16 + g;            // this thread's rows r, r + 8
+  const int qp0 = qoff + q0 + r;
+  const int wq_first = qoff + q0 + w * 16, wq_last = wq_first + 15;
+  // a warp whose rows are all past Sq (a decode call's one row leaves
+  // three of four idle) only loads
+  const bool live = w * 16 < q_rows;
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles) load_kv(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    float* sK = sKV + 2 * st * L::TK;
+    const float* sV = sK + L::TK;
+    if constexpr (!EXACT) {   // K and V (adjacent) to hi and lo, once
+      split_tile<THREADS>(sK, sLo, 2 * L::TK);
+      __syncthreads();
+    }
+    const int k0 = (kt_begin + it) * BK;
+    // a tile whose keys this warp's rows all mask adds nothing
+    const bool skip = !live || (causal && k0 > wq_last) ||
+                      (window > 0 && k0 + BK - 1 <= wq_first - window);
+    if (!skip) {
+      // S = Q K^T, this warp's 16 rows x BK keys (n8 tile i: s[4i ..])
+      float s[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        FragA qa;
+        ld_a<D, EXACT>(qa, sQ, w * 16, kk * 8, lane);
+#pragma unroll
+        for (int nn = 0; nn < BK / 8; ++nn) {
+          FragB kf;
+          if constexpr (EXACT)
+            ld_b_nk<D, true>(kf, sK, nn * 8, kk * 8, lane);
+          else
+            ld_b_nk<D>(kf, sK, sLo, nn * 8, kk * 8, lane);
+          mma3<EXACT, EXACT>(&s[4 * nn], qa, kf);
+        }
+      }
+      // the wgmma kernel's online softmax: its accumulator rows and
+      // columns are laid out as mma.sync's
+      float corr[2];
+      const bool edge = k0 + BK > kvl || (causal && k0 + BK - 1 > wq_first) ||
+                        (window > 0 && k0 <= wq_last - window);
+      if (edge)
+        tc::softmax_step<true>(s, m, l, corr, k0, c, qp0, kvl, causal,
+                               window, scale_log2);
+      else
+        tc::softmax_step<false>(s, m, l, corr, k0, c, qp0, kvl, causal,
+                                window, scale_log2);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[i][j] *= corr[j >> 1];
+      // O += P V: P's n8 tile kc is the A fragment of k8 step kc
+#pragma unroll
+      for (int kc = 0; kc < BK / 8; ++kc) {
+        FragA pa;
+        acc_a(pa, &s[4 * kc]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          FragB vf;
+          if constexpr (EXACT)
+            ld_b_kn<D, true>(vf, sV, kc * 8, dn * 8, lane);
+          else
+            ld_b_kn<D>(vf, sV, sLo + L::TK, kc * 8, dn * 8, lane);
+          mma3<false, EXACT>(o[dn], pa, vf);
+        }
+      }
+    }
+    __syncthreads();   // the next prefetch overwrites this stage
+  }
+  cp_async_wait<0>();
+
+  // epilogue: finish the row sums across the quad, normalise, store
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], off);
+    const int row = r + 8 * hi;
+    if (row >= q_rows) continue;
+    const float inv = 1.f / fmaxf(l[hi], 1e-30f);
+    if (lse && c == 0)
+      lse[((size_t)b * H + h) * Sq + q0 + row] =
+          (m[hi] == kNegInf ? kNegInf : m[hi] * tc::kLn2) +
+          logf(fmaxf(l[hi], 1e-30f));
+    T* orow = out + (((size_t)b * Sq + q0 + row) * H + h) * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      store2(orow + 8 * i + 2 * c, o[i][2 * hi] * inv,
+             o[i][2 * hi + 1] * inv);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   float* lse, const int* kv_len, const int* q_offset,
+                   int q_offset_scalar, int B, int Sq, int Skv, int H,
+                   int KV, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  constexpr int smem = Smem<D>::BYTES;
+  auto kern = flash_fwd_tf32<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (Sq + BQ - 1) / BQ * H * B;   // tile-major, 1-d
+  kern<<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, kv_len, q_offset,
+      q_offset_scalar, Sq, Skv, H, KV, causal, window, scale * tc::kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace tf
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -686,18 +739,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   using namespace repro_torch;
   if (B == 0 || Sq == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_CASE(T, DD)                                             \
-  return (int)launch<T, DD>(q, k, v, out, lse, kv_len, q_offset,            \
-                            q_offset_scalar, B, Sq, Skv, H, KV, causal,     \
-                            window, scale, s)
-  if (dtype == 0 && D == 32) REPRO_FLASH_CASE(float, 32);
-  if (dtype == 0 && D == 64) REPRO_FLASH_CASE(float, 64);
-  if (dtype == 0 && D == 80) REPRO_FLASH_CASE(float, 80);
-  if (dtype == 0 && D == 128) REPRO_FLASH_CASE(float, 128);
-  // bf16 at D = 32 is narrower than the tensor-core kernel's first
-  // 64-column block: it always takes the CUDA-core kernel (by shape)
-  if (dtype == 1 && D == 32) REPRO_FLASH_CASE(__nv_bfloat16, 32);
-#undef REPRO_FLASH_CASE
+#define REPRO_FLASH_TF32_CASE(T, DD)                                        \
+  return (int)tf::launch<T, DD>(q, k, v, out, lse, kv_len, q_offset,        \
+                                q_offset_scalar, B, Sq, Skv, H, KV, causal, \
+                                window, scale, s)
+  if (dtype == 0 && D == 32) REPRO_FLASH_TF32_CASE(float, 32);
+  if (dtype == 0 && D == 64) REPRO_FLASH_TF32_CASE(float, 64);
+  if (dtype == 0 && D == 80) REPRO_FLASH_TF32_CASE(float, 80);
+  if (dtype == 0 && D == 128) REPRO_FLASH_TF32_CASE(float, 128);
+  // bf16 at D = 32 is narrower than the wgmma kernel's first 64-column
+  // block: it takes the 3xTF32 kernel, widened to f32 (by shape)
+  if (dtype == 1 && D == 32) REPRO_FLASH_TF32_CASE(__nv_bfloat16, 32);
+#undef REPRO_FLASH_TF32_CASE
 #define REPRO_FLASH_TC_CASE(DD)                                             \
   return (int)tc::launch<DD>(q, k, v, out, lse, kv_len, q_offset,           \
                              q_offset_scalar, B, Sq, Skv, H, KV, causal,    \

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) primitives of the port's kernels, as inline PTX: shared
 // memory addresses, mbarriers, TMA tile loads and 1-d bulk copies, named
-// barriers, warpgroup MMA (wgmma) with its shared-memory descriptors, and
-// the warp-level tensor-core path (ldmatrix, mma.sync m16n8k16, cp.async,
+// barriers, warpgroup MMA (wgmma) with its shared-memory descriptors, the
+// warp-level tensor-core path (ldmatrix, mma.sync m16n8k16, cp.async,
 // and the fragment addressing of swizzled or padded bf16 tiles) of the
-// flash backward and the paged prefill.
+// flash backward and the paged prefill, and the 3xTF32 path of the f32
+// flash kernels (mma.sync m16n8k8 .tf32 on f32 values split into a TF32
+// pair, and the fragment addressing of swizzled f32 tiles).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -337,6 +339,245 @@ __device__ __forceinline__ void acc_to_a(const float (&acc)[N8][4],
     a[kc][2] = pack_bf16(acc[2 * kc + 1][0], acc[2 * kc + 1][1]);
     a[kc][3] = pack_bf16(acc[2 * kc + 1][2], acc[2 * kc + 1][3]);
   }
+}
+
+// ------------------------------------------------------------- 3xTF32 --
+//
+// An f32 value x is taken as the TF32 pair hi = tf32(x), lo = tf32(x - hi)
+// (round to nearest, ties away: cvt.rna), which holds x to about 2^-22
+// relative, and a product of two values as hi.hi + hi.lo + lo.hi (the
+// lo.lo term is below f32 rounding): CUTLASS's "fast accurate f32"
+// (OpMultiplyAddFastF32). Each term is one mma.sync m16n8k8 .tf32 with
+// f32 accumulation, so an f32 product costs three tensor-core passes at
+// TF32's 495 TFLOP/s: ~165 TFLOP/s, against 67 for f32 FMA. A single TF32
+// pass keeps about three decimal digits and misses the f32 tolerance. An
+// operand widened from bf16 is exact in TF32 (EXACT): its lo is 0 and its
+// passes are skipped.
+
+struct FragA {   // a 16 x 8 A fragment as a TF32 pair
+  uint32_t hi[4], lo[4];
+};
+struct FragB {   // an 8 x 8 B fragment as a TF32 pair
+  uint32_t hi[2], lo[2];
+};
+
+// x as its TF32 pair; with EXACT (x widened from bf16) hi = x, lo unset.
+template <bool EXACT>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  if constexpr (EXACT) {
+    hi = __float_as_uint(x);
+  } else {
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+    asm("cvt.rna.tf32.f32 %0, %1;\n"
+        : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+  }
+}
+
+// c (16 x 8, f32) += a (16 x 8, tf32, row) . b (8 x 8, tf32, col).
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in 3xTF32, the small terms first; a pass with an EXACT
+// operand's lo is skipped.
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma3(float* c, const FragA& a,
+                                     const FragB& b) {
+  if constexpr (!A_EXACT) mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  if constexpr (!B_EXACT) mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// f32 tiles of D columns in shared memory: rows of f32_pitch<D>() floats
+// (D rounded up to 32: 96 at D = 80), 16-byte chunk ch of row r stored
+// at chunk ch ^ 2 s(r), s(r) = (r & 3) ^ ((r >> 2) & 1). Fragments are
+// read two ways, both free of bank conflicts under that XOR: 8-byte
+// loads of (row n0 + g, columns k0 + 2t, +1) for g < 8, t < 4, where
+// rows n0 .. n0 + 3 (and n0 + 4 .. n0 + 7) take four different s; and
+// 4-byte loads of (rows k0 + 2t and k0 + 2t + 1, column n0 + g), where
+// the even rows (and the odd ones) of an 8-row group take four
+// different s. (ldmatrix moves 16-bit elements only.)
+template <int D>
+__host__ __device__ constexpr int f32_pitch() {
+  return (D + 31) / 32 * 32;
+}
+template <int D>
+__device__ __forceinline__ int f32_off(int r, int col) {
+  const int s = (r & 3) ^ ((r >> 2) & 1);
+  return r * f32_pitch<D>() + ((((col >> 2) ^ (s << 1))) << 2) + (col & 3);
+}
+
+// The k index of an m16n8k8 fragment is permuted so that a 16 x 8 f32
+// accumulator (thread (g, t) holds columns 2t, 2t + 1 of rows g, g + 8)
+// is an A fragment as it stands: logical k = t is column 2t, k = t + 4
+// is column 2t + 1. Every operand is read under the same permutation.
+
+// A fragment of rows r0 .. r0 + 15, columns k0 .. k0 + 7 of a tile.
+template <int D, bool EXACT>
+__device__ __forceinline__ void ld_a(FragA& f, const float* tile, int r0,
+                                     int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float2 x = *reinterpret_cast<const float2*>(
+      tile + f32_off<D>(r0 + g, k0 + 2 * t));
+  const float2 y = *reinterpret_cast<const float2*>(
+      tile + f32_off<D>(r0 + g + 8, k0 + 2 * t));
+  split_tf32<EXACT>(x.x, f.hi[0], f.lo[0]);
+  split_tf32<EXACT>(y.x, f.hi[1], f.lo[1]);
+  split_tf32<EXACT>(x.y, f.hi[2], f.lo[2]);
+  split_tf32<EXACT>(y.y, f.hi[3], f.lo[3]);
+}
+
+// A fragment from an accumulator tile (c[0..3]: (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1)): P or dS as the next product's A.
+__device__ __forceinline__ void acc_a(FragA& f, const float* c) {
+  split_tf32<false>(c[0], f.hi[0], f.lo[0]);
+  split_tf32<false>(c[2], f.hi[1], f.lo[1]);
+  split_tf32<false>(c[1], f.hi[2], f.lo[2]);
+  split_tf32<false>(c[3], f.hi[3], f.lo[3]);
+}
+
+// B fragment (k x n = 8 x 8) of a tile stored [n][k]: rows n0 .. n0 + 7,
+// columns k0 .. k0 + 7 (K for S = Q K^T).
+template <int D, bool EXACT>
+__device__ __forceinline__ void ld_b_nk(FragB& f, const float* tile,
+                                        int n0, int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float2 x = *reinterpret_cast<const float2*>(
+      tile + f32_off<D>(n0 + g, k0 + 2 * t));
+  split_tf32<EXACT>(x.x, f.hi[0], f.lo[0]);
+  split_tf32<EXACT>(x.y, f.hi[1], f.lo[1]);
+}
+
+// B fragment of a tile stored [k][n]: rows k0 .. k0 + 7, columns n0 ..
+// n0 + 7 (V for O = P V).
+template <int D, bool EXACT>
+__device__ __forceinline__ void ld_b_kn(FragB& f, const float* tile,
+                                        int k0, int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  split_tf32<EXACT>(tile[f32_off<D>(k0 + 2 * t, n0 + g)], f.hi[0],
+                    f.lo[0]);
+  split_tf32<EXACT>(tile[f32_off<D>(k0 + 2 * t + 1, n0 + g)], f.hi[1],
+                    f.lo[1]);
+}
+
+// The other place for the split: a tile split once as it lands
+// (`split_tile`: its hi in place, its lo in a second tile of the same
+// layout), each fragment read as two loads and no arithmetic.
+template <int NT>
+__device__ __forceinline__ void split_tile(float* tile, float* lo, int n) {
+  for (int i = 4 * threadIdx.x; i < n; i += 4 * NT) {
+    const float4 x = *reinterpret_cast<const float4*>(tile + i);
+    uint4 h, l;
+    split_tf32<false>(x.x, h.x, l.x);
+    split_tf32<false>(x.y, h.y, l.y);
+    split_tf32<false>(x.z, h.z, l.z);
+    split_tf32<false>(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(tile + i) = h;
+    *reinterpret_cast<uint4*>(lo + i) = l;
+  }
+}
+template <int D>
+__device__ __forceinline__ void ld_a(FragA& f, const float* hi,
+                                     const float* lo, int r0, int k0,
+                                     int lane) {
+  const int a0 = f32_off<D>(r0 + (lane >> 2), k0 + 2 * (lane & 3));
+  const int a1 = f32_off<D>(r0 + (lane >> 2) + 8, k0 + 2 * (lane & 3));
+  const uint2 x = *reinterpret_cast<const uint2*>(hi + a0);
+  const uint2 y = *reinterpret_cast<const uint2*>(hi + a1);
+  const uint2 u = *reinterpret_cast<const uint2*>(lo + a0);
+  const uint2 w = *reinterpret_cast<const uint2*>(lo + a1);
+  f.hi[0] = x.x;
+  f.hi[1] = y.x;
+  f.hi[2] = x.y;
+  f.hi[3] = y.y;
+  f.lo[0] = u.x;
+  f.lo[1] = w.x;
+  f.lo[2] = u.y;
+  f.lo[3] = w.y;
+}
+template <int D>
+__device__ __forceinline__ void ld_b_nk(FragB& f, const float* hi,
+                                        const float* lo, int n0, int k0,
+                                        int lane) {
+  const int at = f32_off<D>(n0 + (lane >> 2), k0 + 2 * (lane & 3));
+  const uint2 x = *reinterpret_cast<const uint2*>(hi + at);
+  const uint2 y = *reinterpret_cast<const uint2*>(lo + at);
+  f.hi[0] = x.x;
+  f.hi[1] = x.y;
+  f.lo[0] = y.x;
+  f.lo[1] = y.y;
+}
+template <int D>
+__device__ __forceinline__ void ld_b_kn(FragB& f, const float* hi,
+                                        const float* lo, int k0, int n0,
+                                        int lane) {
+  const int a0 = f32_off<D>(k0 + 2 * (lane & 3), n0 + (lane >> 2));
+  const int a1 = f32_off<D>(k0 + 2 * (lane & 3) + 1, n0 + (lane >> 2));
+  f.hi[0] = __float_as_uint(hi[a0]);
+  f.hi[1] = __float_as_uint(hi[a1]);
+  f.lo[0] = __float_as_uint(lo[a0]);
+  f.lo[1] = __float_as_uint(lo[a1]);
+}
+
+// Rows [row0, row0 + ROWS) of one head (rows `stride` elements apart)
+// into an f32 tile (f32_off<D>) by NT threads; rows >= valid are zeros.
+// f32 rows go by cp.async (commit and wait as the caller pipelines);
+// bf16 rows are widened through registers, synchronously.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile_f32(float* tile, const float* base,
+                                              int row0, int valid,
+                                              int stride) {
+  constexpr int CPR = D / 4;   // 16-byte chunks per row
+  const uint32_t t0 = smem_u32(tile);
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += NT) {
+    const int r = idx / CPR, ch = idx % CPR;
+    const bool ok = row0 + r < valid;
+    cp_async16(t0 + 4 * f32_off<D>(r, ch * 4),
+               base + (size_t)(ok ? row0 + r : 0) * stride + ch * 4, ok);
+  }
+}
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile_f32(float* tile,
+                                              const __nv_bfloat16* base,
+                                              int row0, int valid,
+                                              int stride) {
+  constexpr int CPR = D / 8;   // 16-byte chunks (8 bf16) per row
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += NT) {
+    const int r = idx / CPR, ch = idx % CPR;
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (row0 + r < valid)
+      raw = *reinterpret_cast<const uint4*>(base + (size_t)(row0 + r) *
+                                                       stride + ch * 8);
+    const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 a = __bfloat1622float2(e[0]), b = __bfloat1622float2(e[1]);
+    const float2 c = __bfloat1622float2(e[2]), d = __bfloat1622float2(e[3]);
+    *reinterpret_cast<float4*>(tile + f32_off<D>(r, ch * 8)) =
+        make_float4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<float4*>(tile + f32_off<D>(r, ch * 8 + 4)) =
+        make_float4(c.x, c.y, d.x, d.y);
+  }
+}
+
+// Two consecutive elements of a row as f32.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Store two consecutive f32 values of a row as T.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
 }
 
 }  // namespace repro_torch

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import time
@@ -69,9 +70,10 @@ MICROBATCH = {
     "zamba2-2.7b": 8,
 }
 
-FLOPS_SCOPE = ("whole step: every layer, microbatch and token loop runs "
-               "in Python and is counted each time it runs (XLA's "
-               "cost_analysis counts a scan body once)")
+FLOPS_SCOPE = ("whole step: every layer and microbatch loop runs in "
+               "Python and is counted each time it runs, the sLSTM's "
+               "token loop as its first step and one later step counted "
+               "S - 1 times (XLA's cost_analysis counts a scan body once)")
 
 
 def _leaves(tree):
@@ -116,13 +118,26 @@ class _LocalCounter(TorchDispatchMode):
     CommDebugMode does) and then sees only the LOCAL ops one rank runs:
     their FLOPs, by `torch.utils.flop_counter`'s formulas, and every
     functional collective with its result bytes. (FlopCounterMode itself
-    would also count the global-shape ops DTensor decomposes.)"""
+    would also count the global-shape ops DTensor decomposes.) Inside
+    `scaled(k)` each op counts k times: a loop whose steps are alike runs
+    one step there for all of them (`dtensor_forms.counted_slstm_scan`)."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.counts, self.bytes = {}, {}
         self.paused = 0
+        self.scale = 1
+
+    @contextlib.contextmanager
+    def scaled(self, k: int):
+        """Count every op inside the context `k` times."""
+        prev = self.scale
+        self.scale = prev * k
+        try:
+            yield
+        finally:
+            self.scale = prev
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -136,15 +151,15 @@ class _LocalCounter(TorchDispatchMode):
         if pkt in flop_registry:
             def shape(x):
                 return x.shape if isinstance(x, torch.Tensor) else x
-            self.flops += flop_registry[pkt](
+            self.flops += self.scale * flop_registry[pkt](
                 *tree_map(shape, args), **tree_map(shape, kwargs),
                 out_val=tree_map(shape, out))
         ns = func.namespace
         if ns in ("_c10d_functional", "c10d_functional") \
                 and "wait" not in func.name():
             name = f"{ns}.{pkt.__name__}"
-            self.counts[name] = self.counts.get(name, 0) + 1
-            self.bytes[name] = self.bytes.get(name, 0) + sum(
+            self.counts[name] = self.counts.get(name, 0) + self.scale
+            self.bytes[name] = self.bytes.get(name, 0) + self.scale * sum(
                 _local_bytes(t) for t in _leaves(out))
         return out
 
@@ -216,13 +231,18 @@ def _dtensor_fixes(counter):
         ShardingPropagator._propagate_tensor_meta_non_cached = orig_meta
 
 
-def _contexts(cfg, shape_name, mesh, multi_pod):
-    """The model's DTensor forms (`dtensor_forms`) and the reference's
+def _contexts(cfg, shape_name, mesh, multi_pod, counter=None):
+    """The model's DTensor forms (`dtensor_forms`; with a `counter`, the
+    sLSTM's token loop counted by it, not run) and the reference's
     activation / KV / MoE / state specs for this pair, as one context."""
     kind = SHAPES[shape_name].kind
     dp = ("pod", "data") if multi_pod else ("data",)
     stack = contextlib.ExitStack()
-    stack.enter_context(forms(dtensor_forms.FORMS))
+    table = dict(dtensor_forms.FORMS)
+    if counter is not None:
+        table["slstm_scan"] = functools.partial(
+            dtensor_forms.counted_slstm_scan, counter.scaled)
+    stack.enter_context(forms(table))
     # sequence-parallel activation sharding for full-sequence passes
     # (Megatron-SP): the checkpointed carry lives (batch, seq)-sharded
     if kind in ("train", "prefill"):
@@ -277,7 +297,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         t_build = time.time() - t0
         coll = _LocalCounter()
         comm = CommDebugMode()
-        with _contexts(cfg, shape_name, mesh, multi_pod), mode, \
+        with _contexts(cfg, shape_name, mesh, multi_pod, coll), mode, \
                 _dtensor_fixes(coll), implicit_replication(), coll, comm:
             out = fn(*dargs)
         t_step = time.time() - t0 - t_build

@@ -12,7 +12,10 @@ the dry run's record says why its collective is there.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.models.act_sharding import is_dtensor
+from repro_torch.models.ssm import slstm_step
 
 _NOTES: set = set()
 
@@ -174,7 +177,6 @@ def sharded_cross_entropy(logits, labels):
     and label logit over its own vocab slice, as partial values reduced
     by (B, S)-sized all-reduces; the logits are never gathered, and
     their gradient stays on each rank's slice."""
-    import torch
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     x = logits.float()
     mesh = x.device_mesh
@@ -226,7 +228,6 @@ def decode_attention(plain, q, k_cache, v_cache, kv_len):
     two sums over those mesh dims."""
     if not is_dtensor(k_cache) or not _sharded_dims(k_cache, 1):
         return plain(q, k_cache, v_cache, kv_len)
-    import torch
     from torch.distributed.tensor import DTensor, Replicate, Shard
     mesh = k_cache.device_mesh
     seq = _sharded_dims(k_cache, 1)
@@ -308,6 +309,87 @@ def slstm_scan(plain, pre, c, n, m, h, r):
     return batch_local(plain, (pre, c, n, m, h), (r,))
 
 
+def counted_slstm_scan(scaled, plain, pre, c, n, m, h, r):
+    """The dry run's form of `slstm_scan`: `slstm_scan`'s, but the token
+    loop is counted, not run. Every token step issues the same operations
+    on tensors of the same shapes, so the first step runs once and one
+    later step runs under `scaled(S - 1)` (a context in which the dry
+    run's counter multiplies what it counts); the outputs have the full
+    shapes. The backward likewise (`_CountedScan`): the first step's
+    apart, since the initial h needs no gradient. The FLOPs and
+    collectives a record counts are the full loop's; the values are not
+    (the dry run's tensors are fake)."""
+    def scan(*args):
+        if pre.shape[1] < 2:
+            return plain(*args)
+        hs, *state = _CountedScan.apply(scaled, *args)
+        return hs, tuple(state)
+    return batch_local(scan, (pre, c, n, m, h), (r,))
+
+
+def _sum(a, b):
+    return b if a is None else a if b is None else a + b
+
+
+def _grads(outs, ins, gouts):
+    """The gradients of `ins` (None where one needs none) from `outs`
+    with output gradients `gouts`."""
+    pairs = [(o, g) for o, g in zip(outs, gouts)
+             if o.requires_grad and g is not None]
+    want = [i for i in ins if i.requires_grad]
+    got = iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                   [g for _, g in pairs], allow_unused=True)
+               if pairs and want else [None] * len(want))
+    return [next(got) if i.requires_grad else None for i in ins]
+
+
+def _step_rows(first, later, S):
+    """(B, S, ...) of the first step's row and S - 1 copies of a later
+    step's."""
+    return torch.cat([first[:, None],
+                      later[:, None].expand(-1, S - 1, *later.shape[1:])], 1)
+
+
+class _CountedScan(torch.autograd.Function):
+    """`ssm.slstm_scan` as the first token step and one later step
+    counted S - 1 times, forward and backward (`counted_slstm_scan`).
+    Each step runs on leaves of its own, so its backward can be counted
+    apart."""
+
+    @staticmethod
+    def forward(ctx, scaled, pre, c, n, m, h, r):
+        S = pre.shape[1]
+        one = torch.ones((), dtype=torch.float32, device=pre.device)
+
+        def leaves(*ts):
+            return [t.detach().requires_grad_(t.requires_grad) for t in ts]
+        # the steps keep what their backward needs themselves: under an
+        # activation checkpoint's hooks, reading it back would rerun the
+        # block's forward inside the backward's scaled region
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+                lambda t: t, lambda t: t):
+            in0 = leaves(pre[:, 0], c, n, m, h, r)
+            out0 = slstm_step(*in0, one)
+            in1 = leaves(pre[:, 1], *out0, r)
+            with scaled(S - 1):
+                out1 = slstm_step(*in1, one)
+        ctx.graph = (scaled, S, in0, out0, in1, out1)
+        hs = _step_rows(out0[3].detach(), out1[3].detach(), S)
+        return (hs, *(t.detach() for t in out1))
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dm, dh):
+        scaled, S, in0, out0, in1, out1 = ctx.graph
+        del ctx.graph
+        # a later step: its h gets its own row's gradient and the next
+        # step's (here the last state's)
+        with scaled(S - 1):
+            g1 = _grads(out1, in1, (dc, dn, dm, _sum(dh, dhs[:, -1])))
+        g0 = _grads(out0, in0, (*g1[1:4], _sum(g1[4], dhs[:, 0])))
+        dpre = None if g0[0] is None else _step_rows(g0[0], g1[0], S)
+        return (None, dpre, *g0[1:5], _sum(g0[5], g1[5]))
+
+
 def batch_local(fn, batched, replicated=()):
     """`fn(*batched, *replicated)`, whose inputs and outputs (a tensor or
     nested tuples of tensors) are all batch-major but `replicated`. On
@@ -363,7 +445,6 @@ def bincount(plain, x, n: int):
     """`plain(x, n)`; on a DTensor (no sharding strategy for bincount)
     the sum of a one-hot comparison, which reduces over a sharded x by a
     small all-reduce."""
-    import torch
     if not is_dtensor(x):
         return plain(x, n)
     return (x[:, None] == torch.arange(n, device=x.device)).sum(0)
@@ -377,7 +458,6 @@ def embed(plain, table, tokens):
     all-reduce, where indexing would gather the whole table."""
     if not is_dtensor(table):
         return plain(table, tokens)
-    import torch
     import torch.nn.functional as F
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = table.device_mesh
@@ -442,7 +522,6 @@ def write_rows(plain, cache, rows, idx, val):
     update into a sharded dim."""
     if not is_dtensor(cache):
         return plain(cache, rows, idx, val)
-    import torch
     S = cache.shape[1]
     hit = torch.arange(S, device=cache.device)[None, :] == idx[:, None]
     hit = hit.reshape(*hit.shape, *([1] * (cache.ndim - 2)))

@@ -405,20 +405,26 @@ def slstm_scan(pre, c, n, m, h, r):
     one = torch.ones((), dtype=torch.float32, device=pre.device)
     hs = []
     for t in range(pre.shape[1]):
-        g = pre[:, t] + torch.einsum("ghde,bhd->bghe", r, h)  # (B,4,H,hd)
-        ig, fg, zg, og = g.unbind(1)
-        logf = F.logsigmoid(fg)
-        m_new = torch.maximum(logf + m, ig)
-        i_p = torch.exp(ig - m_new)
-        f_p = torch.exp(logf + m - m_new)
-        c = f_p * c + i_p * torch.tanh(zg)
-        n = f_p * n + i_p
-        # maximum, not clamp: at n == 1 (every first step) the gradient
-        # splits between the two sides, as jnp.maximum's does
-        h = torch.sigmoid(og) * c / torch.maximum(n, one)
-        m = m_new
+        c, n, m, h = slstm_step(pre[:, t], c, n, m, h, r, one)
         hs.append(h)
     return torch.stack(hs, dim=1), (c, n, m, h)
+
+
+def slstm_step(pre_t, c, n, m, h, r, one):
+    """One token of the sLSTM recurrence: pre_t (B, 4, H, hd) and the
+    state (c, n, m, h) to the next state; `one` is a f32 scalar 1."""
+    g = pre_t + torch.einsum("ghde,bhd->bghe", r, h)  # (B, 4, H, hd)
+    ig, fg, zg, og = g.unbind(1)
+    logf = F.logsigmoid(fg)
+    m_new = torch.maximum(logf + m, ig)
+    i_p = torch.exp(ig - m_new)
+    f_p = torch.exp(logf + m - m_new)
+    c = f_p * c + i_p * torch.tanh(zg)
+    n = f_p * n + i_p
+    # maximum, not clamp: at n == 1 (every first step) the gradient
+    # splits between the two sides, as jnp.maximum's does
+    h = torch.sigmoid(og) * c / torch.maximum(n, one)
+    return c, n, m_new, h
 
 
 def slstm_decode(cfg: ModelConfig, p, x, state):

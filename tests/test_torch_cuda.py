@@ -25,7 +25,8 @@ from repro_torch.kernels import flash_prefill, paged_attention, \
 pytestmark = pytest.mark.cuda
 DTYPES = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
 # llama2-7b, granite-3-2b, and the granite-3-2b and deepseek-moe-16b
-# smoke configs (D = 32: bf16 on the CUDA-core kernels)
+# smoke configs (D = 32: bf16 flash on the 3xTF32 kernels, bf16 paged
+# attention on the CUDA-core ones)
 SHAPES = [(32, 32, 128), (32, 8, 64), (8, 2, 32), (4, 4, 32)]
 # the paged prefill's largest group: 16 query heads per KV head, 512
 # (query, head) rows per 32-token tile, several blocks per tile
@@ -832,8 +833,8 @@ D80_CASES = {
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("case", list(D80_CASES))
 def test_flash_d80_forward_and_backward(dtype, tol, case):
-    """zamba2-2.7b's shared attention (H 32, D 80: bf16 on the
-    tensor-core kernels, f32 on the CUDA-core ones): forward and backward
+    """zamba2-2.7b's shared attention (H 32, D 80: bf16 on the bf16
+    tensor-core kernels, f32 on the 3xTF32 ones): forward and backward
     against the plain version and autograd through it. With a ragged
     kv_len the forward takes it (as prefill passes it) and the backward,
     which takes none (training passes none), runs per row on the keys cut
@@ -1030,7 +1031,8 @@ def _to_cuda(tree):
 
 
 def test_flash_kernels_run_on_tensor_cores():
-    """The flash forward's SASS holds wgmma (HGMMA), the backward's
+    """The flash forward's SASS holds wgmma (HGMMA, its bf16 kernel) and
+    mma.sync (HMMA, its 3xTF32 kernel for f32 and D 32), the backward's
     mma.sync (HMMA) or wgmma; the compiler's report of the two libraries
     is printed, spills included."""
     _need_cuda()
@@ -1042,7 +1044,7 @@ def test_flash_kernels_run_on_tensor_cores():
         for line in _build.log_text(name).splitlines():
             if "spill" in line or "registers" in line:
                 print(name, line.strip())
-    assert fwd["HGMMA"] > 0, fwd
+    assert fwd["HGMMA"] > 0 and fwd["HMMA"] > 0, fwd
     assert bwd["HMMA"] + bwd["HGMMA"] > 0, bwd
 
 

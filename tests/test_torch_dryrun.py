@@ -214,3 +214,62 @@ def test_replaceable_runs_its_plain_body_unless_a_form_is_installed():
     assert seen == [2]
     assert set(FORMS) <= act_sharding.REPLACEABLE
 
+
+
+def test_local_counter_scales_what_it_counts_inside_a_region():
+    """`_LocalCounter.scaled(k)`: each op inside the region counts k
+    times (nested regions multiply), and the scale is restored after."""
+    a, b = torch.ones(4, 8), torch.ones(8, 2)
+    with dryrun._LocalCounter() as c:
+        a @ b
+        with c.scaled(3):
+            a @ b
+            with c.scaled(2):
+                a @ b
+        a @ b
+    assert c.flops == (1 + 3 + 6 + 1) * 2 * 4 * 8 * 2
+    assert c.scale == 1
+
+
+# short xlstm sequences for the counted sLSTM loop (C10)
+C10_SHAPES = {"train_s16": (16, 32, "train"), "prefill_s16": (16, 16,
+                                                              "prefill")}
+
+
+@pytest.mark.parametrize("shape_name", list(C10_SHAPES))
+def test_counted_slstm_loop_counts_what_the_full_loop_does(
+        mesh, monkeypatch, shape_name):
+    """C10: the dry run counts the sLSTM's token loop as its first step
+    and one later step scaled by S - 1, forward, recompute and backward
+    (`dtensor_forms.counted_slstm_scan`, installed by `dryrun._contexts`
+    only). At a short sequence (xlstm-1.3b smoke, f32, 2 microbatches)
+    its FLOPs, collective counts and collective bytes equal the full
+    loop's: the loop form (`slstm_scan`, every step on each rank's batch
+    rows), installed here in its place. Elsewhere the loop form stays."""
+    from repro_torch.launch import dtensor_forms
+    S, B, kind = C10_SHAPES[shape_name]
+    monkeypatch.setitem(SHAPES, shape_name, InputShape(shape_name, S, B,
+                                                       kind))
+    cfg = dataclasses.replace(get_smoke_config("xlstm-1.3b"),
+                              dtype="float32")
+    counted = dtensor_forms.counted_slstm_scan
+    calls = []
+
+    def spy(scaled, plain, *args):
+        calls.append(args[0].shape)
+        return counted(scaled, plain, *args)
+    monkeypatch.setattr(dtensor_forms, "counted_slstm_scan", spy)
+    got = dryrun.run_one("xlstm-1.3b", shape_name, False, microbatches=2,
+                         cfg=cfg)
+    assert got["ok"], got.get("traceback")
+    assert calls and all(s[1] == S for s in calls)
+    monkeypatch.setattr(dtensor_forms, "counted_slstm_scan",
+                        lambda scaled, plain, *args:
+                        dtensor_forms.slstm_scan(plain, *args))
+    want = dryrun.run_one("xlstm-1.3b", shape_name, False, microbatches=2,
+                          cfg=cfg)
+    assert want["ok"], want.get("traceback")
+    assert got["flops"] == want["flops"] > 0
+    for key in ("counts", "bytes", "total_bytes"):
+        assert got["collectives"][key] == want["collectives"][key], key
+    assert dtensor_forms.FORMS["slstm_scan"] is dtensor_forms.slstm_scan

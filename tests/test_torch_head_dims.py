@@ -10,9 +10,9 @@ dtypes (read from the `dtype == N && D == NN` cases of its source). A
 head dim outside either makes a CUDA tensor raise; the plain versions
 take any, so the other CPU tests never show it. The route of each case
 is read there too: in both flash sources bf16 at D 64, 80 and 128 takes
-the tensor-core kernels (the `*_TC_CASE` macro), f32 at every D and
-bf16 at D 32 the CUDA-core templates, and no bf16 instantiation of a
-CUDA-core template at D 80 is left."""
+the bf16 tensor-core kernels (the `*_TC_CASE` macro), f32 at every D and
+bf16 at D 32 the 3xTF32 kernels (the `*_TF32_CASE` macro), and no
+CUDA-core attention template is left in either."""
 import importlib
 import pathlib
 import pkgutil
@@ -96,12 +96,20 @@ def _routes(text):
         r"if \(dtype == (\d) && D == (\d+)\) (REPRO_\w+)\(", text)}
 
 
+# each flash source's macro of the bf16 tensor-core case and of the
+# 3xTF32 case
+FLASH_MACROS = {"flash_prefill.cu": ("REPRO_FLASH_TC_CASE",
+                                     "REPRO_FLASH_TF32_CASE"),
+                "flash_backward.cu": ("REPRO_FLASH_BWD_TC_CASE",
+                                      "REPRO_FLASH_BWD_TF32_CASE")}
+
+
 @pytest.mark.parametrize("source", list(ATTENTION_SOURCES))
 def test_bf16_d80_route(source):
     """bf16 at D 80 dispatches to the tensor-core case in both flash
-    sources (f32 at D 80 and bf16 at D 32 keep the CUDA-core case, and
-    no bf16 CUDA-core template at D 80 is instantiated); the paged
-    sources have no D 80 at all."""
+    sources (f32 at D 80 and bf16 at D 32 take the 3xTF32 case, and no
+    bf16 CUDA-core template at D 80 is instantiated); the paged sources
+    have no D 80 at all."""
     text = (CSRC / source).read_text()
     if source.startswith("paged"):
         dims = {int(d) for d in re.findall(r"dtype == \d && D == (\d+)\)",
@@ -111,11 +119,37 @@ def test_bf16_d80_route(source):
             f"{source}: instantiates a D = 80 template")
         return
     routes = _routes(text)
-    tc = {"flash_prefill.cu": "REPRO_FLASH_TC_CASE",
-          "flash_backward.cu": "REPRO_FLASH_BWD_TC_CASE"}[source]
+    tc, tf32 = FLASH_MACROS[source]
     assert routes[(1, 80)] == tc
     assert routes[(1, 64)] == routes[(1, 128)] == tc
-    assert routes[(0, 80)] == routes[(1, 32)] == tc.replace("_TC", "")
+    assert routes[(0, 80)] == routes[(1, 32)] == tf32
     assert all(m != tc for (t, _), m in routes.items() if t == 0)
     assert not re.search(r"__nv_bfloat16,\s*80\b", text), (
         f"{source}: a bf16 CUDA-core instantiation at D = 80 is left")
+
+
+@pytest.mark.parametrize("source", list(FLASH_MACROS))
+def test_f32_and_d32_routes_take_3xtf32(source):
+    """Every f32 head dim and bf16 at D 32 dispatch to the 3xTF32 case in
+    both flash sources, whose macro launches the tensor-core `tf::`
+    kernels; bf16 at D 64 / 80 / 128 keep the bf16 tensor-core case; and
+    no CUDA-core attention template (`flash_fwd_kernel<`,
+    `flash_bwd_dq_kernel<`, `flash_bwd_dkdv_kernel<`) is left."""
+    text = (CSRC / source).read_text()
+    routes = _routes(text)
+    tc, tf32 = FLASH_MACROS[source]
+    for d in FLASH_DIMS:
+        assert routes[(0, d)] == tf32, (source, d, routes[(0, d)])
+    assert routes[(1, 32)] == tf32
+    assert {d: routes[(1, d)] for d in (64, 80, 128)} == \
+        {64: tc, 80: tc, 128: tc}
+    macro = re.search(rf"#define {tf32}\(.*?\n(.*?)\n\s*if", text,
+                      re.S).group(1)
+    assert "tf::launch" in macro, macro
+    kernels = ("flash_fwd_tf32",) if source == "flash_prefill.cu" \
+        else ("flash_bwd_dq_tf32", "flash_bwd_dkdv_tf32")
+    for name in kernels:
+        assert re.search(rf"\b{name}\s*\(", text), name
+    left = re.findall(r"\b(flash_fwd_kernel|flash_bwd_dq_kernel|"
+                      r"flash_bwd_dkdv_kernel)\s*<", text)
+    assert not left, f"{source}: CUDA-core templates left: {left}"
