@@ -33,8 +33,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            its plain version on the partials the launch left; paged
            prefill at the same two shapes and at G = 16 (H 32, KV 2, D
            128: 512 rows per tile), tq = 32, BS = 16, each call's body
-           asserted on its route (bf16 at D 64 / 128 on the tensor-core
-           kernel, f32 and D 32 on the CUDA-core one), on the cases
+           asserted on its route (bf16 at D 64 / 128 on the bf16
+           tensor-core kernel, f32 and bf16 at D 32 on the 3xTF32 one),
+           on the cases
            of tests/test_fused.py (chunk edges, a chunk + decode tokens + a
            kv_len = 0 dummy, and the two-pool variant with the host pool
            pinned on the CPU and host ids above the device pool's size),
@@ -63,8 +64,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            by kernel with torch.profiler, the staging alone on the side
            stream beside one copy_ of the same bytes from one pinned
            buffer, the staged blocks held against the plain staging,
-           the tensor-core body also at granite-3-2b's heads and the
-           CUDA-core body at the smoke paths' D = 32) with CUDA events
+           the bf16 tensor-core body also at granite-3-2b's heads, the
+           3xTF32 body at the smoke paths' D = 32 in bf16 and f32 and at
+           the timed chunk in f32 at llama2-7b's and granite-3-2b's
+           heads, one pool and, at llama2-7b's, two) with CUDA events
            around back-to-back calls that a spin kernel let the host
            enqueue first (device time, not the host's launch rate),
            beside its plain version, one PyTorch library call where one
@@ -90,14 +93,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            and at quickstart's (granite-3-2b smoke: B 8, S 64, H 8, KV 2,
            D 32) in f32 and bf16, an f32 row's bound at a third of
            TF32's 495 TFLOP/s (three passes a product), with the bound
-           at the f32 FMA peak beside it ("bound_ms_f32_fma"). The plain
+           at the f32 FMA peak beside it ("bound_ms_f32_fma"); so is
+           the f32 paged prefill body (`tf::paged_prefill_tf32`, the
+           same arithmetic over the paged pool). The plain
            versions run with TF32 off (torch's default; main sets and
            prints it), so f32 means f32.
   d32      every attention kernel (flash forward and backward, paged
            decode, paged prefill over one pool and two) against its plain
            version at head dim 32, the smoke configs' (granite-3-2b H 8
-           KV 2, deepseek-moe-16b H 4 KV 4), in bf16 (flash: the 3xTF32
-           kernels; paged: the CUDA-core ones, picked by shape) and f32,
+           KV 2, deepseek-moe-16b H 4 KV 4), in bf16 (flash and the paged
+           prefill body: the 3xTF32 kernels; paged decode: its one
+           kernel) and f32,
            on the kernels phase's cases; the worst errors fold into the
            kernels' rows.
   smoke    the smoke configs (D = 32) through the engine on the card:
@@ -295,8 +301,8 @@ FLASH_GQA_SHAPES = [(32, 32, 64), (32, 4, 64), (32, 8, 128), (32, 4, 128)]
 # paged prefill's checks: FLASH_SHAPES and G = 16 (512 rows per 32-token
 # tile, the kernel's largest group)
 PP_SHAPES = {**FLASH_SHAPES, "G 16": (32, 2, 128)}
-# the smoke configs' attention (D = 32: bf16 flash takes the 3xTF32
-# kernels, paged attention the CUDA-core ones)
+# the smoke configs' attention (D = 32: bf16 flash and the bf16 paged
+# prefill body take the 3xTF32 kernels, paged decode its one kernel)
 SMOKE_SHAPES = {"granite-3-2b smoke": (8, 2, 32),
                 "deepseek-moe-16b smoke": (4, 4, 32)}
 # the train path: model, steps, batch x sequence (tokens per step)
@@ -1032,15 +1038,19 @@ def _pp_batch(gen, H, KV, D, dtype, specs, tq=32, BS=16, tail=0):
 
 def _pp_route_call(route, fn):
     """Run `fn` (one paged_prefill call) and assert that its body ran on
-    `route` ("mma": the tensor-core kernel, "fma": the CUDA-core one):
-    one launch on that route's counter, none on the other's."""
+    `route` ("mma": the bf16 tensor-core kernel, "tf32": the 3xTF32 one):
+    one launch on that route's counter, none on the other's. With
+    `route` None (another checkout's wrapper, tools/paged_ab.py) just
+    run it."""
     from repro_torch.kernels import paged_prefill as pp
-    before = (pp.launches_mma, pp.launches_fma)
+    if route is None:
+        return fn()
+    before = (pp.launches_mma, pp.launches_tf32)
     out = fn()
-    got = (pp.launches_mma - before[0], pp.launches_fma - before[1])
+    got = (pp.launches_mma - before[0], pp.launches_tf32 - before[1])
     if got != ((1, 0) if route == "mma" else (0, 1)):
         raise AssertionError(f"paged_prefill body: expected the {route} "
-                             f"route, launches (mma, fma) {got}")
+                             f"route, launches (mma, tf32) {got}")
     return out
 
 
@@ -1054,23 +1064,22 @@ def check_paged_prefill(gen, sizes=PP_SHAPES):
     case also: the staging (the copy engine) writes exactly the live host
     slots, each equal to its plain version (`_check_staging`), and the
     two-pool output equals the one-pool output over the same blocks bit
-    for bit. Every
-    call's body must take its route (`_pp_route_call`): the tensor-core
-    kernel for bf16 at D 64 and 128, the CUDA-core one for f32 and for
-    D 32. Returns the worst error per dtype for each variant, for each
-    body route and for the staging."""
+    for bit. Every call's body must take its route (`_pp_route_call`):
+    the bf16 tensor-core kernel for bf16 at D 64 and 128, the 3xTF32 one
+    for f32 and for bf16 at D 32. Returns the worst error per dtype for
+    each variant, for each body route and for the staging."""
     import torch
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.serving.executor import MIXED_TQ as TQ
     BS = 16
     worst = {"paged_prefill": {}, "paged_prefill_tiered": {},
              "stage_host_blocks": {}, "paged_prefill_mma": {},
-             "paged_prefill_fma": {}}
+             "paged_prefill_tf32": {}}
     for arch, (H, KV, D) in sizes.items():
         for dtype in (torch.bfloat16, torch.float32):
             tol = TOL[str(dtype).split(".")[1]]
             key = str(dtype)[6:]
-            route = "mma" if dtype == torch.bfloat16 and D >= 64 else "fma"
+            route = "mma" if dtype == torch.bfloat16 and D >= 64 else "tf32"
             cases = [
                 ("chunk straddling a block", [(29, 11)], None),
                 ("block-aligned first chunk", [(0, 32)], None),
@@ -1192,11 +1201,17 @@ def _kernel_ms(fn, n=10):
             if ms}
 
 
-def _time_pp_one_pool(gen, H, KV, D, dtype, C, off, route, BS=16):
+def _time_pp_one_pool(gen, H, KV, D, dtype, C, off, route, BS=16,
+                      two_pools=False):
     """One layer's chunk attention over the device pool: a C-token chunk
     at offset `off` (kv_len off + C), tq = MIXED_TQ, held against the
-    plain version with its body on `route` asserted, then timed beside
-    the plain version, with its bound. Returns the timing row."""
+    plain version with its body on `route` asserted (`_pp_route_call`),
+    then timed beside the plain version, with its bound (`_flash_bound`:
+    an f32 row at the 3xTF32 floor, its f32 FMA bound beside it). With
+    `two_pools` the same blocks also lie in the pinned host pool, and the
+    two-pool call as the executor issues it (`staged_two_pool_call`) is
+    held against the one-pool call bit for bit and timed instead.
+    Returns the timing row."""
     import torch
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.serving.executor import MIXED_TQ as TQ
@@ -1205,29 +1220,54 @@ def _time_pp_one_pool(gen, H, KV, D, dtype, C, off, route, BS=16):
                        device="cuda").to(dtype)
     tab = torch.randperm(4 * maxb, generator=gen, device="cuda")[:maxb] \
         .reshape(1, maxb).int()
-    got = _pp_route_call(route, lambda: pp.paged_prefill(
-        q, pool, tab, seg, pos, klen, tq=TQ))
-    want = pp.paged_prefill_plain(q, pool, tab, seg, pos, klen, tq=TQ)
+
+    def call():
+        return pp.paged_prefill(q, pool, tab, seg, pos, klen, tq=TQ)
+    kw = {}
+    if two_pools:
+        one = call
+        hpool = pool.cpu().pin_memory()
+        tier = torch.ones(1, dtype=torch.bool, device="cuda")
+        runs = pp.host_block_runs(tab.cpu(), klen.cpu(), tier.cpu(), BS,
+                                  hpool.shape[0])
+        staged = torch.empty((maxb, BS, 2, KV, D), dtype=dtype,
+                             device="cuda")
+        kw = {"host_pool": hpool, "tier": tier}
+
+        def call():
+            return staged_two_pool_call(hpool, runs, staged, lambda:
+                                        pp.paged_prefill(
+                                            q, pool, tab, seg, pos, klen,
+                                            tq=TQ, staged=staged, tier=tier))
+    got = _pp_route_call(route, call)
+    want = pp.paged_prefill_plain(q, pool, tab, seg, pos, klen, tq=TQ, **kw)
     torch.cuda.synchronize()
     key = str(dtype)[6:]
     err, ok = _max_err(got, want, TOL[key])
     if not ok or not torch.isfinite(got).all():
         raise AssertionError(f"paged_prefill {route} disagrees: H {H} KV "
                              f"{KV} D {D} {key}, err {err}")
+    if two_pools and not torch.equal(got, one()):
+        raise AssertionError(f"two pools differ from one pool on the same "
+                             f"blocks: H {H} KV {KV} D {D} {key}")
     esize = q.element_size()
     kvl = off + C
-    nbytes = (2 * q.numel() + kvl * 2 * KV * D) * esize + maxb * 4 \
+    kv_bytes = kvl * 2 * KV * D * esize
+    nbytes = 2 * q.numel() * esize + kv_bytes + maxb * 4 \
         + 2 * q.shape[0] * 4 + 4
     flops = 4 * D * H * _flash_pairs(C, [off], [kvl])
-    t = _bound(_time_ms(lambda: pp.paged_prefill(q, pool, tab, seg, pos,
-                                                 klen, tq=TQ)),
-               _time_ms(lambda: pp.paged_prefill_plain(
-                   q, pool, tab, seg, pos, klen, tq=TQ), reps=5),
-               None, nbytes, flops, BF16_FLOPS_PER_S if esize == 2
-               else F32_FLOPS_PER_S,
-               f"T={C} at offset {off} (kv_len {kvl}) H={H} KV={KV} D={D} "
-               f"{key} BS={BS} tq={TQ}")
+    t = _flash_bound(_time_ms(call), _time_ms(lambda: pp.paged_prefill_plain(
+        q, pool, tab, seg, pos, klen, tq=TQ, **kw), reps=5), None, nbytes,
+        flops, key,
+        f"T={C} at offset {off} (kv_len {kvl}) H={H} KV={KV} D={D} "
+        f"{_short(key)} BS={BS} tq={TQ}" + (
+            " (K/V in the pinned host pool; staging from a host-side list, "
+            "then the body; bit-identical to one pool)" if two_pools
+            else ""))
     t["max_abs_err"] = err
+    t["dtype"] = key
+    if two_pools:   # the same K/V bytes over PCIe Gen5 x16 (spec, one way)
+        t["bound_ms_pcie"] = kv_bytes / PCIE_BYTES_PER_S * 1e3
     return t
 
 
@@ -1264,12 +1304,14 @@ def time_paged_prefill(gen):
     for the timed table (64 live blocks in random order) and for the same
     bytes as one run, beside the copy engine moving them from one
     contiguous pinned buffer (a copy_: a yardstick the port never calls).
-    The tensor-core body is also
+    The bf16 tensor-core body is also
     timed at granite-3-2b's heads (H 32, KV 8, D 64) on the same chunk,
-    and the CUDA-core body at the smoke paths' shape (granite-3-2b smoke,
-    D 32, bf16: a 64-token chunk at offset 64). Returns the rows of
-    paged_prefill, paged_prefill_tiered, stage_host_blocks and of the two
-    body kernels, paged_prefill_mma and paged_prefill_fma."""
+    and the 3xTF32 body at the smoke paths' shape (granite-3-2b smoke,
+    D 32: a 64-token chunk at offset 64) in bf16, their dtype, and in
+    f32, and in f32 on the same chunk at llama2-7b's heads (one pool and
+    two) and at granite-3-2b's. Returns the rows of paged_prefill,
+    paged_prefill_tiered, stage_host_blocks and of the two body kernels,
+    paged_prefill_mma and paged_prefill_tf32."""
     import numpy as np
     import torch
     from repro_torch.kernels import paged_prefill as pp
@@ -1378,9 +1420,16 @@ def time_paged_prefill(gen):
         out["paged_prefill"], at_other_shapes=[_time_pp_one_pool(
             gen, *FLASH_SHAPES["granite-3-2b"], torch.bfloat16, C, off,
             "mma")])
-    out["paged_prefill_fma"] = _time_pp_one_pool(
-        gen, *SMOKE_SHAPES["granite-3-2b smoke"], torch.bfloat16, 64, 64,
-        "fma")
+    # the 3xTF32 body: its main path's row (fused-smoke's shape, bf16),
+    # then f32 at D 32 and at the fused path's chunk, one pool and two
+    smoke = SMOKE_SHAPES["granite-3-2b smoke"]
+    rows = [_time_pp_one_pool(gen, *smoke, dt, 64, 64, "tf32")
+            for dt in (torch.bfloat16, torch.float32)]
+    rows += [_time_pp_one_pool(gen, *FLASH_SHAPES[arch], torch.float32, C,
+                               off, "tf32", two_pools=two)
+             for arch, two in (("llama2-7b", False), ("granite-3-2b", False),
+                               ("llama2-7b", True))]
+    out["paged_prefill_tf32"] = dict(rows[0], at_other_shapes=rows[1:])
     return out
 
 
@@ -1706,12 +1755,12 @@ def phase_kernels():
     fbwd_t = time_flash_bwd(gen)
     torch.cuda.empty_cache()
     for name in ("paged_prefill", "paged_prefill_tiered",
-                 "paged_prefill_mma", "paged_prefill_fma"):
-        # the timed shapes' checks count too
-        pp_err[name]["bfloat16"] = max(
-            [pp_err[name].get("bfloat16", 0.0), pp_t[name]["max_abs_err"]]
-            + [t["max_abs_err"] for t in pp_t[name].get("at_other_shapes",
-                                                        [])])
+                 "paged_prefill_mma", "paged_prefill_tf32"):
+        # the timed shapes' checks count too, each in its dtype
+        for t in [pp_t[name]] + pp_t[name].get("at_other_shapes", []):
+            key = t.get("dtype", "bfloat16")
+            pp_err[name][key] = max(pp_err[name].get(key, 0.0),
+                                    t["max_abs_err"])
     res = {"flash_attention": (flash_err, flash_t),
            "decode_attention": (dec_err, dec_t),
            "paged_attention": (paged_err, paged_t),
@@ -1723,8 +1772,8 @@ def phase_kernels():
                                  pp_t["stage_host_blocks"]),
            "paged_prefill_mma": (pp_err["paged_prefill_mma"],
                                  pp_t["paged_prefill_mma"]),
-           "paged_prefill_fma": (pp_err["paged_prefill_fma"],
-                                 pp_t["paged_prefill_fma"]),
+           "paged_prefill_tf32": (pp_err["paged_prefill_tf32"],
+                                  pp_t["paged_prefill_tf32"]),
            "rmsnorm": (norm_err["rmsnorm"], norm_t),
            "rmsnorm_bwd": (norm_err["rmsnorm_bwd"], norm_bwd_t),
            "flash_attention_bwd": (fbwd_err, fbwd_t)}
@@ -1742,10 +1791,12 @@ def phase_kernels():
                 + t.get("at_other_shapes", []):
             fma = (f", at the f32 FMA peak {also['bound_ms_f32_fma']:.4f}"
                    if "bound_ms_f32_fma" in also else "")
+            err = (f", max_abs_err {also['max_abs_err']:.3g}"
+                   if "max_abs_err" in also else "")
             _say(f"[kernels] {name} [{also['shape']}]: kernel_ms "
                  f"{also['ms']:.4f} plain_ms {also['plain_ms']:.4f} "
                  f"library_ms {lib(also)} bound_ms "
-                 f"{also['bound_ms']:.4f} ({also['bound_by']}{fma})")
+                 f"{also['bound_ms']:.4f} ({also['bound_by']}{fma}){err}")
     b1 = paged_t["at_b1_ctx4096"]
     _say(f"[kernels] paged_attention [{b1['shape']}]: kernel_ms "
          f"{b1['ms']:.4f} plain_ms {b1['plain_ms']:.4f} bound_ms "
@@ -1821,7 +1872,7 @@ def _zero_launches():
     fp.launches = pa.launches = pp.launches = pp.launches_tiered = 0
     pp.launches_stage = pp.stage_runs = 0
     pp.stage_host_s = 0.0
-    pp.launches_mma = pp.launches_fma = 0
+    pp.launches_mma = pp.launches_tf32 = 0
     fp.launches_bwd = fp.launches_decode = rn.launches = rn.launches_bwd = 0
 
 
@@ -1837,7 +1888,7 @@ def _launches():
             "paged_prefill_tiered": pp.launches_tiered,
             "stage_host_blocks": pp.launches_stage,
             "paged_prefill_mma": pp.launches_mma,
-            "paged_prefill_fma": pp.launches_fma,
+            "paged_prefill_tf32": pp.launches_tf32,
             "rmsnorm": rn.launches, "rmsnorm_bwd": rn.launches_bwd,
             "flash_attention_bwd": fp.launches_bwd}
 
@@ -1897,7 +1948,7 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
     if launches["stage_host_blocks"] != launches["paged_prefill_tiered"]:
         raise AssertionError(f"one staging call per two-pool body: "
                              f"{launches}")
-    if launches["paged_prefill_mma"] + launches["paged_prefill_fma"] != \
+    if launches["paged_prefill_mma"] + launches["paged_prefill_tf32"] != \
             launches["paged_prefill"] + launches["paged_prefill_tiered"]:
         raise AssertionError(f"one body launch per paged_prefill call: "
                              f"{launches}")
@@ -1982,7 +2033,7 @@ PATHS = {
                         mode=dict(chunked=True, fused=True,
                                   max_prefill_tokens=64),
                         kernels=("paged_prefill", "paged_prefill_tiered",
-                                 "stage_host_blocks", "paged_prefill_fma",
+                                 "stage_host_blocks", "paged_prefill_tf32",
                                  "paged_attention", "rmsnorm")),
     # Eq. 4 keeps both layers of this 2-layer model on the device at these
     # prompts, so no chunk reads the host pool (fused-smoke's do)
@@ -1991,7 +2042,7 @@ PATHS = {
                       ndb_ref=1024, nhb=1024,
                       mode=dict(chunked=True, fused=True,
                                 max_prefill_tokens=64),
-                      kernels=("paged_prefill", "paged_prefill_fma",
+                      kernels=("paged_prefill", "paged_prefill_tf32",
                                "paged_attention", "rmsnorm")),
 }
 
@@ -2036,8 +2087,8 @@ def _describe(tag, cfg):
 def phase_head_dim_32():
     """Every attention kernel against its plain version at D = 32, the
     smoke configs' head dim (granite-3-2b H 8 KV 2, deepseek-moe-16b H 4
-    KV 4), in bf16 (flash's 3xTF32 kernels and paged attention's
-    CUDA-core ones, which the dispatch picks by shape) and f32, on the
+    KV 4), in bf16 (flash's and the paged prefill body's 3xTF32 kernels,
+    which the dispatch picks by shape) and f32, on the
     kernels phase's cases. Returns the worst error per kernel and
     dtype."""
     import torch
@@ -2051,7 +2102,7 @@ def phase_head_dim_32():
              "paged_prefill": pp["paged_prefill"],
              "paged_prefill_tiered": pp["paged_prefill_tiered"],
              "stage_host_blocks": pp["stage_host_blocks"],
-             "paged_prefill_fma": pp["paged_prefill_fma"],
+             "paged_prefill_tf32": pp["paged_prefill_tf32"],
              "flash_attention_bwd": check_flash_bwd(gen, SMOKE_SHAPES)}
     for name, err in worst.items():
         _say(f"[d32] {name}: max_abs_err bf16 {err['bfloat16']:.3g} f32 "
@@ -2464,7 +2515,7 @@ def _profile_decode(cfg, params, prompts, out_len, steps=4):
 # (stage_host_blocks_kernel and paged_decode_combine: a tree from before
 # the staging moved to the copy engine and the combine was folded in, as
 # tools/paged_ab.py traces it)
-PAGED_KERNELS = ("paged_prefill_mma", "paged_prefill_kernel",
+PAGED_KERNELS = ("paged_prefill_mma", "paged_prefill_tf32",
                  "stage_host_blocks_kernel",
                  "paged_decode_kernel", "paged_decode_combine")
 TWO_POOL_RANGE = "paged_prefill two pools"
@@ -3604,12 +3655,13 @@ REPLACES = {
         "src/repro/kernels/paged_prefill.py:186",
         "the body of both forms on the tensor cores (tc::paged_prefill_mma,"
         " mma.sync): bf16 at D 64 and 128, every main path"),
-    "paged_prefill_fma": (
+    "paged_prefill_tf32": (
         "src/repro_torch/csrc/paged_prefill.cu",
         "src/repro/kernels/paged_prefill.py:140",
         "src/repro/kernels/paged_prefill.py:186",
-        "the body of both forms on the CUDA cores (paged_prefill_kernel): "
-        "f32, and bf16 at D 32 (the smoke paths)"),
+        "the body of both forms in 3xTF32 on the tensor cores "
+        "(tf::paged_prefill_tf32, mma.sync .tf32): f32 at every D, and "
+        "bf16 at D 32 (the smoke paths)"),
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:29",
                 "src/repro/kernels/rmsnorm.py:44", None),
@@ -3626,7 +3678,7 @@ MAIN_PATH = {"flash_attention": "serve", "decode_attention": "generate",
              "paged_attention": "serve",
              "paged_prefill": "fused", "paged_prefill_tiered": "fused",
              "stage_host_blocks": "fused", "paged_prefill_mma": "fused",
-             "paged_prefill_fma": "fused-smoke",
+             "paged_prefill_tf32": "fused-smoke",
              "rmsnorm": "train", "rmsnorm_bwd": "train",
              "flash_attention_bwd": "train"}
 

@@ -4,8 +4,9 @@
 // warp-level tensor-core path (ldmatrix, mma.sync m16n8k16, cp.async,
 // and the fragment addressing of swizzled or padded bf16 tiles) of the
 // flash backward and the paged prefill, and the 3xTF32 path of the f32
-// flash kernels (mma.sync m16n8k8 .tf32 on f32 values split into a TF32
-// pair, and the fragment addressing of swizzled f32 tiles).
+// attention kernels (mma.sync m16n8k8 .tf32 on f32 values split into a
+// TF32 pair, the fragment addressing of swizzled f32 tiles, and their
+// loads, contiguous or gathered row by row).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -554,6 +555,51 @@ __device__ __forceinline__ void load_tile_f32(float* tile,
     if (row0 + r < valid)
       raw = *reinterpret_cast<const uint4*>(base + (size_t)(row0 + r) *
                                                        stride + ch * 8);
+    const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 a = __bfloat1622float2(e[0]), b = __bfloat1622float2(e[1]);
+    const float2 c = __bfloat1622float2(e[2]), d = __bfloat1622float2(e[3]);
+    *reinterpret_cast<float4*>(tile + f32_off<D>(r, ch * 8)) =
+        make_float4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<float4*>(tile + f32_off<D>(r, ch * 8 + 4)) =
+        make_float4(c.x, c.y, d.x, d.y);
+  }
+}
+
+// The same with the tile's rows gathered from anywhere in global memory
+// (a paged step's keys, spread over pool blocks): 16-byte chunk ch =
+// threadIdx.x % CPR of tile row threadIdx.x / CPR + n * (NT / CPR) comes
+// from base + row[n] + ch * (16 / sizeof(T)), for n < NI, CPR = D *
+// sizeof(T) / 16 chunks a row; row[n] < 0 gives a row of zeros. The
+// caller fills `row` (every table read) before the first copy. f32 by
+// cp.async; bf16 widened through registers, synchronously.
+template <int D, int NT, int NI>
+__device__ __forceinline__ void gather_tile_f32(float* tile,
+                                                const float* base,
+                                                const long long (&row)[NI]) {
+  constexpr int CPR = D / 4;
+  static_assert(NT % CPR == 0, "whole rows per pass");
+  const uint32_t t0 = smem_u32(tile);
+  const int ch = threadIdx.x % CPR, r0 = threadIdx.x / CPR;
+#pragma unroll
+  for (int n = 0; n < NI; ++n) {
+    const bool ok = row[n] >= 0;
+    cp_async16(t0 + 4 * f32_off<D>(r0 + n * (NT / CPR), ch * 4),
+               base + (ok ? row[n] : 0) + ch * 4, ok);
+  }
+}
+template <int D, int NT, int NI>
+__device__ __forceinline__ void gather_tile_f32(float* tile,
+                                                const __nv_bfloat16* base,
+                                                const long long (&row)[NI]) {
+  constexpr int CPR = D / 8;
+  static_assert(NT % CPR == 0, "whole rows per pass");
+  const int ch = threadIdx.x % CPR, r0 = threadIdx.x / CPR;
+#pragma unroll
+  for (int n = 0; n < NI; ++n) {
+    const int r = r0 + n * (NT / CPR);
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (row[n] >= 0)
+      raw = *reinterpret_cast<const uint4*>(base + row[n] + ch * 8);
     const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
     const float2 a = __bfloat1622float2(e[0]), b = __bfloat1622float2(e[1]);
     const float2 c = __bfloat1622float2(e[2]), d = __bfloat1622float2(e[3]);

@@ -14,9 +14,11 @@ s * MAXB + j of that buffer in place of the device pool. The serving
 executor stages each host-tier layer one layer ahead on a side stream
 (`staging_stream`) and calls the body on the staged buffer (`staged=`).
 The `host_pool=` form is the plain version's, for CPU tensors. The body is one
-of two kernels, picked by dtype and head dim (`body_route`): bf16 at
-D = 64 and 128 runs the tensor-core kernel (mma.sync), f32 at every D and
-bf16 at D = 32 the CUDA-core one.
+of two tensor-core kernels, picked by dtype and head dim (`body_route`):
+bf16 at D = 64 and 128 runs `tc::paged_prefill_mma` (mma.sync on bf16),
+f32 at every D and bf16 at D = 32 `tf::paged_prefill_tf32` (3xTF32: each
+f32 product as three mma.sync .tf32 passes on its operands' TF32 pairs,
+inside the f32 tolerance).
 """
 from __future__ import annotations
 
@@ -41,11 +43,11 @@ launches_tiered = 0
 launches_stage = 0
 stage_runs = 0
 stage_host_s = 0.0
-# the same calls' body launches by route: the tensor-core kernel
-# (`tc::paged_prefill_mma`) or the CUDA-core one (`paged_prefill_kernel`);
-# launches_mma + launches_fma == launches + launches_tiered
+# the same calls' body launches by route: the bf16 kernel
+# (`tc::paged_prefill_mma`) or the 3xTF32 one (`tf::paged_prefill_tf32`);
+# launches_mma + launches_tf32 == launches + launches_tiered
 launches_mma = 0
-launches_fma = 0
+launches_tf32 = 0
 
 # the kernel's plain PyTorch version, run for CPU tensors and held
 # against the kernel on the card
@@ -216,12 +218,12 @@ def _fn():
 
 def body_route(dtype, head_dim) -> str:
     """The body kernel a CUDA call launches for q of `dtype` and
-    `head_dim`, as the kernel library dispatches it: "mma" (tensor cores)
-    or "fma" (CUDA cores)."""
+    `head_dim`, as the kernel library dispatches it: "mma" (bf16 on
+    mma.sync) or "tf32" (3xTF32 on mma.sync .tf32)."""
     f = _build.load("paged_prefill").paged_prefill_route
     if f.argtypes is None:
         f.argtypes, f.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    return "mma" if f(head_dim, _DTYPES[dtype]) else "fma"
+    return "mma" if f(head_dim, _DTYPES[dtype]) else "tf32"
 
 
 def _staged_table(block_table, tier):
@@ -253,7 +255,7 @@ def paged_prefill(q, kv_pool, block_table, seg_ids, q_pos, kv_len, *,
     contiguous inputs, and reads the host tier only from `staged` (stage
     first with `host_block_runs` and `stage_host_runs`, as the executor
     does); raises on anything else, `host_pool` included."""
-    global launches, launches_tiered, launches_mma, launches_fma
+    global launches, launches_tiered, launches_mma, launches_tf32
     if tier is None and (host_pool is not None or staged is not None):
         raise ValueError("paged_prefill: host_pool and staged go together "
                          "with tier")
@@ -331,5 +333,5 @@ def paged_prefill(q, kv_pool, block_table, seg_ids, q_pos, kv_len, *,
     if body_route(q.dtype, D) == "mma":
         launches_mma += 1
     else:
-        launches_fma += 1
+        launches_tf32 += 1
     return out

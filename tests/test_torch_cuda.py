@@ -356,18 +356,18 @@ def test_paged_prefill_rows_invariant_to_chunking(dtype, H, KV, D):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 64, 128])
 def test_paged_prefill_body_route(dtype, D):
-    """bf16 at D = 64 and 128 launches the tensor-core body, f32 at every
-    D and bf16 at D = 32 the CUDA-core one: one launch on the route's
+    """bf16 at D = 64 and 128 launches the bf16 tensor-core body, f32 at
+    every D and bf16 at D = 32 the 3xTF32 one: one launch on the route's
     counter per call, one pool or two."""
     _need_cuda()
     KV, BS = 2, 16
     pool = _randn((8, BS, 2, KV, D), dtype, 22)
     q, (tab, seg, pos, klen), _ = _segments([(20, 30)], 8, D, 4, 8, 32, 23)
-    route = "mma" if dtype == torch.bfloat16 and D >= 64 else "fma"
+    route = "mma" if dtype == torch.bfloat16 and D >= 64 else "tf32"
     assert paged_prefill.body_route(dtype, D) == route
     tier = torch.ones(1, dtype=torch.bool, device="cuda")
     for two in (False, True):
-        before = (paged_prefill.launches_mma, paged_prefill.launches_fma)
+        before = (paged_prefill.launches_mma, paged_prefill.launches_tf32)
         if two:
             _staged_call(q.to(dtype), pool, pool.cpu().pin_memory(), tab,
                          seg, pos, klen, tier)
@@ -375,7 +375,7 @@ def test_paged_prefill_body_route(dtype, D):
             paged_prefill.paged_prefill(q.to(dtype), pool, tab, seg, pos,
                                         klen, tq=32)
         torch.cuda.synchronize()
-        after = (paged_prefill.launches_mma, paged_prefill.launches_fma)
+        after = (paged_prefill.launches_mma, paged_prefill.launches_tf32)
         want = (1, 0) if route == "mma" else (0, 1)
         assert (after[0] - before[0], after[1] - before[1]) == want
 

@@ -12,33 +12,9 @@ misses that tolerance, which is why the kernels take three."""
 import numpy as np
 import pytest
 
+from torch_parity import mm_3xtf32, mm_tf32, split, tf32
+
 TOL = 2e-5   # chip_smoke.TOL["float32"]: atol = rtol
-
-
-def tf32(x):
-    """f32 rounded to TF32, to nearest with ties away from zero: adding
-    half of TF32's last place to the bit pattern carries into the kept
-    bits exactly when the dropped 13 bits are at least half."""
-    b = np.asarray(x, np.float32).view(np.uint32)
-    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def split(x):
-    hi = tf32(x)
-    return hi, tf32(x.astype(np.float32) - hi)
-
-
-def mm_3xtf32(a, b):
-    """a @ b (f32, batched) as the kernels take it: small terms first,
-    f32 accumulation."""
-    (ah, al), (bh, bl) = split(a), split(b)
-    f = np.float32
-    return (al @ bh).astype(f) + (ah @ bl).astype(f) + (ah @ bh).astype(f)
-
-
-def mm_tf32(a, b):
-    """a @ b with one TF32 pass."""
-    return (tf32(a) @ tf32(b)).astype(np.float32)
 
 
 def attention(q, k, v, mm):

@@ -3,7 +3,10 @@
 (tests/test_torch_examples*.py): both packages' smoke configs in f32,
 the reference's params from `build_model(cfg).init(PRNGKey(k))` handed
 to the port by `repro_torch.weights.from_jax_params`, seeded numpy
-inputs converted for each side, and the reference's example files."""
+inputs converted for each side, and the reference's example files. Also
+the 3xTF32 arithmetic of the port's f32 attention kernels in numpy
+(`tf32`, `split`, `mm_3xtf32`, `mm_tf32`), which
+tests/test_torch_{flash,paged_prefill}_tf32.py emulate."""
 import dataclasses
 import importlib.util
 import pathlib
@@ -75,6 +78,35 @@ def models(arch, seed=0, **kw):
     tm = build_model(tcfg, from_jax_params(flat(jp), tcfg, "cpu"),
                      device="cpu")
     return jcfg, jm, jp, tm
+
+
+def tf32(x):
+    """f32 rounded to TF32, to nearest with ties away from zero
+    (`cvt.rna.tf32.f32`: TF32 keeps 10 of f32's 23 mantissa bits): adding
+    half of TF32's last place to the bit pattern carries into the kept
+    bits exactly when the dropped 13 bits are at least half."""
+    b = np.asarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(x):
+    """x as its TF32 pair (hi, lo): hi = tf32(x), lo = tf32(x - hi)."""
+    hi = tf32(x)
+    return hi, tf32(x.astype(np.float32) - hi)
+
+
+def mm_3xtf32(a, b):
+    """a @ b (f32, batched) as the kernels take it: hi.hi + hi.lo + lo.hi,
+    each an f32-accumulated product of TF32 values, the small terms
+    first."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    f = np.float32
+    return (al @ bh).astype(f) + (ah @ bl).astype(f) + (ah @ bh).astype(f)
+
+
+def mm_tf32(a, b):
+    """a @ b with one TF32 pass."""
+    return (tf32(a) @ tf32(b)).astype(np.float32)
 
 
 def randn(shape, seed, scale=1.0):

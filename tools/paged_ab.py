@@ -3,6 +3,7 @@
 one NVIDIA GPU, alone and along the fused serving path.
 
     python3 tools/paged_ab.py [--no-trace] OUT_DIR TREE [TREE ...]
+    python3 tools/paged_ab.py --tf32 OUT_DIR TREE [TREE ...]
 
 Each TREE is a checkout of the repository, for instance the parent
 commit unpacked with `git archive` under the gitignored `build/`; `.` is
@@ -43,8 +44,23 @@ device time and launches, the two-pool calls apart, the side stream's
 copies and their overlap with compute, staging host calls and time per
 step.
 
-The process writes OUT_DIR/paged_ab_<i>.json and prints a summary. Needs
-a CUDA device; exits non-zero on the first tree that fails.
+The process writes OUT_DIR/paged_ab_<i>.json and prints a summary.
+
+With --tf32, the case of the paged prefill body that f32 at every D and
+bf16 at D 32 take (the 3xTF32 kernel; a CUDA-core one in older trees):
+each tree, in a fresh process, builds its `csrc/paged_prefill.cu`,
+reports the body route its dispatch names for f32 at D 32 / 64 / 128 and
+bf16 at D 32 (`body_route`), and holds against the plain version and
+times through its wrapper, with THIS tree's `chip_smoke._time_pp_one_pool`
+(one set of inputs, one timing method and one bound for every tree: the
+3xTF32 floor and the f32 FMA one beside it), the fused path's chunk (512
+tokens at offset 512, kv_len 1024, BS 16, tq 32) in f32 at llama2-7b's
+heads (H = KV = 32, D 128), one pool and two (bit-identical to one), and
+at granite-3-2b's (H 32, KV 8, D 64), and the smoke paths' shape (a
+64-token chunk at offset 64, H 8, KV 2, D 32) in bf16 and f32. Writes
+OUT_DIR/paged_tf32_ab_<i>.json.
+
+Needs a CUDA device; exits non-zero on the first tree that fails.
 """
 from __future__ import annotations
 
@@ -246,23 +262,80 @@ def _one(tree: str, out: str, trace: bool) -> None:
               f"{ft['wall_ms_per_step']:.1f} ms", flush=True)
 
 
+# the --tf32 rows: (heads in chip_smoke's FLASH_SHAPES or SMOKE_SHAPES,
+# dtype, chunk, offset, two pools)
+TF32_ROWS = {
+    "llama2-7b f32": ("llama2-7b", "float32", 512, 512, False),
+    "granite-3-2b f32": ("granite-3-2b", "float32", 512, 512, False),
+    "llama2-7b f32, two pools": ("llama2-7b", "float32", 512, 512, True),
+    "smoke D 32 bf16": ("granite-3-2b smoke", "bfloat16", 64, 64, False),
+    "smoke D 32 f32": ("granite-3-2b smoke", "float32", 64, 64, False),
+}
+
+
+def _one_tf32(tree: str, out: str) -> None:
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, os.path.join(tree, "src"))
+    import torch
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", SMOKE)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_prefill as pp
+    if not pp.__file__.startswith(tree):
+        raise RuntimeError(f"imported {pp.__file__}, not {tree}'s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build(["paged_prefill"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    res = {"tree": tree, "nvidia_smi": cs._smi(), "routes": {
+        f"{dt} D {D}": pp.body_route(getattr(torch, dt), D)
+        for dt, D in (("float32", 32), ("float32", 64), ("float32", 128),
+                      ("bfloat16", 32))}, "rows": {}}
+    for name, (heads, dt, C, off, two) in TF32_ROWS.items():
+        H, KV, D = {**cs.FLASH_SHAPES, **cs.SMOKE_SHAPES}[heads]
+        res["rows"][name] = cs._time_pp_one_pool(
+            gen, H, KV, D, getattr(torch, dt), C, off, None,
+            two_pools=two)
+    with open(out, "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    print(f"[paged_ab tf32] {tree}: routes {res['routes']}; "
+          f"{res['nvidia_smi']}", flush=True)
+    for name, t in res["rows"].items():
+        print(f"[paged_ab tf32]   {name}: {t['ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ({t['bound_by']}), f32 FMA bound "
+              f"{t.get('bound_ms_f32_fma', float('nan')):.4f}, plain "
+              f"{t['plain_ms']:.4f}, max_abs_err {t['max_abs_err']:.3g}",
+              flush=True)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--one"]:
         _one(argv[1], argv[2], argv[3] == "1")
         return 0
-    trace = argv[:1] != ["--no-trace"]
-    argv = argv if trace else argv[1:]
+    if argv[:1] == ["--one-tf32"]:
+        _one_tf32(argv[1], argv[2])
+        return 0
+    tf32 = argv[:1] == ["--tf32"]
+    trace = not tf32 and argv[:1] != ["--no-trace"]
+    argv = argv[1:] if tf32 or argv[:1] == ["--no-trace"] else argv
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     out_dir, trees = os.path.abspath(argv[0]), argv[1:]
     os.makedirs(out_dir, exist_ok=True)
     for i, tree in enumerate(trees, 1):
-        out = os.path.join(out_dir, f"paged_ab_{i}.json")
+        if tf32:
+            cmd = ["--one-tf32", tree,
+                   os.path.join(out_dir, f"paged_tf32_ab_{i}.json")]
+        else:
+            cmd = ["--one", tree,
+                   os.path.join(out_dir, f"paged_ab_{i}.json"),
+                   "1" if trace else "0"]
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--one", tree, out,
-                             "1" if trace else "0"]).returncode
+                             *cmd]).returncode
         if rc:
             print(f"[paged_ab] {tree} failed: exit {rc}", file=sys.stderr)
             return rc
