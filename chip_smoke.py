@@ -1902,6 +1902,80 @@ def _staging(eng):
             "stage_runs": pp.stage_runs, "stage_host_s": pp.stage_host_s}
 
 
+def bf16_step(x: float) -> float:
+    """The gap between bf16 `x` (x != 0) and the next bf16 value away
+    from 0: 2 ** (e - 8) for |x| in [2 ** (e - 1), 2 ** e) (7 stored
+    mantissa bits)."""
+    import math
+    return 2.0 ** (math.frexp(abs(x))[1] - 8)
+
+
+def solo_top2(ex, prompt):
+    """The two largest logits at the last position of `prompt` prefilled
+    alone through executor `ex` (B = 1, exclusive prefill, `ex`'s
+    weights): ((token, logit), (token, logit)). The logits are the final
+    features' product with the head taken in f32: the model's bf16 logits
+    round both values, which can widen their gap by up to one step."""
+    from repro_torch.models.model import mask_pad_logits
+    model = ex.model
+    cfg, p = model.cfg, model.params
+    w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    last = []
+    bf16_unembed = model.unembed
+
+    def unembed(x):
+        logits = mask_pad_logits(cfg, x.float() @ w.float())
+        last.append(logits.reshape(-1, logits.shape[-1])[-1])
+        return bf16_unembed(x)
+    model.unembed = unembed
+    try:
+        ex.prefill(prompt, len(prompt))
+    finally:
+        del model.unembed
+    top = last[-1].topk(2)
+    return tuple(zip(top.indices.tolist(), top.values.tolist()))
+
+
+def check_first_tokens(tag, ex, prompts, got, want):
+    """Hold the first tokens `got[rid]` against `want[rid]` (rid "r{i}"
+    for prompts[i]; a rid in `got` only) and tell a near-tie from a
+    fault. Where they differ, prompt i is prefilled alone (`solo_top2`,
+    through executor `ex`: B = 1, exclusive prefill, the same weights) and
+    the difference is accepted only if the two first tokens are that
+    prefill's two largest logits and their gap is at most one bf16 step
+    at the larger one's magnitude (`bf16_step`): the smallest non-zero
+    gap two bf16 logits can have, so the two runs' bf16 roundings may
+    order them either way. Any other difference raises, as does a
+    difference with no prompt to prefill. Exact equality stays the check
+    for every request whose tokens agree. Prints each accepted near-tie
+    on its own line; returns them (rid, the two tokens, the two logits,
+    the gap)."""
+    ties, faults = [], []
+    for rid in got:
+        if got[rid] == want[rid]:
+            continue
+        i = int(rid[1:]) if rid[1:].isdigit() else -1
+        if not 0 <= i < len(prompts):
+            faults.append(rid)
+            continue
+        (t0, l0), (t1, l1) = solo_top2(ex, prompts[i])
+        gap = l0 - l1
+        if {got[rid], want[rid]} != {t0, t1} or gap > bf16_step(l0):
+            faults.append(f"{rid} ({got[rid]} vs {want[rid]}; alone: top "
+                          f"{t0} {l0:.6g}, {t1} {l1:.6g})")
+            continue
+        tie = {"rid": rid, "tokens": [t0, t1], "logits": [l0, l1],
+               "gap": gap, "bf16_step": bf16_step(l0)}
+        ties.append(tie)
+        _say(f"[{tag}] near-tie accepted: {rid} tokens {t0} / {t1}, "
+             f"logits {l0:.6g} / {l1:.6g}, gap {gap:.6g} <= one bf16 step "
+             f"{bf16_step(l0):.6g}")
+    if faults:
+        raise AssertionError(f"[{tag}] first tokens differ, not a near-tie:"
+                             f" {faults}")
+    return ties
+
+
 def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
                 ndb_ref, device="cuda", **ec_kw):
     """One main path and its reference. The main path is a layerkv run
@@ -1966,14 +2040,15 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
     if eng_v.ex.nonfinite_logits():
         raise AssertionError("non-finite logits on the vllm run")
     v_tokens = {r.rid: list(r.generated) for r in done_v}
-    bad = [rid for rid in lk_tokens if lk_tokens[rid][0] != v_tokens[rid][0]]
-    if bad:
-        raise AssertionError(f"first tokens differ from vllm for {bad}")
+    ties = check_first_tokens(
+        tag, eng_v.ex, prompts, {rid: t[0] for rid, t in lk_tokens.items()},
+        {rid: t[0] for rid, t in v_tokens.items()})
     agree = sum(a == b for rid in lk_tokens
                 for a, b in zip(lk_tokens[rid], v_tokens[rid]))
     total = sum(len(t) for t in lk_tokens.values())
-    _say(f"[{tag}] first tokens identical to vllm for all "
-         f"{len(lk_tokens)} requests; full-stream agreement "
+    _say(f"[{tag}] first tokens identical to vllm for "
+         f"{len(lk_tokens) - len(ties)} of {len(lk_tokens)} requests, "
+         f"{len(ties)} near-ties accepted; full-stream agreement "
          f"{agree}/{total} = {agree / total:.3f} (not asserted: bf16 decode "
          f"batches differ between policies)")
     for name, s in (("layerkv", st), ("vllm", st_v)):
@@ -1990,7 +2065,7 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
     return {"layerkv": st, "vllm": st_v, "offloads": n_off,
             "reloads": n_rel, "agreement": agree / total,
             "launches": launches, **staging,
-            "host_tier_signatures": host_steps,
+            "host_tier_signatures": host_steps, "near_ties": ties,
             "tokens": lk_tokens, "params": params}
 
 
@@ -2362,20 +2437,23 @@ def _run_cluster(cfg, params, device, ref_tokens=None):
     res["late_replica"] = hl.replica
     res["served"] = served
     if ref_tokens is not None:
-        bad = [rid for rid in before_kill
-               if streams[rid][0] != ref_tokens[rid][0]]
-        if late_tok[0] != ref_tokens[f"r{late}"][0]:
-            bad.append(f"late (r{late} on the revived replica 0)")
-        if bad:
-            raise AssertionError(f"first tokens differ from the fused "
-                                 f"run's for {bad}")
+        ties = check_first_tokens(
+            "cluster", engines[0].ex, prompts,
+            {rid: streams[rid][0] for rid in sorted(before_kill)},
+            {rid: ref_tokens[rid][0] for rid in before_kill})
+        ties += check_first_tokens(
+            "cluster, late request on the revived replica 0",
+            engines[0].ex, prompts, {f"r{late}": late_tok[0]},
+            {f"r{late}": ref_tokens[f"r{late}"][0]})
+        res["near_ties"] = ties
         agree = sum(a == b for rid, t in streams.items()
                     for a, b in zip(t, ref_tokens[rid]))
         total = sum(len(t) for t in streams.values())
         res["agreement_fused"] = agree / total
         _say(f"[cluster] first tokens equal the fused run's for the "
              f"{len(before_kill)} requests that started before the kill "
-             f"and for r{late} served again by the revived replica 0; "
+             f"and for r{late} served again by the revived replica 0 "
+             f"({len(ties)} near-ties accepted); "
              f"full-stream agreement {agree}/{total} = {agree / total:.3f}"
              f" (not asserted: bf16, another batch mix)")
     return res
@@ -3541,15 +3619,18 @@ def phase_examples(profile=False):
 
 # ---------------------------------------------------------------- dryrun --
 
-DRYRUN_PAIRS = (("chatglm3-6b", "decode_32k"), ("granite-3-2b", "train_4k"))
+DRYRUN_PAIRS = (("chatglm3-6b", "decode_32k", "single"),
+                ("granite-3-2b", "train_4k", "single"),
+                ("chatglm3-6b", "decode_32k", "multi"))
 
 
 def run_dryrun(out_dir, pairs=DRYRUN_PAIRS, offload=True):
-    """The dryrun phase: each pair in a fresh `python -m
+    """The dryrun phase: each (arch, shape, mesh) in a fresh `python -m
     repro_torch.launch.dryrun` process (the process group is
     process-global) appending to one records file, the roofline over
     it, and the offload example in its own process. Returns the records
-    and the roofline rows; raises unless every record is ok."""
+    and the roofline rows; raises unless every record is ok and carries
+    an int `temp_size` (the peak of a rank's live bytes)."""
     import dataclasses as dc
     import torch
     from repro_torch.launch.dryrun import missing_torch_internals
@@ -3560,29 +3641,36 @@ def run_dryrun(out_dir, pairs=DRYRUN_PAIRS, offload=True):
                            f"dry run patches or imports: {missing}")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(os.path.abspath(out_dir), "dryrun_16x16.json")
+    path = os.path.join(os.path.abspath(out_dir), "dryrun.json")
     if os.path.exists(path):
         os.remove(path)
-    for arch, shape in pairs:
+    for arch, shape, mesh in pairs:
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", "single", "--out", path,
+             arch, "--shape", shape, "--mesh", mesh, "--out", path,
              "--append"], cwd=ROOT, env=env, capture_output=True,
             text=True, timeout=900)
         if proc.returncode:
-            raise RuntimeError(f"[dryrun] {arch} x {shape}: exit "
+            raise RuntimeError(f"[dryrun] {arch} x {shape} x {mesh}: exit "
                                f"{proc.returncode}\n{proc.stderr[-3000:]}")
     with open(path) as f:
         recs = json.load(f)
     from repro_torch.roofline.analysis import analyze_file
-    rows = analyze_file(path)
+    rows = [r for m in ("16x16", "2x16x16") for r in analyze_file(path, m)]
+    fits = {(r.arch, r.shape, r.mesh): r.fits_hbm for r in rows}
     for rec in recs:
+        name = f"{rec['arch']} x {rec['shape']} x {rec['mesh']}"
         if not rec["ok"]:
-            raise AssertionError(f"[dryrun] {rec['arch']} x {rec['shape']}"
-                                 f": {rec['error']}")
-        _say(f"[dryrun] {rec['arch']} x {rec['shape']}: "
-             f"{rec['bytes_per_device'] / 2**30:.3f} GiB a rank "
-             f"(arguments {rec['memory']['argument_size']}), flops a rank "
+            raise AssertionError(f"[dryrun] {name}: {rec['error']}")
+        mem = rec["memory"]
+        if type(mem["temp_size"]) is not int:
+            raise AssertionError(f"[dryrun] {name}: temp_size "
+                                 f"{mem['temp_size']!r} is not an int")
+        _say(f"[dryrun] {name}: {rec['bytes_per_device'] / 2**30:.3f} GiB "
+             f"a rank (arguments {mem['argument_size']}, temp_size "
+             f"{mem['temp_size']}), fits_hbm "
+             f"{fits[rec['arch'], rec['shape'], rec['mesh']]}, "
+             f"bytes_accessed {rec['bytes_accessed']:.4e}, flops a rank "
              f"{rec['flops']:.4e}, collectives {rec['collectives']['counts']}"
              f" ({rec['collectives']['total_bytes']} bytes), "
              f"{rec['wall_s']} s on the CPU; notes {rec['notes']}")

@@ -6,7 +6,9 @@ mesh (`launch.dryrun`): the baseline (all KV in device memory), and with
 the cache's `k` / `v` leaves placed in pinned host memory (LayerKV-style
 offload; `len` stays on the device), and prints the per-rank
 device / host split with the offloadable KV per GPU from
-`CostModel(cfg, H100)`. Unlike the reference's CPU stand-in, which folds
+`CostModel(cfg, H100)`, and each run's temporaries (`temp_size`, the
+peak of a rank's live bytes in the step) and device total
+(`bytes_per_device`). Unlike the reference's CPU stand-in, which folds
 pinned_host into one memory space, the port's record gives the split
 directly from the placements: the same step and the same bytes, only
 counted on the other side.
@@ -50,7 +52,10 @@ def main():
                    ("layerkv (KV in pinned host memory)", off)):
         m = r["memory"]
         print(f"  {tag}: args/GPU device {m['argument_size']/gib:6.2f} GiB"
-              f", host {m['host_argument_size']/gib:6.2f} GiB")
+              f", host {m['host_argument_size']/gib:6.2f} GiB; "
+              f"temporaries {m['temp_size']/gib:6.2f} GiB (host "
+              f"{m['host_temp_size']/gib:.2f}); device total "
+              f"{r['bytes_per_device']/gib:6.2f} GiB")
     print(f"  KV cache per GPU (the offloadable share): "
           f"{kv_per_gpu()/gib:.2f} GiB")
     return base, off

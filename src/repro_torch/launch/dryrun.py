@@ -18,13 +18,23 @@ What a record holds, against the reference's (compiled XLA) record:
   rank (params, optimizer state, batch, cache); `host_argument_size`
   the part placed in host memory (`host_keys`). `output_size` is the
   local bytes of the step's outputs, `alias_size` the part written in
-  place into an argument (the reference's donation). `temp_size` is
-  None: no tracker measures a fake step's temporaries, so none is
-  reported; `bytes_per_device` is arguments plus outputs not aliased.
+  place into an argument (the reference's donation). `temp_size` is the
+  peak over the step of the live bytes one rank allocates inside it
+  (activations, saved tensors, gradients, collective results and the
+  outputs as they appear; not the arguments), tracked by storage
+  (`_LocalCounter`); `host_temp_size` is 0: the port places no
+  temporary in host memory. `bytes_per_device` is the device-resident
+  arguments plus `temp_size`: the reference's `argument + temp - alias`,
+  where XLA's temp excludes the outputs and an aliased output reuses its
+  argument; here an output not written in place is inside the peak and
+  one written in place allocates nothing.
 * `flops`: the whole step, per rank: `torch.utils.flop_counter`'s
   formulas over the local ops one rank runs (`_LocalCounter`). Unlike
   XLA's `cost_analysis`, which counts a scan body once, the port's
   layer and microbatch loops are Python loops: `flops_scope` says so.
+  `bytes_accessed` is the local bytes those ops read and write, eager
+  and unfused (`bytes_accessed_scope`), so at or above what XLA's fused
+  count would report.
 * `collectives`: counts and result bytes per kind under DTensor's own
   op names (`_c10d_functional.*`), for the whole step.
 * `notes`: each redistribution DTensor needed that GSPMD makes silently
@@ -38,14 +48,17 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import json
+import math
 import os
 import time
 import traceback
+import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_flatten, tree_map
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
@@ -69,6 +82,11 @@ MICROBATCH = {
     "xlstm-1.3b": 8,
     "zamba2-2.7b": 8,
 }
+
+BYTES_ACCESSED_SCOPE = (
+    "eager and unfused: each local op's inputs (once each) and outputs, "
+    "views excepted, scaled as the FLOPs are; at or above what XLA's "
+    "fused cost_analysis counts")
 
 FLOPS_SCOPE = ("whole step: every layer and microbatch loop runs in "
                "Python and is counted each time it runs, the sLSTM's "
@@ -116,11 +134,23 @@ def _distribute(mesh, tree, spec):
 class _LocalCounter(TorchDispatchMode):
     """A dispatch mode that lets DTensor desugar each op first (as
     CommDebugMode does) and then sees only the LOCAL ops one rank runs:
-    their FLOPs, by `torch.utils.flop_counter`'s formulas, and every
-    functional collective with its result bytes. (FlopCounterMode itself
+    their FLOPs, by `torch.utils.flop_counter`'s formulas, every
+    functional collective with its result bytes, the bytes the ops read
+    and write, and the memory one rank allocates. (FlopCounterMode itself
     would also count the global-shape ops DTensor decomposes.) Inside
-    `scaled(k)` each op counts k times: a loop whose steps are alike runs
-    one step there for all of them (`dtensor_forms.counted_slstm_scan`)."""
+    `scaled(k)` each op counts k times, and inside `scaled_nodes` each op
+    a given autograd node runs: a loop whose steps are alike runs one
+    step there for all of them (`dtensor_forms.counted_slstm_scan`).
+
+    Memory is kept by untyped storage: a storage that an op's output
+    brings and none of its inputs had is a new allocation, live until the
+    storage dies (a weakref finalizer), so a view or an in-place write
+    allocates nothing and a view that outlives its base keeps the bytes
+    live. A storage first seen as an input (an argument of the step) is
+    not the step's. `peak` is the most bytes live at once (`temp_size`).
+    `accessed` sums each op's input bytes (each input once) and output
+    bytes, but for views (an op that writes nothing and returns only
+    storages of its inputs) and queries with no tensor output."""
 
     def __init__(self):
         super().__init__()
@@ -128,16 +158,53 @@ class _LocalCounter(TorchDispatchMode):
         self.counts, self.bytes = {}, {}
         self.paused = 0
         self.scale = 1
+        self.live = self.peak = self.accessed = 0
+        self._held = {}     # id(storage) -> its bytes (0: not the step's)
+        self._nodes = []    # `scaled_nodes` ranges
 
     @contextlib.contextmanager
     def scaled(self, k: int):
-        """Count every op inside the context `k` times."""
+        """Count every op inside the context `k` times (memory is the one
+        run's: `dtensor_forms._CountedScan` allocates the rest)."""
         prev = self.scale
         self.scale = prev * k
         try:
             yield
         finally:
             self.scale = prev
+
+    @contextlib.contextmanager
+    def scaled_nodes(self, lo: int, hi: int, k: int):
+        """Inside the context, count k times each op that an autograd
+        node with a sequence number in (lo, hi] runs: a backward whose
+        graph holds one step for k alike ones."""
+        self._nodes.append((lo, hi, k))
+        try:
+            yield
+        finally:
+            self._nodes.pop()
+
+    def _free(self, key):
+        self.live -= self._held.pop(key)
+
+    def _storage(self, t, new: bool):
+        """The key of `t`'s storage (None if it has none of its own),
+        registered if unseen: as a new allocation of the step (`new`) or
+        as one from outside it."""
+        try:
+            st = t.untyped_storage()
+        except (NotImplementedError, RuntimeError):
+            return None
+        key = id(st)
+        if key in self._held:
+            return key
+        nbytes = st.nbytes() if new else 0
+        self._held[key] = nbytes
+        weakref.finalize(st, self._free, key)
+        if nbytes:
+            self.live += nbytes
+            self.peak = max(self.peak, self.live)
+        return key
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -147,6 +214,31 @@ class _LocalCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if self.paused:
             return out
+        prev = self.scale
+        if self._nodes:       # the autograd node this op runs for
+            node = torch._C._current_autograd_node()
+            seq = -1 if node is None else node._sequence_nr()
+            self.scale *= math.prod(k for lo, hi, k in self._nodes
+                                    if lo < seq <= hi)
+        try:
+            return self._count(func, args, kwargs, out)
+        finally:
+            self.scale = prev
+
+    def _count(self, func, args, kwargs, out):
+        ins = [t for t in tree_flatten((args, kwargs))[0]
+               if isinstance(t, torch.Tensor)]
+        outs = [t for t in tree_flatten(out)[0]
+                if isinstance(t, torch.Tensor)]
+        held = {self._storage(t, new=False) for t in ins}
+        made = [self._storage(t, new=True) for t in outs]
+        # a view (by tag or by aliasing: `_unsafe_view`) moves no bytes
+        view = func.is_view or (not func._schema.is_mutable
+                                and held.issuperset(made))
+        if outs and not view:
+            self.accessed += self.scale * sum(
+                t.numel() * t.element_size()
+                for t in [*{id(t): t for t in ins}.values(), *outs])
         pkt = func.overloadpacket
         if pkt in flop_registry:
             def shape(x):
@@ -172,8 +264,15 @@ TORCH_INTERNALS = (
      "_StridedShard.local_shard_size_and_offset"),
     ("torch.distributed.tensor._sharding_prop",
      "ShardingPropagator._propagate_tensor_meta_non_cached"),
+    ("torch.distributed.tensor._sharding_prop",
+     "ShardingPropagator.propagate_op_sharding_non_cached"),
     ("torch._subclasses.fake_tensor", "unset_fake_temporarily"),
     ("torch.testing._internal.distributed.fake_pg", "FakeStore"),
+    # the counted sLSTM loop (`dtensor_forms._CountedScan`): the ambient
+    # saved-tensor hooks, and the node whose backward an op runs (whose
+    # `_sequence_nr` `_LocalCounter.scaled_nodes` reads)
+    ("torch._C._autograd", "_top_saved_tensors_default_hooks"),
+    ("torch._C", "_current_autograd_node"),
 )
 
 
@@ -195,40 +294,46 @@ def missing_torch_internals() -> list:
 def _dtensor_fixes(counter):
     """Two adjustments to DTensor for a step on fake tensors.
 
-    Sharding propagation infers an op's output shapes by running it on
-    GLOBAL-shape fake tensors (`_propagate_tensor_meta_non_cached`): no
-    rank runs that op, so `counter` pauses while it does.
+    Sharding propagation picks an op's placements and infers its output
+    shapes by running ops on GLOBAL-shape fake tensors and on fake meshes
+    of its own (`propagate_op_sharding_non_cached`,
+    `_propagate_tensor_meta_non_cached`): no rank runs those, so
+    `counter` (its FLOPs, bytes and memory) pauses while they run.
 
     DTensor computes a strided shard's (`_StridedShard`, from flattening
     two sharded dims, as a batched attention product does) local size
     from an index tensor it builds with torch ops and reads back with
     `.tolist()`; under FakeTensorMode that tensor is fake and cannot be
-    read. Run that computation on real (tiny) tensors: it reads metadata
-    only."""
+    read. Run that computation on real (tiny) tensors, uncounted: it reads
+    metadata only."""
     from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
     from torch.distributed.tensor.placement_types import _StridedShard
-    orig_size = _StridedShard.local_shard_size_and_offset
-    orig_meta = ShardingPropagator._propagate_tensor_meta_non_cached
 
-    def outside(*args, **kwargs):
-        with unset_fake_temporarily():
-            return orig_size(*args, **kwargs)
+    def uncounted(fn, real=False):
+        def run(*args, **kwargs):
+            counter.paused += 1
+            try:
+                with unset_fake_temporarily() if real \
+                        else contextlib.nullcontext():
+                    return fn(*args, **kwargs)
+            finally:
+                counter.paused -= 1
+        return run
 
-    def uncounted(*args, **kwargs):
-        counter.paused += 1
-        try:
-            return orig_meta(*args, **kwargs)
-        finally:
-            counter.paused -= 1
-
-    _StridedShard.local_shard_size_and_offset = outside
-    ShardingPropagator._propagate_tensor_meta_non_cached = uncounted
+    patches = [(_StridedShard, "local_shard_size_and_offset", True),
+               (ShardingPropagator, "propagate_op_sharding_non_cached",
+                False),
+               (ShardingPropagator, "_propagate_tensor_meta_non_cached",
+                False)]
+    origs = [getattr(cls, name) for cls, name, _ in patches]
+    for (cls, name, real), fn in zip(patches, origs):
+        setattr(cls, name, uncounted(fn, real))
     try:
         yield
     finally:
-        _StridedShard.local_shard_size_and_offset = orig_size
-        ShardingPropagator._propagate_tensor_meta_non_cached = orig_meta
+        for (cls, name, _), fn in zip(patches, origs):
+            setattr(cls, name, fn)
 
 
 def _contexts(cfg, shape_name, mesh, multi_pod, counter=None):
@@ -241,7 +346,7 @@ def _contexts(cfg, shape_name, mesh, multi_pod, counter=None):
     table = dict(dtensor_forms.FORMS)
     if counter is not None:
         table["slstm_scan"] = functools.partial(
-            dtensor_forms.counted_slstm_scan, counter.scaled)
+            dtensor_forms.counted_slstm_scan, counter)
     stack.enter_context(forms(table))
     # sequence-parallel activation sharding for full-sequence passes
     # (Megatron-SP): the checkpointed carry lives (batch, seq)-sharded
@@ -297,9 +402,18 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         t_build = time.time() - t0
         coll = _LocalCounter()
         comm = CommDebugMode()
-        with _contexts(cfg, shape_name, mesh, multi_pod, coll), mode, \
-                _dtensor_fixes(coll), implicit_replication(), coll, comm:
-            out = fn(*dargs)
+        # Python's cycle collector stays off for the step, so garbage in
+        # reference cycles is freed at the same point in every run (after
+        # it), and the peak does not depend on when a collection ran
+        gc.collect()
+        gc.disable()
+        try:
+            with _contexts(cfg, shape_name, mesh, multi_pod, coll), mode, \
+                    _dtensor_fixes(coll), implicit_replication(), coll, \
+                    comm:
+                out = fn(*dargs)
+        finally:
+            gc.enable()
         t_step = time.time() - t0 - t_build
         in_ids = {id(t) for t in arg_leaves}
         out_leaves = _leaves(out)
@@ -313,16 +427,18 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
             memory=dict(
                 argument_size=arg_bytes - host,
                 output_size=out_bytes,
-                temp_size=None,
+                temp_size=coll.peak,
                 alias_size=alias,
                 host_argument_size=host,
-                host_temp_size=None,
+                host_temp_size=0,
             ),
-            # NB: per rank; no temporaries (not measured)
-            bytes_per_device=arg_bytes - host + out_bytes - alias,
+            # per rank: the reference's argument + temp - alias, with the
+            # outputs inside the peak and in-place writes allocating none
+            bytes_per_device=arg_bytes - host + coll.peak,
             flops=float(coll.flops),
             flops_scope=FLOPS_SCOPE,
-            bytes_accessed=None,
+            bytes_accessed=float(coll.accessed),
+            bytes_accessed_scope=BYTES_ACCESSED_SCOPE,
             collectives=dict(
                 bytes=coll.bytes, counts=coll.counts,
                 total_bytes=sum(coll.bytes.values()),

@@ -12,9 +12,12 @@ the dry run's record says why its collective is there.
 """
 from __future__ import annotations
 
+import contextlib
+import weakref
+
 import torch
 
-from repro_torch.models.act_sharding import is_dtensor
+from repro_torch.models.act_sharding import even_placements, is_dtensor
 from repro_torch.models.ssm import slstm_step
 
 _NOTES: set = set()
@@ -61,6 +64,18 @@ def _replicate_dims(x, mesh_dims):
     for i in mesh_dims:
         pl[i] = Replicate()
     return x.redistribute(x.device_mesh, tuple(pl))
+
+
+def even_shards(x):
+    """DTensor `x` redistributed to even shards
+    (`act_sharding.even_placements`: 16 rows or 48 heads over ('pod',
+    'data') keep 'data' only); identity on a plain tensor and where every
+    shard is even."""
+    if not is_dtensor(x):
+        return x
+    pl = even_placements(x.device_mesh, x.placements, x.shape)
+    return x if pl == tuple(x.placements) \
+        else x.redistribute(x.device_mesh, pl)
 
 
 def split_heads(plain, t, n_heads: int):
@@ -272,7 +287,9 @@ def decode_attention(plain, q, k_cache, v_cache, kv_len):
     mx = lse.amax(0)
     w = torch.exp(lse - mx)
     out = (o * w[..., None]).sum(0) / w.sum(0)[..., None]
-    return out.reshape(out.shape[0], 1, H, D).to(q.dtype)
+    # DTensor may leave the combine's heads sharded over the batch's mesh
+    # dims; over two of them (2x16x16) unevenly
+    return even_shards(out).reshape(out.shape[0], 1, H, D).to(q.dtype)
 
 
 def replicated(plain, x):
@@ -309,85 +326,160 @@ def slstm_scan(plain, pre, c, n, m, h, r):
     return batch_local(plain, (pre, c, n, m, h), (r,))
 
 
-def counted_slstm_scan(scaled, plain, pre, c, n, m, h, r):
+def counted_slstm_scan(counter, plain, pre, c, n, m, h, r):
     """The dry run's form of `slstm_scan`: `slstm_scan`'s, but the token
     loop is counted, not run. Every token step issues the same operations
-    on tensors of the same shapes, so the first step runs once and one
-    later step runs under `scaled(S - 1)` (a context in which the dry
-    run's counter multiplies what it counts); the outputs have the full
-    shapes. The backward likewise (`_CountedScan`): the first step's
-    apart, since the initial h needs no gradient. The FLOPs and
-    collectives a record counts are the full loop's; the values are not
-    (the dry run's tensors are fake)."""
+    on tensors of the same shapes, so four steps run: the first two, one
+    counted S - 3 times for steps 2 .. S - 2 (under `counter.scaled`, and
+    in the backward through `counter.scaled_nodes`), and the last; the
+    outputs have the full shapes. The memory of the steps that do not run
+    is allocated in one piece (`_CountedScan`). The FLOPs, collectives
+    and peak memory a record counts are the full loop's; the values are
+    not (the dry run's tensors are fake). Sequences of fewer than 4
+    tokens run the loop."""
     def scan(*args):
-        if pre.shape[1] < 2:
+        if pre.shape[1] < 4:
             return plain(*args)
-        hs, *state = _CountedScan.apply(scaled, *args)
+        hs, *state = _CountedScan.apply(counter, *args)
         return hs, tuple(state)
     return batch_local(scan, (pre, c, n, m, h), (r,))
+
+
+def _edge(t):
+    """The gradient edge of `t` if it needs a gradient, else None: it
+    holds `t`'s node, not `t`."""
+    from torch.autograd.graph import get_gradient_edge
+    return get_gradient_edge(t) if t.requires_grad else None
 
 
 def _sum(a, b):
     return b if a is None else a if b is None else a + b
 
 
-def _grads(outs, ins, gouts):
-    """The gradients of `ins` (None where one needs none) from `outs`
-    with output gradients `gouts`."""
-    pairs = [(o, g) for o, g in zip(outs, gouts)
-             if o.requires_grad and g is not None]
-    want = [i for i in ins if i.requires_grad]
-    got = iter(torch.autograd.grad([o for o, _ in pairs], want,
-                                   [g for _, g in pairs], allow_unused=True)
-               if pairs and want else [None] * len(want))
-    return [next(got) if i.requires_grad else None for i in ins]
-
-
-def _step_rows(first, later, S):
-    """(B, S, ...) of the first step's row and S - 1 copies of a later
-    step's."""
-    return torch.cat([first[:, None],
-                      later[:, None].expand(-1, S - 1, *later.shape[1:])], 1)
+def _step_rows(rows, S):
+    """(B, S, ...) of rows[0], rows[1], S - 3 copies of rows[2] and
+    rows[3]."""
+    r0, r1, r2, r3 = (x[:, None] for x in rows)
+    return torch.cat([r0, r1, r2.expand(-1, S - 3, *r2.shape[2:]), r3], 1)
 
 
 class _CountedScan(torch.autograd.Function):
-    """`ssm.slstm_scan` as the first token step and one later step
-    counted S - 1 times, forward and backward (`counted_slstm_scan`).
-    Each step runs on leaves of its own, so its backward can be counted
-    apart."""
+    """`ssm.slstm_scan` as steps 0, 1, one step counted S - 3 times for
+    steps 2 .. S - 2, and step S - 1, forward and backward
+    (`counted_slstm_scan`; S >= 4). Memory follows the full loop's.
+
+    Where the ambient saved-tensor hooks keep what a graph saves (none,
+    or an activation checkpoint's recompute), the four steps run as the
+    loop does, on one graph over pre and r that keeps its saved tensors,
+    counted as they are, and the S - 4 steps that do not run are stood
+    for by one allocation of S - 4 times what step 1 saved beyond step 0
+    (its graph's packed storages but the inputs every step shares: pre,
+    r and the constant 1), given back as step 1's backward starts. The
+    graph's gradient edges and that allocation ride on a tensor handed to
+    the hooks as the loop's saved tensors are, so under a checkpoint the
+    backward runs the recompute's graph, in one pass as the loop's: each
+    step's tensors go as its nodes finish, pre's rows and r's gradients
+    sum where the loop's do, and what step 2's nodes run counts S - 3
+    times (their sequence numbers: `counter.scaled_nodes`).
+
+    Where the hooks keep nothing (a checkpoint's first forward) or no
+    gradient is wanted, the steps run without a graph, and S - 4 more of
+    the h the loop keeps in its list until the stack are allocated."""
 
     @staticmethod
-    def forward(ctx, scaled, pre, c, n, m, h, r):
+    def forward(ctx, counter, pre, c, n, m, h, r):
         S = pre.shape[1]
         one = torch.ones((), dtype=torch.float32, device=pre.device)
+        hooks = torch._C._autograd._top_saved_tensors_default_hooks(False)
 
-        def leaves(*ts):
-            return [t.detach().requires_grad_(t.requires_grad) for t in ts]
-        # the steps keep what their backward needs themselves: under an
-        # activation checkpoint's hooks, reading it back would rerun the
-        # block's forward inside the backward's scaled region
-        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
-                lambda t: t, lambda t: t):
-            in0 = leaves(pre[:, 0], c, n, m, h, r)
-            out0 = slstm_step(*in0, one)
-            in1 = leaves(pre[:, 1], *out0, r)
-            with scaled(S - 1):
-                out1 = slstm_step(*in1, one)
-        ctx.graph = (scaled, S, in0, out0, in1, out1)
-        hs = _step_rows(out0[3].detach(), out1[3].detach(), S)
-        return (hs, *(t.detach() for t in out1))
+        def hand(t):
+            """`t` handed to the hooks (kept here without them): the
+            holder, and whether the hooks keep `t`."""
+            alive = weakref.ref(t)
+            return (hooks[0](t) if hooks else t), alive
+
+        probe, alive = hand(torch.empty(0, device=pre.device))
+        grad = any(ctx.needs_input_grad[1:]) and alive() is not None
+        del probe
+        shared = {id(t.untyped_storage()) for t in (pre, r, one)}
+        packed, sizes, outs = {}, [], []
+
+        def note(t):            # a storage a step saves
+            st = t.untyped_storage()
+            if id(st) not in shared:
+                packed[id(st)] = st.nbytes()
+            return t
+
+        # the steps' graph keeps its saved tensors itself: it is the one
+        # the backward runs, which reads them inside `scaled_nodes`
+        with torch.enable_grad() if grad else torch.no_grad(), \
+                torch.autograd.graph.saved_tensors_hooks(note, lambda t: t):
+            state = (c, n, m, h)
+
+            def step(t):
+                out = slstm_step(pre[:, t], *state, r, one)
+                outs.append(out)
+                sizes.append(sum(packed.values()))
+                return out
+            for t in (0, 1):
+                state = step(t)
+            # steps 2 .. S - 3: what they save, or the h they list
+            per = (sizes[1] - sizes[0] if grad
+                   else state[3].untyped_storage().nbytes())
+            stand = torch.empty(((S - 4) * per,), dtype=torch.uint8,
+                                device=pre.device)
+            with counter.scaled(S - 3):
+                state = step(2)
+            state = step(3)
+        hs = [o[3] for o in outs]
+        out = _step_rows([x.detach() for x in hs], S)
+        carrier = torch.empty(0, device=pre.device)
+        if grad:
+            # step i's nodes: sequence numbers up to its outputs' last
+            last = [max((x.grad_fn for x in o), key=lambda f:
+                        f._sequence_nr()) for o in outs[1:3]]
+            # step 1's last node is the first of it to run back: step 2's
+            # backward is done, and the missing steps' bytes go
+            carrier.stand = box = [stand]
+            last[0].register_prehook(lambda grads: box.clear())
+            carrier.graph = (
+                [_edge(x) for x in (*hs, *state[:3])],
+                [_edge(x) for x in (pre, c, n, m, h, r)],
+                tuple(f._sequence_nr() for f in last))
+        del outs, hs, stand
+        ctx.held, _ = hand(carrier)
+        del carrier
+        ctx.counter, ctx.S = counter, S
+        ctx.give = hooks[1] if hooks else None
+        # an output the caller drops gets no gradient (the loop's would
+        # get none), not a zero tensor
+        ctx.set_materialize_grads(False)
+        return (out, *(t.detach() for t in state))
 
     @staticmethod
     def backward(ctx, dhs, dc, dn, dm, dh):
-        scaled, S, in0, out0, in1, out1 = ctx.graph
-        del ctx.graph
-        # a later step: its h gets its own row's gradient and the next
-        # step's (here the last state's)
-        with scaled(S - 1):
-            g1 = _grads(out1, in1, (dc, dn, dm, _sum(dh, dhs[:, -1])))
-        g0 = _grads(out0, in0, (*g1[1:4], _sum(g1[4], dhs[:, 0])))
-        dpre = None if g0[0] is None else _step_rows(g0[0], g1[0], S)
-        return (None, dpre, *g0[1:5], _sum(g0[5], g1[5]))
+        counter, S, held = ctx.counter, ctx.S, ctx.held
+        del ctx.held
+        # under a checkpoint this reads the recompute's graph (and runs
+        # the recompute if no earlier read ran it)
+        carrier = ctx.give(held) if ctx.give is not None else held
+        outs, ins, (lo, hi) = carrier.graph
+        del carrier.graph, carrier, held
+        rows = (None,) * 4 if dhs is None else tuple(
+            dhs[:, t] for t in (0, 1, S - 2, S - 1))
+        gouts = [*rows[:3], rows[3] if dh is None else _sum(rows[3], dh),
+                 dc, dn, dm]
+        pairs = [(o, g) for o, g in zip(outs, gouts)
+                 if o is not None and g is not None]
+        want = [i for i in ins if i is not None]
+        del outs, gouts, rows
+        if not pairs or not want:
+            return (None,) * 7
+        with counter.scaled_nodes(lo, hi, S - 3):
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], want, [g for _, g in pairs],
+                allow_unused=True))
+        return (None, *(next(got) if i is not None else None for i in ins))
 
 
 def batch_local(fn, batched, replicated=()):

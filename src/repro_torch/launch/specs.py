@@ -257,7 +257,10 @@ def _mb_slice(x, i: int, k: int, B: int, dp: int):
     (3, B, S)). Where B splits into dp shards of k pieces each, the
     microbatch is the i-th k-th of every data shard's rows, so it stays
     sharded and no collective moves the batch (the reference slices B
-    contiguously, which GSPMD reshards); otherwise a contiguous slice."""
+    contiguously, which GSPMD reshards); otherwise a contiguous slice,
+    sharded evenly (`dtensor_forms.even_shards`: 16 rows over 2x16x16's
+    32 data ranks are sharded over 'data' and replicated over 'pod', as
+    GSPMD's padding gives each rank one row)."""
     if x.ndim < 2:
         return x
     dim = 0 if x.shape[0] == B else (1 if x.shape[1] == B else None)
@@ -269,7 +272,8 @@ def _mb_slice(x, i: int, k: int, B: int, dp: int):
         y = x.reshape(*shp[:dim], dp, k, B // (dp * k), *shp[dim + 1:])
         y = y.select(dim + 1, i)
         return y.reshape(*shp[:dim], m, *shp[dim + 1:])
-    return x.narrow(dim, i * m, m)
+    from repro_torch.launch.dtensor_forms import even_shards
+    return even_shards(x.narrow(dim, i * m, m))
 
 
 def _gather_data_axes(x, mesh):
@@ -369,7 +373,8 @@ def input_specs(cfg: ModelConfig, shape_name: str, mesh,
             # reduce-scatter; AdamW then updates the sharded params and
             # moments in place
             from repro_torch.models.act_sharding import _to_spec
-            grads = {n: _to_spec(g, p_shard[n]) for n, g in grads.items()}
+            grads = {n: _to_spec(g, p_shard[n], even=False)
+                     for n, g in grads.items()}
             _, opt_state, _ = adamw_update(opt_cfg, grads, opt_state, params)
             return params, opt_state, loss
 

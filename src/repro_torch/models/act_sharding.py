@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from typing import Optional
 
 _SAVED_SPEC: Optional[tuple] = None     # layer-boundary (checkpointed) layout
@@ -79,11 +80,12 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
-def placements(mesh, spec) -> tuple:
+def placements(mesh, spec, shape=None) -> tuple:
     """A spec tuple -> DTensor placements on `mesh`: an entry naming
     axes (a name, or a tuple such as ``("pod", "data")``) becomes
     `Shard(d)` on each of those mesh dims, in mesh order; every other
-    mesh dim is `Replicate()`."""
+    mesh dim is `Replicate()`. Given the tensor's `shape`, they are made
+    even (`even_placements`)."""
     from torch.distributed.tensor import Replicate, Shard
     out = [Replicate()] * mesh.ndim
     for d, entry in enumerate(spec):
@@ -91,15 +93,32 @@ def placements(mesh, spec) -> tuple:
             continue
         for a in (entry if isinstance(entry, tuple) else (entry,)):
             out[mesh.mesh_dim_names.index(a)] = Shard(d)
+    return tuple(out) if shape is None \
+        else even_placements(mesh, out, shape)
+
+
+def even_placements(mesh, pl, shape) -> tuple:
+    """Placements `pl` of a tensor of `shape` with, for each tensor dim
+    whose extent the product of its sharding mesh dims does not divide,
+    those mesh dims replicated, outermost first, until the rest divide
+    it (16 rows over 2x16x16's ('pod', 'data') shard over 'data' only):
+    DTensor's rules assume even shards, where GSPMD pads."""
+    from torch.distributed.tensor import Replicate
+    out = list(pl)
+    for d in range(len(shape)):
+        axes = [i for i, p in enumerate(out) if p.is_shard() and p.dim == d]
+        while axes and shape[d] % math.prod(mesh.size(i) for i in axes):
+            out[axes.pop(0)] = Replicate()
     return tuple(out)
 
 
-def _to_spec(x, spec):
-    """Redistribute DTensor `x` to `spec`'s placements, and pin its
+def _to_spec(x, spec, even=True):
+    """Redistribute DTensor `x` to `spec`'s placements (with `even`, on
+    the axes that shard its dims evenly: `placements`), and pin its
     gradient there too (`pin_grad`); identity on a plain tensor."""
     if not is_dtensor(x):
         return x
-    target = placements(x.device_mesh, spec)
+    target = placements(x.device_mesh, spec, x.shape if even else None)
     if tuple(x.placements) != target:
         x = x.redistribute(x.device_mesh, target)
     return pin_grad(x)

@@ -215,8 +215,11 @@ def _routed_capacity(p, xf, flat_e, counts, gate2, T, K, E, C):
 
     # expert compute: (E, C, d) x (E, d, f)
     h = F.silu(torch.bmm(buf, p["we_gate"])) * torch.bmm(buf, p["we_up"])
+    # replicated before the flattening view: the view's backward cannot
+    # unflatten a gradient whose capacity dim is sharded over two mesh
+    # dims (2x16x16's 'pod' and 'data')
     flat_out = replicated(act_sharding.constrain_moe_buffer(
-        torch.bmm(h, p["we_down"])).reshape(E * C, d))
+        torch.bmm(h, p["we_down"]))).reshape(E * C, d)
 
     routed = torch.zeros((T, d), dtype=xf.dtype, device=xf.device)
     slot2, keep2 = slot.reshape(T, K), keep.reshape(T, K)

@@ -55,6 +55,15 @@ from repro_torch.serving.scheduler import CoreDelegateMixin, \
 from repro_torch.serving.session import ServingSession
 
 
+def EngineConfig(*, chunk_size: Optional[int] = None, **kw) -> ServeConfig:
+    """Deprecated shim: builds a `ServeConfig` with the historical engine
+    defaults (128 device blocks, 32-token chunk budget). `chunk_size` is
+    the old name of `max_prefill_tokens`."""
+    if chunk_size is not None:
+        kw["max_prefill_tokens"] = chunk_size
+    return ServeConfig.for_engine(**kw)
+
+
 class LayerKVEngine(CoreDelegateMixin):
     """The real serving backend: drives the shared `SchedulerCore`
     against actual PyTorch forwards (`PagedExecutor`) and physical

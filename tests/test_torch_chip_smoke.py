@@ -296,16 +296,23 @@ def test_chip_smoke_examples_dry_run(two_threads):
 
 
 def test_chip_smoke_dryrun_phase(tmp_path):
-    """The dryrun phase (`run_dryrun`) on one quick pair (the card runs
-    chatglm3-6b decode_32k and granite-3-2b train_4k, and the offload
-    example): a fresh process per pair, an ok record, its roofline row."""
-    out = chip_smoke.run_dryrun(str(tmp_path),
-                                pairs=(("whisper-base", "long_500k"),),
-                                offload=False)
-    (rec,) = out["records"]
-    assert rec["ok"] and rec["mesh"] == "16x16"
-    (row,) = out["roofline"]
-    assert row["arch"] == "whisper-base" and row["dominant"] in (
-        "compute", "memory", "collective")
-    assert chip_smoke.DRYRUN_PAIRS == (("chatglm3-6b", "decode_32k"),
-                                       ("granite-3-2b", "train_4k"))
+    """The dryrun phase (`run_dryrun`) on one quick pair on each mesh (the
+    card runs chatglm3-6b decode_32k on both and granite-3-2b train_4k
+    on 16x16, and the offload example): a fresh process per pair, ok
+    records with an int temp_size, their roofline rows."""
+    out = chip_smoke.run_dryrun(
+        str(tmp_path), pairs=(("whisper-base", "long_500k", "single"),
+                              ("whisper-base", "long_500k", "multi")),
+        offload=False)
+    recs = out["records"]
+    assert [r["mesh"] for r in recs] == ["16x16", "2x16x16"]
+    for rec in recs:
+        assert rec["ok"] and type(rec["memory"]["temp_size"]) is int
+    assert [r["mesh"] for r in out["roofline"]] == ["16x16", "2x16x16"]
+    for row in out["roofline"]:
+        assert row["arch"] == "whisper-base" and row["dominant"] in (
+            "compute", "memory", "collective")
+    assert chip_smoke.DRYRUN_PAIRS == (
+        ("chatglm3-6b", "decode_32k", "single"),
+        ("granite-3-2b", "train_4k", "single"),
+        ("chatglm3-6b", "decode_32k", "multi"))

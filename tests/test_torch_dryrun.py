@@ -88,7 +88,14 @@ def test_record_keys_and_argument_bytes_full_config(chatglm_decode):
     assert rec["memory"]["argument_size"] == _ref_argument_bytes(
         jget_config("chatglm3-6b"), "decode_32k")
     assert rec["memory"]["host_argument_size"] == 0
-    assert rec["memory"]["temp_size"] is None     # not measured
+    # measured: the peak of the step's live local bytes (an int), no
+    # temporary on the host, and the reference's argument + temp - alias
+    # as device arguments + temp (outputs inside the peak)
+    mem = rec["memory"]
+    assert type(mem["temp_size"]) is int and mem["temp_size"] > 0
+    assert mem["host_temp_size"] == 0
+    assert rec["bytes_per_device"] == mem["argument_size"] + mem["temp_size"]
+    assert type(rec["bytes_accessed"]) is float and rec["bytes_accessed"] > 0
     # the cache is written in place: its bytes alias the arguments
     assert 0 < rec["memory"]["alias_size"] <= rec["memory"]["output_size"]
     assert rec["flops"] > 0 and "whole step" in rec["flops_scope"]
@@ -179,6 +186,34 @@ def test_constrain_functions(mesh):
         (Shard(0), Replicate())
 
 
+def test_uneven_shards_keep_the_axes_that_divide(mesh):
+    """`act_sharding.placements` given a shape, and
+    `dtensor_forms.even_shards` on a DTensor, drop a dim's outermost
+    sharding axes until the rest divide it (16 rows over ('data',
+    'model') shard over 'model' only; 8 rows over 'data' replicate):
+    DTensor's rules assume even shards, where GSPMD pads (the 2x16x16
+    mesh's 16-row microbatches over 32 data ranks)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.dtensor_forms import even_shards
+    both = ((("data", "model"), None))
+    assert act_sharding.placements(mesh, both) == (Shard(0), Shard(0))
+    assert act_sharding.placements(mesh, both, (512, 4)) == (Shard(0),
+                                                             Shard(0))
+    assert act_sharding.placements(mesh, both, (16, 4)) == (Replicate(),
+                                                            Shard(0))
+    assert act_sharding.placements(mesh, (("data",), None), (8, 4)) == \
+        (Replicate(), Replicate())
+    with FakeTensorMode():
+        x = distribute_tensor(torch.empty(48, 8), mesh,
+                              [Shard(0), Shard(0)])
+        assert even_shards(x).placements == (Replicate(), Shard(0))
+        y = distribute_tensor(torch.empty(512, 8), mesh,
+                              [Shard(0), Shard(0)])
+        assert even_shards(y) is y
+    assert even_shards(torch.ones(3)).shape == (3,)
+
+
 def test_torch_has_the_internals_the_dry_run_patches():
     """The dry run patches two private DTensor methods while a step runs
     and builds its mesh on torch's test-only fake process group
@@ -216,6 +251,44 @@ def test_replaceable_runs_its_plain_body_unless_a_form_is_installed():
 
 
 
+def test_local_counter_counts_a_step_known_by_hand(mesh):
+    """The memory and bytes of a few local ops on DTensors of fake tensors
+    (x (1024, 1024) f32 sharded by rows over 'data': 256 KiB a rank; w
+    replicated: 4 MiB), counted by hand: y = x @ w allocates 256 KiB, z =
+    relu(y) 256 more (the peak, 512 KiB), `del y` frees 256, u = 2 z
+    allocates 256, a view of u and an in-place add allocate nothing, and
+    the view keeps u's bytes after `del u`. Bytes accessed: each op's
+    inputs and output, the view none."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    kib = 1024
+    with FakeTensorMode():
+        x = distribute_tensor(torch.empty(1024, 1024), mesh,
+                              [Shard(0), Replicate()])
+        w = distribute_tensor(torch.empty(1024, 1024), mesh,
+                              [Replicate(), Replicate()])
+        c = dryrun._LocalCounter()
+        with dryrun._dtensor_fixes(c), c:
+            y = x @ w
+            assert c.live == c.peak == 256 * kib
+            z = y.relu()
+            del y
+            assert c.live == 256 * kib and c.peak == 512 * kib
+            u = z * 2
+            v = u.view(-1)
+            u.add_(1)
+            assert c.live == 512 * kib
+            del u
+            assert c.live == 512 * kib and v.to_local().numel() == 64 * 1024
+    assert c.peak == 512 * kib
+    assert c.accessed == ((256 + 4096 + 256)       # mm
+                          + (256 + 256)            # relu
+                          + (256 + 256)            # mul by a scalar
+                          + (256 + 256)) * kib     # add_: read, write
+    del v, z
+    assert c.live == 0
+
+
 def test_local_counter_scales_what_it_counts_inside_a_region():
     """`_LocalCounter.scaled(k)`: each op inside the region counts k
     times (nested regions multiply), and the scale is restored after."""
@@ -236,40 +309,64 @@ C10_SHAPES = {"train_s16": (16, 32, "train"), "prefill_s16": (16, 16,
                                                               "prefill")}
 
 
-@pytest.mark.parametrize("shape_name", list(C10_SHAPES))
-def test_counted_slstm_loop_counts_what_the_full_loop_does(
-        mesh, monkeypatch, shape_name):
-    """C10: the dry run counts the sLSTM's token loop as its first step
-    and one later step scaled by S - 1, forward, recompute and backward
-    (`dtensor_forms.counted_slstm_scan`, installed by `dryrun._contexts`
-    only). At a short sequence (xlstm-1.3b smoke, f32, 2 microbatches)
-    its FLOPs, collective counts and collective bytes equal the full
-    loop's: the loop form (`slstm_scan`, every step on each rank's batch
-    rows), installed here in its place. Elsewhere the loop form stays."""
+@pytest.fixture(scope="module", params=list(C10_SHAPES))
+def c10_records(request, mesh):
+    """(shape name, the counted loop's record, the full loop's record,
+    the shapes the counted form was called with) at a short sequence
+    (xlstm-1.3b smoke, f32, 2 microbatches); the full loop is the loop
+    form (`slstm_scan`, every step on each rank's batch rows), installed
+    in the counted form's place."""
     from repro_torch.launch import dtensor_forms
+    shape_name = request.param
     S, B, kind = C10_SHAPES[shape_name]
-    monkeypatch.setitem(SHAPES, shape_name, InputShape(shape_name, S, B,
-                                                       kind))
     cfg = dataclasses.replace(get_smoke_config("xlstm-1.3b"),
                               dtype="float32")
     counted = dtensor_forms.counted_slstm_scan
     calls = []
 
-    def spy(scaled, plain, *args):
+    def spy(counter, plain, *args):
         calls.append(args[0].shape)
-        return counted(scaled, plain, *args)
-    monkeypatch.setattr(dtensor_forms, "counted_slstm_scan", spy)
-    got = dryrun.run_one("xlstm-1.3b", shape_name, False, microbatches=2,
-                         cfg=cfg)
+        return counted(counter, plain, *args)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(SHAPES, shape_name, InputShape(shape_name, S, B, kind))
+        mp.setattr(dtensor_forms, "counted_slstm_scan", spy)
+        got = dryrun.run_one("xlstm-1.3b", shape_name, False,
+                             microbatches=2, cfg=cfg)
+        mp.setattr(dtensor_forms, "counted_slstm_scan",
+                   lambda counter, plain, *args:
+                   dtensor_forms.slstm_scan(plain, *args))
+        want = dryrun.run_one("xlstm-1.3b", shape_name, False,
+                              microbatches=2, cfg=cfg)
+    assert dtensor_forms.counted_slstm_scan is counted
+    return shape_name, got, want, calls
+
+
+def test_counted_slstm_loop_counts_what_the_full_loop_does(c10_records):
+    """C10: the dry run counts the sLSTM's token loop as steps 0 and 1,
+    one step scaled by S - 3 and the last, forward, recompute and
+    backward (`dtensor_forms.counted_slstm_scan`, installed by
+    `dryrun._contexts` only). At a short sequence its FLOPs, collective
+    counts and collective bytes equal the full loop's. Elsewhere the loop
+    form stays."""
+    from repro_torch.launch import dtensor_forms
+    shape_name, got, want, calls = c10_records
+    S = C10_SHAPES[shape_name][0]
     assert got["ok"], got.get("traceback")
-    assert calls and all(s[1] == S for s in calls)
-    monkeypatch.setattr(dtensor_forms, "counted_slstm_scan",
-                        lambda scaled, plain, *args:
-                        dtensor_forms.slstm_scan(plain, *args))
-    want = dryrun.run_one("xlstm-1.3b", shape_name, False, microbatches=2,
-                          cfg=cfg)
     assert want["ok"], want.get("traceback")
+    assert calls and all(s[1] == S for s in calls)
     assert got["flops"] == want["flops"] > 0
     for key in ("counts", "bytes", "total_bytes"):
         assert got["collectives"][key] == want["collectives"][key], key
     assert dtensor_forms.FORMS["slstm_scan"] is dtensor_forms.slstm_scan
+
+
+def test_counted_slstm_loop_keeps_the_full_loops_peak(c10_records):
+    """A2 with C10: the counted loop's `temp_size` (the peak of the live
+    bytes one rank allocates) equals the full loop's, in the checkpointed
+    train step (forward, recompute, backward) and in prefill: the steps
+    that do not run are stood for by allocations of their saved bytes."""
+    shape_name, got, want, _ = c10_records
+    assert got["ok"] and want["ok"]
+    assert type(got["memory"]["temp_size"]) is int
+    assert got["memory"]["temp_size"] == want["memory"]["temp_size"] > 0
+    assert got["bytes_per_device"] == want["bytes_per_device"]

@@ -13,10 +13,13 @@ process that imports that tree's `chip_smoke.py` and port, and drives
 the path as `chip_smoke._serve_pair` does (a layerkv run on the tight pool,
 then vllm on the pool that fits everything, same weights and prompts)
 without stopping at the first mismatch. Then it prefills each prompt
-alone (B = 1, exclusive prefill) and records the gap between the two
-largest logits at its last position, so a first token that differs
-between policies can be told apart as a near-tie (a gap within bf16
-rounding) or not. With --bf16-f32-reduce, bf16 matrix products keep
+alone (B = 1, exclusive prefill) and records the two largest logits at
+its last position, their gap and one bf16 step at the larger one's
+magnitude, through this checkout's `chip_smoke.solo_top2` and
+`bf16_step`: the helpers of `chip_smoke.check_first_tokens`, which
+accepts a differing first token only as such a near-tie (the two tokens
+the two largest logits, the gap at most one step). This tool asserts
+nothing: it reports every request's numbers. With --bf16-f32-reduce, bf16 matrix products keep
 their split-K reductions in f32
 (`torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
 False`). The process writes OUT_DIR/path_ab_<TAG>_<i>.json and prints a
@@ -25,10 +28,26 @@ summary. Needs a CUDA device.
 from __future__ import annotations
 
 import gc
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+
+
+def _here():
+    """This checkout's `chip_smoke.py` (its `solo_top2` and `bf16_step`,
+    the helpers its first-token check reads; a tree under test may
+    predate them), loaded under a name of its own."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+HERE = _here()
 
 
 def _one(tree: str, tag: str, out: str, f32_reduce: bool) -> None:
@@ -62,23 +81,15 @@ def _one(tree: str, tag: str, out: str, f32_reduce: bool) -> None:
                              prompts, pc["out_len"], seed=0, device="cuda",
                              **pc["mode"])
     vl = {r.rid: list(r.generated) for r in done}
-    last = []
-    note = eng.ex._note_logits
-
-    def keep(logits):
-        last.append(logits.float().reshape(-1, logits.shape[-1])[-1])
-        note(logits)
-    eng.ex._note_logits = keep
     rows = []
     for i, p in enumerate(prompts):
-        eng.ex.prefill(p, len(p))
-        top = torch.topk(last[-1], 2)
+        (t0, l0), (t1, l1) = HERE.solo_top2(eng.ex, p)
         rid = f"r{i}"
         rows.append({"rid": rid, "prompt_len": len(p),
                      "layerkv_first": lk[rid][0], "vllm_first": vl[rid][0],
-                     "solo_top2": top.indices.tolist(),
-                     "solo_gap": float(top.values[0] - top.values[1]),
-                     "logit_std": float(last[-1].std())})
+                     "solo_top2": [t0, t1], "solo_logits": [l0, l1],
+                     "solo_gap": l0 - l1,
+                     "one_bf16_step": HERE.bf16_step(l0)})
     agree = sum(a == b for rid in lk for a, b in zip(lk[rid], vl[rid]))
     total = sum(len(t) for t in lk.values())
     res = {"tree": tree, "tag": tag, "bf16_f32_reduce": f32_reduce,
@@ -94,8 +105,8 @@ def _one(tree: str, tag: str, out: str, f32_reduce: bool) -> None:
     for r in rows:
         print(f"[path_ab]   {r['rid']} len {r['prompt_len']}: layerkv "
               f"{r['layerkv_first']} vllm {r['vllm_first']} solo top2 "
-              f"{r['solo_top2']} gap {r['solo_gap']:.4f} (logit std "
-              f"{r['logit_std']:.3f})", flush=True)
+              f"{r['solo_top2']} gap {r['solo_gap']:.6g} (one bf16 step "
+              f"{r['one_bf16_step']:.6g})", flush=True)
 
 
 def main(argv=None) -> int:
