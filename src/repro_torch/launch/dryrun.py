@@ -27,16 +27,30 @@ What a record holds, against the reference's (compiled XLA) record:
   arguments plus `temp_size`: the reference's `argument + temp - alias`,
   where XLA's temp excludes the outputs and an aliased output reuses its
   argument; here an output not written in place is inside the peak and
-  one written in place allocates nothing.
+  one written in place allocates nothing. The peak is that of the plan
+  the card runs: attention is the card's flash kernels (the buffers
+  their wrapper allocates and saves, no Sq x Skv score block:
+  `dtensor_forms.counted_attention`), and FSDP-sharded layer weights
+  are gathered where each block uses them and freed after it (inside
+  an activation checkpoint, and again in its recompute:
+  `model.layer_weights`), so a rank holds one layer's gathered weights
+  at a time, as GSPMD's layer scan does; the leaves outside the layer
+  stacks are gathered once for the step (`specs.sharded_model`).
 * `flops`: the whole step, per rank: `torch.utils.flop_counter`'s
-  formulas over the local ops one rank runs (`_LocalCounter`). Unlike
-  XLA's `cost_analysis`, which counts a scan body once, the port's
-  layer and microbatch loops are Python loops: `flops_scope` says so.
-  `bytes_accessed` is the local bytes those ops read and write, eager
-  and unfused (`bytes_accessed_scope`), so at or above what XLA's fused
-  count would report.
+  formulas over the local ops one rank runs (`_LocalCounter`), and for
+  attention the plain version's products over the whole Sq x Skv, by
+  formula. Unlike XLA's `cost_analysis`, which counts a scan body once,
+  the port's layer and microbatch loops are Python loops: `flops_scope`
+  says so. `bytes_accessed` is the local bytes those ops read and
+  write, eager and unfused, and for attention the flash kernels' floor
+  (`bytes_accessed_scope`), so at or above what XLA's fused count would
+  report.
 * `collectives`: counts and result bytes per kind under DTensor's own
-  op names (`_c10d_functional.*`), for the whole step.
+  op names (`_c10d_functional.*`), for the whole step. With FSDP: one
+  all-gather per sharded leaf of a layer each time its block runs (a
+  checkpointed block's forward and recompute, each microbatch), one
+  reduce-scatter per such leaf as its gradient in each microbatch's
+  backward, and one of each per sharded leaf outside the stacks.
 * `notes`: each redistribution DTensor needed that GSPMD makes silently
   (`dtensor_forms.notes`).
 
@@ -85,8 +99,10 @@ MICROBATCH = {
 
 BYTES_ACCESSED_SCOPE = (
     "eager and unfused: each local op's inputs (once each) and outputs, "
-    "views excepted, scaled as the FLOPs are; at or above what XLA's "
-    "fused cost_analysis counts")
+    "views excepted, scaled as the FLOPs are, but attention as the flash "
+    "kernels' floor (each operand of a call read or written once, "
+    "forward and backward); at or above what XLA's fused cost_analysis "
+    "counts")
 
 FLOPS_SCOPE = ("whole step: every layer and microbatch loop runs in "
                "Python and is counted each time it runs, the sLSTM's "
@@ -172,6 +188,21 @@ class _LocalCounter(TorchDispatchMode):
             yield
         finally:
             self.scale = prev
+
+    @contextlib.contextmanager
+    def allocating(self):
+        """Inside the context ops count memory only: a form that stands
+        for a kernel allocates its buffers here and `charge`s the
+        kernel's FLOPs and bytes by formula
+        (`dtensor_forms.counted_attention`)."""
+        with self.scaled(0):
+            yield
+
+    def charge(self, flops: int, accessed: int):
+        """Add FLOPs and bytes accessed counted by formula, scaled as an
+        op here would be."""
+        self.flops += self.scale * flops
+        self.accessed += self.scale * accessed
 
     @contextlib.contextmanager
     def scaled_nodes(self, lo: int, hi: int, k: int):
@@ -273,6 +304,12 @@ TORCH_INTERNALS = (
     # `_sequence_nr` `_LocalCounter.scaled_nodes` reads)
     ("torch._C._autograd", "_top_saved_tensors_default_hooks"),
     ("torch._C", "_current_autograd_node"),
+    # the sharding caches a new process group empties
+    # (`mesh._clear_sharding_caches`)
+    ("torch._C", "_clear_DTensor_sharding_propagator_cache"),
+    ("torch.distributed.tensor",
+     "DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding"
+     ".cache_clear"),
 )
 
 
@@ -338,7 +375,9 @@ def _dtensor_fixes(counter):
 
 def _contexts(cfg, shape_name, mesh, multi_pod, counter=None):
     """The model's DTensor forms (`dtensor_forms`; with a `counter`, the
-    sLSTM's token loop counted by it, not run) and the reference's
+    sLSTM's token loop counted by it, not run, and attention as the
+    card's flash kernels: their buffers, their FLOPs and bytes counted
+    by formula) and the reference's
     activation / KV / MoE / state specs for this pair, as one context."""
     kind = SHAPES[shape_name].kind
     dp = ("pod", "data") if multi_pod else ("data",)
@@ -347,6 +386,8 @@ def _contexts(cfg, shape_name, mesh, multi_pod, counter=None):
     if counter is not None:
         table["slstm_scan"] = functools.partial(
             dtensor_forms.counted_slstm_scan, counter)
+        table["attention"] = functools.partial(
+            dtensor_forms.counted_attention, counter)
     stack.enter_context(forms(table))
     # sequence-parallel activation sharding for full-sequence passes
     # (Megatron-SP): the checkpointed carry lives (batch, seq)-sharded

@@ -17,6 +17,7 @@ import weakref
 
 import torch
 
+from repro_torch.launch.mesh import data_axes
 from repro_torch.models.act_sharding import even_placements, is_dtensor
 from repro_torch.models.ssm import slstm_step
 
@@ -24,8 +25,9 @@ _NOTES: set = set()
 
 
 def notes() -> list:
-    """The redistributions `split_heads` / `gqa_heads` made since the last
-    `clear_notes`, one line each."""
+    """The redistributions `split_heads`, `gqa_heads` and
+    `gather_stack_axes` made since the last `clear_notes`, one line
+    each."""
     return sorted(_NOTES)
 
 
@@ -143,19 +145,14 @@ def reduce_partials(x):
         Replicate() if p.is_partial() else p for p in x.placements))
 
 
-def attention(plain, q, k, v, **kw):
-    """`plain(q, k, v, **kw)` (the flash attention), on plain tensors as
-    it is. On DTensors (K/V first given whole heads: `gqa_heads`)
-    sharded alike on batch and heads (never on the sequence) attention
-    is local to each shard, as GSPMD partitions it: `plain` runs on the
-    local shards, as one tile of the whole sequence (a
-    fake step holds no memory; the same function and FLOPs as the tiled
-    loop in far fewer dispatches), and the result is a DTensor with q's
-    placements. (Flattening a data-sharded batch with model-sharded heads
-    into one batched product leaves a strided shard, whose backward
-    DTensor would gather in full.)"""
-    if not is_dtensor(q):
-        return plain(q, k, v, **kw)
+def _attention_local(fn, q, k, v, kw):
+    """`fn(q, k, v, kw)` on the local shards of DTensors q, k, v (K/V
+    first given whole heads: `gqa_heads`), laid out alike on batch and
+    heads (never on the sequence): attention is then local to each
+    shard, as GSPMD partitions it. The result is a DTensor with q's
+    placements. (Flattening a data-sharded batch with model-sharded
+    heads into one batched product leaves a strided shard, whose
+    backward DTensor would gather in full.)"""
     from torch.distributed.tensor import DTensor
     q, k, v = gqa_heads(q, k, v)
     q = reduce_partials(q)
@@ -164,11 +161,108 @@ def attention(plain, q, k, v, **kw):
             for t in (k, v))
     if is_dtensor(kw.get("kv_len")):
         kw["kv_len"] = kw["kv_len"].to_local()
-    out = plain(q.to_local(), k.to_local(), v.to_local(),
-                q_chunk=q.to_local().shape[1],
-                kv_chunk=k.to_local().shape[1], **kw)
+    out = fn(q.to_local(), k.to_local(), v.to_local(), kw)
     return DTensor.from_local(out, mesh, pl, shape=q.shape,
                               stride=q.stride())
+
+
+def attention(plain, q, k, v, **kw):
+    """`plain(q, k, v, **kw)` (the flash attention, tiled), on plain
+    tensors as it is and on DTensors' local shards (`_attention_local`):
+    the values of the model's own function. The dry run installs
+    `counted_attention` in its place."""
+    if not is_dtensor(q):
+        return plain(q, k, v, **kw)
+    return _attention_local(lambda q, k, v, kw: plain(q, k, v, **kw),
+                            q, k, v, kw)
+
+
+def counted_attention(counter, plain, q, k, v, **kw):
+    """The dry run's form of `attention`: on DTensors' local shards
+    (`_attention_local`) the card's flash kernels as a `_LocalCounter`
+    sees them (`_CountedFlash`), with no values (the dry run's tensors
+    are fake): the buffers the kernels' wrapper allocates and keeps
+    (`kernels/flash_prefill.py`: out, and with a gradient to come the
+    row log-sum-exp; `_Flash` saves q, k, v, out, lse; its backward
+    allocates dq, dk, dv and `delta`), no Sq x Skv score block, the
+    plain version's FLOPs by formula and the kernels' bytes. On plain
+    tensors `plain`."""
+    if not is_dtensor(q):
+        return plain(q, k, v, **kw)
+
+    def flash(q, k, v, kw):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return _CountedFlash.apply(counter, q, k, v)
+        return _counted_flash_fwd(counter, q, k, v, keep_lse=False)[0]
+    return _attention_local(flash, q, k, v, kw)
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _flash_flops(q, k) -> int:
+    """F = B H Sq Skv D: one of the flash call's products is 2F."""
+    B, Sq, H, D = q.shape
+    return B * H * Sq * k.shape[1] * D
+
+
+def _counted_flash_fwd(counter, q, k, v, keep_lse: bool):
+    """The forward kernel's buffers, out and (`keep_lse`) lse, allocated
+    under `counter`, its FLOPs and bytes charged: (out, lse or None)."""
+    B, Sq, H, _ = q.shape
+    with counter.allocating():
+        out = torch.empty_like(q)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32,
+                          device=q.device) if keep_lse else None
+    counter.charge(4 * _flash_flops(q, k),
+                   _nbytes(q, k, v, *(t for t in (out, lse)
+                                      if t is not None)))
+    return out, lse
+
+
+class _CountedFlash(torch.autograd.Function):
+    """`flash_prefill._Flash` as the dry run counts it
+    (`counted_attention`). q (B, Sq, H, D), k, v (B, Skv, KV, D).
+
+    Memory: the forward allocates out (q's shape and dtype) and lse (B,
+    H, Sq) f32 and saves q, k, v, out, lse (the first forward of an
+    activation checkpoint keeps none of them: the checkpoint's hooks);
+    without a backward to come only out is allocated
+    (`_counted_flash_fwd`). The backward allocates dq, dk, dv and delta
+    (B, H, Sq) f32, its scratch, as `flash_attention_bwd` does.
+
+    FLOPs: the plain version's (`ref.flash_attention_reference`, which
+    computes every tile of the whole Sq x Skv, masked or not): F = B H
+    Sq Skv D, two products of 2F forward, and in the backward 2F for
+    each product operand whose gradient is wanted (P's when q's or k's
+    is). Bytes accessed: the kernels' floor, each operand of a call
+    read or written once (the backward's delta written once and read
+    once)."""
+
+    @staticmethod
+    def forward(ctx, counter, q, k, v):
+        out, lse = _counted_flash_fwd(counter, q, k, v, keep_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.counter = counter
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        counter = ctx.counter
+        q, k, v, out, lse = ctx.saved_tensors
+        F = _flash_flops(q, k)
+        dout = dout.contiguous()
+        with counter.allocating():
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            delta = torch.empty_like(lse)
+        _, gq, gk, gv = ctx.needs_input_grad
+        products = gq + gk + gv + (gq or gk)
+        counter.charge(2 * F * products, _nbytes(
+            q, k, v, out, dout, lse, dq, dk, dv, delta, delta))
+        del delta
+        return None, dq, dk, dv
 
 
 def norm(plain, x, *args, **kwargs):
@@ -623,6 +717,48 @@ def write_rows(plain, cache, rows, idx, val):
     return cache
 
 
+def gather_data_axes(x):
+    """A DTensor weight with its data-axis shards gathered (the FSDP
+    all-gather; its gradient comes back as the reduce-scatter), its
+    'model' shards kept. Identity on a plain tensor."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    dp = {mesh.mesh_dim_names.index(a) for a in data_axes(mesh)}
+    pl = tuple(Replicate() if i in dp else p
+               for i, p in enumerate(x.placements))
+    return x if pl == tuple(x.placements) else x.redistribute(mesh, pl)
+
+
+def gather_stack_axes(x, depth: int, name: str):
+    """A layer stack `x` (its first `depth` dims the stack axes) with the
+    mesh dims that shard a stack axis gathered, noted: a per-layer view
+    of a stack sharded on its layer axis would gather the whole stack at
+    every view (GSPMD reshards silently). Identity otherwise."""
+    if not is_dtensor(x):
+        return x
+    dims = [i for i, p in enumerate(x.placements)
+            if p.is_shard() and p.dim < depth]
+    if not dims:
+        return x
+    names = [x.device_mesh.mesh_dim_names[i] for i in dims]
+    _NOTES.add(f"{name}: FSDP shards a layer axis over {names}; gathered "
+               f"along it once for the step, before the per-layer views")
+    return _replicate_dims(x, dims)
+
+
+def layer_weights(plain, lp):
+    """One layer's weights at their use (`model.layer_weights`), each
+    DTensor leaf's FSDP shards gathered there (`gather_data_axes`): one
+    all-gather per sharded leaf each time a block runs (its forward, and
+    a checkpointed block's recompute), one reduce-scatter per leaf as its
+    gradient; between layers a rank keeps only its shards, as GSPMD
+    gathers inside the layer scan."""
+    from torch.utils._pytree import tree_map
+    return tree_map(gather_data_axes, plain(lp))
+
+
 def routed_dropless(plain, p, xf, flat_e, counts, gate2, T, K, E):
     """The MoE's dropless routing: a fake step cannot read the counts on
     the host, so the reference's own dropless form, the capacity dispatch
@@ -641,4 +777,5 @@ FORMS = {
     "routed_dropless": routed_dropless, "bincount": bincount,
     "replicated": replicated, "gathered": gathered,
     "log_sigmoid": log_sigmoid, "slstm_scan": slstm_scan,
+    "layer_weights": layer_weights,
 }

@@ -276,18 +276,32 @@ def _mb_slice(x, i: int, k: int, B: int, dp: int):
     return even_shards(x.narrow(dim, i * m, m))
 
 
-def _gather_data_axes(x, mesh):
-    """A DTensor weight with its data-axis shards gathered (the FSDP
-    all-gather; its gradient comes back as the reduce-scatter), its
-    'model' shards kept. Identity on a plain tensor."""
-    from torch.distributed.tensor import DTensor, Replicate
-    if not isinstance(x, DTensor):
-        return x
-    dp = {mesh.mesh_dim_names.index(a) for a in data_axes(mesh)}
-    pl = tuple(Replicate() if i in dp else p
-               for i, p in enumerate(x.placements))
-    return x if pl == tuple(x.placements) \
-        else x.redistribute(x.device_mesh, pl)
+# the layer-stacked params' top-level keys -> their number of stack axes
+# ((L, ...) or a superblock's (n_sb, per_sb, ...))
+LAYER_STACKS = {"layers": 1, "enc_layers": 1, "dec_layers": 1,
+                "mamba_sb": 2, "mlstm_sb": 2, "slstm_sb": 1}
+
+
+def sharded_model(cfg: ModelConfig, params: Dict[str, Any]):
+    """The model on `params` ({flat key: DTensor at its spec}) as the
+    step runs it. A leaf outside the layer stacks (embedding, final
+    norm, unembedding, zamba2's shared block) has its data-axis (FSDP)
+    shards gathered once for the step. The layer stacks reach the model
+    sharded, and each layer's weights are gathered where its block uses
+    them (`model.layer_weights`, whose DTensor form is
+    `dtensor_forms.layer_weights`), as GSPMD gathers inside the layer
+    scan; given the sharded weights themselves, DTensor's matmul
+    strategy would gather the activations instead. A stack sharded on a
+    stack axis (codeqwen1.5-7b's (32, 4096) biases in training) is
+    first gathered along it (`dtensor_forms.gather_stack_axes`)."""
+    from repro_torch.launch.dtensor_forms import (gather_data_axes,
+                                                  gather_stack_axes)
+    out = {}
+    for n, x in params.items():
+        depth = LAYER_STACKS.get(n.split("/")[0])
+        out[n] = gather_data_axes(x) if depth is None \
+            else gather_stack_axes(x, depth, n)
+    return build_model(cfg, unflatten_params(out), device="cpu")
 
 
 def _grad(p):
@@ -318,15 +332,6 @@ def input_specs(cfg: ModelConfig, shape_name: str, mesh,
     for a in data_axes(mesh):
         dp_size *= axis_size(mesh, a)
 
-    def build(params):
-        """The model on `params` with their data-axis (FSDP) shards
-        gathered once for the step: GSPMD gathers FSDP weights where they
-        are used, DTensor only where it is told to (given the sharded
-        weights, its matmul strategy gathers the activations instead)."""
-        return build_model(cfg, unflatten_params(
-            {n: _gather_data_axes(x, mesh) for n, x in params.items()}),
-            device="cpu")
-
     if shp.kind == "train":
         with mode:
             batch = train_batch_struct(cfg, shp)
@@ -343,7 +348,7 @@ def input_specs(cfg: ModelConfig, shape_name: str, mesh,
         out_shard = (p_shard, o_shard, ())
 
         def train_step(params, opt_state, batch):
-            model = build(params)
+            model = sharded_model(cfg, params)
             model.requires_grad_(True)
             flat = flatten_params(model.params)
             if k <= 1:
@@ -394,7 +399,7 @@ def input_specs(cfg: ModelConfig, shape_name: str, mesh,
         c_shard = cache_shardings(mesh, cache, B)
 
         def prefill_step(params, batch, cache):
-            return build(params).prefill(batch, cache)
+            return sharded_model(cfg, params).prefill(batch, cache)
 
         prefill_step.fake_mode = mode
         return (prefill_step, (p_struct, batch, cache),
@@ -409,7 +414,7 @@ def input_specs(cfg: ModelConfig, shape_name: str, mesh,
     t_shard = batch_shardings(mesh, {"t": tokens}, B)["t"]
 
     def serve_step(params, tokens, cache):
-        return build(params).decode(tokens, cache)
+        return sharded_model(cfg, params).decode(tokens, cache)
 
     serve_step.fake_mode = mode
     return (serve_step, (p_struct, tokens, cache),

@@ -16,9 +16,11 @@ The seam (no twin in the reference). A few operations of the model
 need another form on DTensors, where GSPMD partitions the plain one
 silently and DTensor refuses it or gathers in full: the head view, the
 attention calls, the norms' input, the loss, the embedding, the cache
-writes, the MoE's dropless dispatch, the sLSTM's token loop. The model
-code calls each through a function decorated `replaceable`, which runs
-its plain body unless a form is installed under its name (`forms`).
+writes, the MoE's dropless dispatch, the sLSTM's token loop, and a
+layer's weights at their use (where the dry run gathers FSDP shards).
+The model code calls each through a function decorated `replaceable`,
+which runs its plain body unless a form is installed under its name
+(`forms`).
 The dry run installs its DTensor forms (`repro_torch.launch.
 dtensor_forms`) for the length of a step; every other path runs the
 plain bodies, and nothing in the model tests for DTensor.

@@ -17,7 +17,9 @@ positions); encdec `enc_embeds` (B, T, d) and `tokens`; hybrid and ssm
 `tokens` (one S for the batch); all `labels` for the loss.
 
 Layers run as a Python loop over the layer-stacked params (the
-reference's `lax.scan`); the hybrid's and xlstm's superblocks are
+reference's `lax.scan`), each block taking its weights through
+`layer_weights` (the identity; the dry run gathers FSDP shards there);
+the hybrid's and xlstm's superblocks are
 stacked twice, (n_sb, per_sb, ...), and `train_logits` checkpoints a
 whole superblock, as the reference does. MoE blocks run
 `moe.moe_ffn`: dropless on the serving and decode paths, through the
@@ -79,6 +81,17 @@ def unflatten_params(flat):
             node = node.setdefault(part, {})
         node[leaf] = v
     return tree
+
+
+@replaceable
+def layer_weights(lp):
+    """One layer's weights where the layer uses them: the identity. It is
+    called inside each block (so inside an activation checkpoint and
+    again in its recompute); the dry run's form gathers the weights'
+    FSDP shards there (`launch.dtensor_forms.layer_weights`), so a rank
+    holds one layer's gathered weights at a time, as GSPMD's layer scan
+    does."""
+    return lp
 
 
 def unbind_layers(tree):
@@ -375,8 +388,8 @@ class DecoderModel(_Model):
         positions = self._positions(batch, B, S)
 
         def block(x, lp):
-            x, _, aux = block_forward(cfg, lp, constrain_compute(x),
-                                      positions)
+            x, _, aux = block_forward(cfg, layer_weights(lp),
+                                      constrain_compute(x), positions)
             return constrain(x), aux.get("lb_loss"), aux.get("dropped_frac")
 
         lbs, drops = [], []
@@ -415,9 +428,10 @@ class DecoderModel(_Model):
         S_buf = cache["k"].shape[2]
         W = min(S, S_buf)   # sliding-window cache keeps the trailing W
         for l in range(cfg.n_layers):
-            x, kv, _ = block_forward(cfg, layer_params(p["layers"], l),
-                                     constrain_compute(x), positions,
-                                     kv_len=kv_len, dropless=dropless)
+            lp = layer_weights(layer_params(p["layers"], l))
+            x, kv, _ = block_forward(cfg, lp, constrain_compute(x),
+                                     positions, kv_len=kv_len,
+                                     dropless=dropless)
             x, kv = constrain(x), constrain_kv(kv)
             for name, t in zip(("k", "v"), kv):
                 t = t[:, S - W:]
@@ -459,8 +473,8 @@ class DecoderModel(_Model):
                                      self.dtype) for n in ("k", "v"))
             else:
                 kc, vc = cache["k"][l], cache["v"][l]   # views
-            x = block_decode(cfg, layer_params(p["layers"], l), x, kc, vc,
-                             kv_len, positions, write_idx)
+            x = block_decode(cfg, layer_weights(layer_params(p["layers"], l)),
+                             x, kc, vc, kv_len, positions, write_idx)
             if cfg.kv_quant:
                 for name, c in (("k", kc), ("v", vc)):
                     codes, scale = quantize(c[rows, write_idx])
@@ -517,6 +531,7 @@ class EncDecModel(_Model):
         x = enc_embeds.to(self.dtype) \
             + layers.sinusoid_pos_emb(pos, cfg.d_model).to(self.dtype)
         for lp in unbind_layers(p["enc_layers"]):
+            lp = layer_weights(lp)
             x = constrain_compute(x)
             h = layers.apply_norm(cfg, lp["attn_norm"], x)
             a, _ = layers.self_attention(cfg, lp["attn"], h, pos,
@@ -536,6 +551,7 @@ class EncDecModel(_Model):
     def _dec_block(self, lp, x, pos, enc):
         """Full-sequence decoder block: (x, (k, v), (ck, cv))."""
         cfg = self.cfg
+        lp = layer_weights(lp)
         x = constrain_compute(x)
         h = layers.apply_norm(cfg, lp["attn_norm"], x)
         a, kv = layers.self_attention(cfg, lp["attn"], h, pos, causal=True)
@@ -612,7 +628,7 @@ class EncDecModel(_Model):
         x, pos = self._dec_embed(tokens.reshape(B, 1), offset=cache["len"])
         write_idx, kv_len = decode_slots(cache)
         for l in range(cfg.n_layers):
-            lp = layer_params(p["dec_layers"], l)
+            lp = layer_weights(layer_params(p["dec_layers"], l))
             h = layers.apply_norm(cfg, lp["attn_norm"], x)
             x = x + attn_decode(cfg, lp["attn"], h, cache["k"][l],
                                 cache["v"][l], kv_len, pos, write_idx)
@@ -691,6 +707,7 @@ class HybridModel(_Model):
     def _mamba_layer(self, lp, x):
         """One Mamba2 layer over a whole sequence, from a zero state:
         (x, (ssd_state, conv_tail))."""
+        lp = layer_weights(lp)
         h = layers.apply_norm(self.cfg, lp["norm"], x)
         out, st = ssm.mamba_forward(self.cfg, lp["mamba"], h)
         return x + out, st
@@ -785,7 +802,7 @@ class HybridModel(_Model):
             h = layers.apply_norm(cfg, sp["mlp_norm"], x)
             x = x + layers.mlp(cfg, sp["mlp"], h)
             for j in range(per_sb):
-                lp = layer_params(p["mamba_sb"], (i, j))
+                lp = layer_weights(layer_params(p["mamba_sb"], (i, j)))
                 h = layers.apply_norm(cfg, lp["norm"], x)
                 out, (st, conv) = ssm.mamba_decode(
                     cfg, lp["mamba"], h, cache["ssm_state"][i, j],
@@ -849,8 +866,10 @@ class XLSTMModel(_Model):
         def superblock(x, mp, sp):
             x = constrain_compute(x)
             for lp in unbind_layers(mp):
+                lp = layer_weights(lp)
                 h = layers.apply_norm(cfg, lp["norm"], x)
                 x = x + ssm.mlstm_forward(cfg, lp["mlstm"], h)[0]
+            sp = layer_weights(sp)
             h = layers.apply_norm(cfg, sp["norm"], x)
             return constrain(x + ssm.slstm_forward(cfg, sp["slstm"], h)[0])
 
@@ -891,7 +910,7 @@ class XLSTMModel(_Model):
         for i in range(n_sb):
             x = constrain_compute(x)
             for j in range(n_m):
-                lp = layer_params(p["mlstm_sb"], (i, j))
+                lp = layer_weights(layer_params(p["mlstm_sb"], (i, j)))
                 h = layers.apply_norm(cfg, lp["norm"], x)
                 st = tuple(cache[k][i, j] for k in mkeys)
                 out, st = (ssm.mlstm_decode(cfg, lp["mlstm"], h, st)
@@ -900,7 +919,7 @@ class XLSTMModel(_Model):
                 x = x + out
                 for k, t in zip(mkeys, st):
                     cache[k][i, j] = t
-            sp = layer_params(p["slstm_sb"], i)
+            sp = layer_weights(layer_params(p["slstm_sb"], i))
             h = layers.apply_norm(cfg, sp["norm"], x)
             out, st = ssm.slstm_forward(cfg, sp["slstm"], h,
                                         state=tuple(cache[k][i]

@@ -392,16 +392,28 @@ def slstm_forward(cfg: ModelConfig, p, x, *, state=None):
     if state is None:
         z = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
         state = (z, z, z - 10.0, z)
-    hs, state = slstm_scan(pre, *state, p["r_gates"])
+    hs, state = slstm_scan(pre, *state, recurrent_weights(p["r_gates"]))
     hs = pin_grad(hs.reshape(B, S, d).to(x.dtype))
     hs = layers.rmsnorm(hs, p["norm_w"])
     return hs @ p["w_out"], state
 
 
+def recurrent_weights(r):
+    """`r_gates` (4, H, hd, hd) laid out once for the token steps'
+    product: (H, hd, 4 hd), each head's four gate blocks side by side, so
+    every step's batched product reads it as it lies (an einsum over
+    `r_gates` itself copies it into that layout at every token, and
+    autograd keeps each copy)."""
+    G, H, hd, _ = r.shape
+    return r.permute(1, 2, 0, 3).reshape(H, hd, G * hd)
+
+
 @replaceable
 def slstm_scan(pre, c, n, m, h, r):
     """The sLSTM recurrence over pre (B, S, 4, H, hd) from the state (c,
-    n, m, h): (every step's h stacked (B, S, H, hd), the last state)."""
+    n, m, h), with the recurrent weights r laid out by
+    `recurrent_weights` (H, hd, 4 hd): (every step's h stacked (B, S, H,
+    hd), the last state)."""
     one = torch.ones((), dtype=torch.float32, device=pre.device)
     hs = []
     for t in range(pre.shape[1]):
@@ -412,8 +424,11 @@ def slstm_scan(pre, c, n, m, h, r):
 
 def slstm_step(pre_t, c, n, m, h, r, one):
     """One token of the sLSTM recurrence: pre_t (B, 4, H, hd) and the
-    state (c, n, m, h) to the next state; `one` is a f32 scalar 1."""
-    g = pre_t + torch.einsum("ghde,bhd->bghe", r, h)  # (B, 4, H, hd)
+    state (c, n, m, h) to the next state, r laid out by
+    `recurrent_weights`; `one` is a f32 scalar 1."""
+    B, G, H, hd = pre_t.shape
+    rh = torch.bmm(h.transpose(0, 1), r)                # (H, B, 4 hd)
+    g = pre_t + rh.reshape(H, B, G, hd).permute(1, 2, 0, 3)
     ig, fg, zg, og = g.unbind(1)
     logf = F.logsigmoid(fg)
     m_new = torch.maximum(logf + m, ig)

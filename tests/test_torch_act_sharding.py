@@ -4,9 +4,12 @@ real CPU processes (`gloo` on localhost) form a (2, 2) and a (1, 4)
 inputs to the port's specs (`launch.specs`, FSDP included), and run the
 model on DTensors under the reference's activation specs, as
 `launch.dryrun` does on fake tensors, with the dry run's DTensor forms
-installed (`launch.dtensor_forms`). The loss, every gradient, and the
-prefill + decode logits must equal the plain model's on the same
-weights (f32, atol 1e-5: sums taken in another order). The (1, 4) mesh
+installed (`launch.dtensor_forms`): the model built by
+`specs.sharded_model`, so each layer's FSDP shards are gathered where
+its block uses them and its gradient comes back reduce-scattered. The
+loss, every gradient, and the prefill + decode logits must equal the
+plain model's on the same weights (f32, atol 1e-5: sums taken in
+another order). The (1, 4) mesh
 splits granite-3-2b smoke's 2 KV heads over 4 ranks, so the forms of
 `split_heads` and `attention` (`gqa_heads`) run; the (2, 2) mesh the
 vocab-parallel loss, the flash-decoding over the sequence-sharded cache
@@ -94,7 +97,7 @@ def _check(arch, mesh_shape, serve, dataclasses):
     from repro_torch.launch.dryrun import _contexts
     from repro_torch.models import build_model
     from repro_torch.models.act_sharding import placements
-    from repro_torch.models.model import flatten_params, unflatten_params
+    from repro_torch.models.model import flatten_params
 
     mesh = init_device_mesh("cpu", mesh_shape,
                             mesh_dim_names=("data", "model"))
@@ -126,9 +129,7 @@ def _check(arch, mesh_shape, serve, dataclasses):
     want_loss, _ = plain.loss(batch)
     want_loss.backward()
     with _contexts(cfg, "train_4k", mesh, False), implicit_replication():
-        model = build_model(cfg, unflatten_params(
-            {k: specs._gather_data_axes(v, mesh) for k, v in
-             dparams.items()}), device="cpu")
+        model = specs.sharded_model(cfg, dparams)
         model.requires_grad_(True)
         loss, _ = model.loss(dbatch)
         loss.backward()
@@ -142,9 +143,7 @@ def _check(arch, mesh_shape, serve, dataclasses):
     with torch.no_grad():
         want_p, cache = plain.prefill({"tokens": tokens}, cache)
         want_d, _ = plain.decode(want_p.argmax(-1), cache)
-        model = build_model(cfg, unflatten_params(
-            {k: specs._gather_data_axes(v, mesh) for k, v in
-             dparams.items()}), device="cpu")
+        model = specs.sharded_model(cfg, dparams)
         dcache = model.init_cache(B, S + 8)
         c_spec = specs.cache_shardings(mesh, dcache, B)
         dcache = {k: (distribute_tensor(v, mesh, placements(mesh, c_spec[k]))
