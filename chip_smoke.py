@@ -251,14 +251,15 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            losses, tokens/s, TTFT, offload / reload counts and the
            stream agreement (on a mismatch the diverging step's top-2
            logit gap in f32, teacher-forced at B 1).
-  dryrun   `python -m repro_torch.launch.dryrun` in a subprocess on two
-           pairs of the 16x16 placeholder mesh (CPU only, fake tensors:
-           no kernel runs), chatglm3-6b x decode_32k and granite-3-2b x
-           train_4k, then `roofline.analysis` over their records (the
+  dryrun   `python -m repro_torch.launch.dryrun` in a subprocess a
+           pair (CPU only, fake tensors: no kernel runs): chatglm3-6b x
+           decode_32k on the 16x16 and 2x16x16 placeholder meshes,
+           granite-3-2b x train_4k and deepseek-moe-16b x prefill_32k on
+           16x16, then `roofline.analysis` over their records (the
            H100's spec-sheet peaks), then `python -m
-           repro_torch.examples.offload_dryrun`. Both records must be
-           ok; prints bytes per rank, FLOPs, collective counts and the
-           three roofline terms.
+           repro_torch.examples.offload_dryrun`. Every record must be
+           ok and fit the 80 GB HBM; prints bytes per rank, FLOPs,
+           collective counts and the three roofline terms.
   profile  (only with --profile) torch.profiler over a few decode-only
            steps of an exclusive vllm llama2-7b run at B = 8, over one
            more layerkv run of the fused path (the paged kernels' device
@@ -3621,7 +3622,8 @@ def phase_examples(profile=False):
 
 DRYRUN_PAIRS = (("chatglm3-6b", "decode_32k", "single"),
                 ("granite-3-2b", "train_4k", "single"),
-                ("chatglm3-6b", "decode_32k", "multi"))
+                ("chatglm3-6b", "decode_32k", "multi"),
+                ("deepseek-moe-16b", "prefill_32k", "single"))
 
 
 def run_dryrun(out_dir, pairs=DRYRUN_PAIRS, offload=True):
@@ -3629,8 +3631,9 @@ def run_dryrun(out_dir, pairs=DRYRUN_PAIRS, offload=True):
     repro_torch.launch.dryrun` process (the process group is
     process-global) appending to one records file, the roofline over
     it, and the offload example in its own process. Returns the records
-    and the roofline rows; raises unless every record is ok and carries
-    an int `temp_size` (the peak of a rank's live bytes)."""
+    and the roofline rows; raises unless every record is ok, carries an
+    int `temp_size` (the peak of a rank's live bytes) and fits the
+    HBM."""
     import dataclasses as dc
     import torch
     from repro_torch.launch.dryrun import missing_torch_internals
@@ -3676,6 +3679,9 @@ def run_dryrun(out_dir, pairs=DRYRUN_PAIRS, offload=True):
              f"{rec['wall_s']} s on the CPU; notes {rec['notes']}")
     for r in rows:
         _say(f"[dryrun] roofline {r.row()}")
+    over = [r.row() for r in rows if not r.fits_hbm]
+    if over:
+        raise AssertionError(f"[dryrun] OVER-HBM: {over}")
     out = {"records": recs, "roofline": [dc.asdict(r) for r in rows]}
     if offload:
         proc = subprocess.run(

@@ -35,7 +35,13 @@ What a record holds, against the reference's (compiled XLA) record:
   an activation checkpoint, and again in its recompute:
   `model.layer_weights`), so a rank holds one layer's gathered weights
   at a time, as GSPMD's layer scan does; the leaves outside the layer
-  stacks are gathered once for the step (`specs.sharded_model`).
+  stacks are gathered once for the step (`specs.sharded_model`). What
+  the reference's specs keep sharded stays sharded: each rank builds
+  its own shard of the MoE's (E, C, d) capacity buffer by an
+  all-to-all (`dtensor_forms.dispatch`, `combine`), runs Mamba2's conv
+  and SSD on its own channels and heads (`in_proj`, `ssd_chunked`), and
+  a microbatch that does not split over the data ranks comes from its
+  own rows (`specs._mb_slice`); where a form cannot, `notes` says so.
 * `flops`: the whole step, per rank: `torch.utils.flop_counter`'s
   formulas over the local ops one rank runs (`_LocalCounter`), and for
   attention the plain version's products over the whole Sq x Skv, by
@@ -304,6 +310,14 @@ TORCH_INTERNALS = (
     # `_sequence_nr` `_LocalCounter.scaled_nodes` reads)
     ("torch._C._autograd", "_top_saved_tensors_default_hooks"),
     ("torch._C", "_current_autograd_node"),
+    # the MoE forms' all-to-all, the microbatch slice's all-gather, the
+    # token mesh dims flattened into one group, and the fake step's test
+    # (`dtensor_forms._MoePlan`, `microbatch_rows`)
+    ("torch.distributed._functional_collectives",
+     "all_to_all_single_autograd"),
+    ("torch.distributed._functional_collectives", "all_gather_tensor"),
+    ("torch.distributed.device_mesh", "DeviceMesh._flatten"),
+    ("torch._subclasses.fake_tensor", "is_fake"),
     # the sharding caches a new process group empties
     # (`mesh._clear_sharding_caches`)
     ("torch._C", "_clear_DTensor_sharding_propagator_cache"),

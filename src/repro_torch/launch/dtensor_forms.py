@@ -13,6 +13,7 @@ the dry run's record says why its collective is there.
 from __future__ import annotations
 
 import contextlib
+import math
 import weakref
 
 import torch
@@ -26,8 +27,10 @@ _NOTES: set = set()
 
 def notes() -> list:
     """The redistributions `split_heads`, `gqa_heads` and
-    `gather_stack_axes` made since the last `clear_notes`, one line
-    each."""
+    `gather_stack_axes` made, and the plain bodies the forms of the
+    MoE dispatch, the SSD, Mamba2's in-projection and the microbatch
+    slice fell back to on DTensors, since the last `clear_notes`, one
+    line each."""
     return sorted(_NOTES)
 
 
@@ -78,6 +81,70 @@ def even_shards(x):
     pl = even_placements(x.device_mesh, x.placements, x.shape)
     return x if pl == tuple(x.placements) \
         else x.redistribute(x.device_mesh, pl)
+
+
+def _rank_along(mesh, dims) -> int:
+    """This rank's index in the row-major order of mesh dims `dims` (the
+    order DTensor gives the shards of a dim sharded over them)."""
+    idx = 0
+    for i in dims:
+        idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx
+
+
+def _strides(shape) -> tuple:
+    """The strides of a contiguous tensor of `shape` (a DTensor's global
+    ones, for `DTensor.from_local`)."""
+    out = [1]
+    for n in reversed(tuple(shape)[1:]):
+        out.insert(0, out[0] * n)
+    return tuple(out)
+
+
+def microbatch_rows(x, dim: int, i: int, k: int):
+    """Microbatch i of k of DTensor `x` along its batch dim `dim`, where
+    its m = B / k rows do not split over every mesh dim that shards the
+    batch (16 rows over 2x16x16's 32 data ranks). The inner of those
+    dims whose extent n_in divides m keep the microbatch sharded, q = m /
+    n_in rows a rank; the outer ones ('pod', n_out ranks) hold it
+    replicated, as GSPMD's padding leaves each rank ceil(m / dp) rows.
+    Microbatch i is rows (i // n_out) q .. + q of each rank of outer
+    group i % n_out: each rank takes them from its own shard, and one
+    all-gather over the outer dims of those q rows gives every rank its
+    group's; a slice of the sharded batch would gather the whole batch
+    first. The batch carries no gradient (the all-gather has none).
+    None where the shards do not allow it."""
+    if not is_dtensor(x):
+        return None
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate
+    # (`all_gather_tensor` is `all_gather_single` before its rename)
+    gather = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor
+    mesh = x.device_mesh
+    dims = _sharded_dims(x, dim)
+    B = x.shape[dim]
+    m, inner = B // k, list(dims)
+    while inner and m % math.prod(mesh.size(d) for d in inner):
+        inner.pop(0)
+    outer = [d for d in dims if d not in inner]
+    n_in = math.prod(mesh.size(d) for d in inner)
+    n_out = math.prod(mesh.size(d) for d in outer)
+    q, r = m // n_in, x.to_local().shape[dim]
+    if not outer or B % k or k % n_out or (k // n_out) * q != r:
+        names = [mesh.mesh_dim_names[d] for d in dims]
+        _NOTES.add(f"microbatch of {m} of {B} rows sharded over {names}: "
+                   f"not from each rank's own rows; the contiguous slice")
+        return None
+    local = x.to_local().narrow(dim, (i // n_out) * q, q).movedim(dim, 0)
+    for d in reversed(outer):
+        local = gather(local.contiguous(), 0, (mesh, d))
+    local = local.narrow(0, (i % n_out) * q, q).movedim(0, dim).contiguous()
+    pl = tuple(Replicate() if j in outer else p
+               for j, p in enumerate(x.placements))
+    shape = (*x.shape[:dim], m, *x.shape[dim + 1:])
+    return DTensor.from_local(local, mesh, pl, shape=shape,
+                              stride=_strides(shape))
 
 
 def split_heads(plain, t, n_heads: int):
@@ -303,10 +370,7 @@ def sharded_cross_entropy(logits, labels):
     lab = labels.redistribute(mesh, pl_b).to_local().long()
     xl = x.to_local()
     B_l, S, V_l = xl.shape
-    off = 0
-    for i in vd:                    # this rank's slice of the vocab
-        off = off * mesh.size(i) + mesh.get_local_rank(i)
-    off *= V_l
+    off = _rank_along(mesh, vd) * V_l     # this rank's slice of the vocab
     n_b = x.shape[0] // B_l
 
     def reduced(t, op):
@@ -354,9 +418,7 @@ def decode_attention(plain, q, k_cache, v_cache, kv_len):
     k, v = k_cache.to_local(), v_cache.to_local()
     B, _, H, D = q.shape
     S_loc, KV = k.shape[1], k.shape[2]
-    split = 0
-    for i in seq:                   # this rank's slice of the sequence
-        split = split * mesh.size(i) + mesh.get_local_rank(i)
+    split = _rank_along(mesh, seq)  # this rank's slice of the sequence
     k_pos = split * S_loc + torch.arange(S_loc, device=k.device)
     valid = k_pos[None, :] < kv_len.reshape(-1, 1).long()     # (B, S_loc)
     qh = (q.float() * D ** -0.5).reshape(B, KV, H // KV, D)
@@ -664,10 +726,7 @@ def embed(plain, table, tokens):
     tl = table.to_local(grad_placements=tuple(
         Partial() if i in bd else p for i, p in enumerate(pl_t)))
     V_l = tl.shape[0]
-    off = 0
-    for i in vd:                    # this rank's slice of the vocab
-        off = off * mesh.size(i) + mesh.get_local_rank(i)
-    off *= V_l
+    off = _rank_along(mesh, vd) * V_l     # this rank's slice of the vocab
     mine = ((tok >= off) & (tok < off + V_l))[..., None]
     rows = F.embedding((tok - off).clamp(0, V_l - 1), tl)
     out = torch.where(mine, rows, torch.zeros((), dtype=rows.dtype))
@@ -760,12 +819,278 @@ def layer_weights(plain, lp):
 
 
 def routed_dropless(plain, p, xf, flat_e, counts, gate2, T, K, E):
-    """The MoE's dropless routing: a fake step cannot read the counts on
-    the host, so the reference's own dropless form, the capacity dispatch
-    at C = T*K slots."""
+    """The MoE's dropless routing, which only the decode steps take (the
+    train step and prefill take the capacity path): a fake step cannot
+    read the counts on the host, so the reference's own dropless form,
+    the capacity dispatch at C = T*K slots."""
     from repro_torch.models import moe
     return moe._routed_capacity(p, xf, flat_e, counts, gate2, T, K, E,
                                 T * K)[0]
+
+
+class _MoePlan:
+    """Who sends which rows where in the capacity dispatch on DTensors
+    (`dispatch`, `combine`), from the tokens' layout and the replicated
+    int routing (slot, keep of each of the T*K pairs).
+
+    The tokens (T, d) are sharded by rows over the mesh dims `td` (n
+    shards of T_loc, as the batch is), replicated over the rest. The
+    buffer (E, C, d) is laid out as the reference pins it: experts over
+    'model' (where E divides by it; `md`), slots over `td`, so a rank
+    holds (E_loc, C_loc, d), L = E_loc * C_loc rows. A kept pair (t, k)
+    of expert e at position c lives in the buffer on data rank c //
+    C_loc, row (e % E_loc) * C_loc + c % C_loc, of model rank e // E_loc,
+    and its token on data rank t // T_loc: within each model column the
+    payload moves between the `td` ranks as one all-to-all, each rank
+    sending its own tokens of the column's experts to the slots' ranks
+    (sorted by destination, then buffer row) and receiving its slots'
+    tokens (sorted by source, then buffer row). Every rank builds the
+    whole plan from the replicated ints; its rows and splits depend on
+    the routing, which a fake step cannot read: there the all-to-all
+    moves L rows each way, even splits (the receive's bound, and the
+    send's mean)."""
+
+    def __init__(self, tok, slot, keep, E, C):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        mesh = self.mesh = tok.device_mesh
+        td = self.td = _sharded_dims(tok, 0)
+        n = math.prod(mesh.size(i) for i in td)
+        names = mesh.mesh_dim_names
+        md = names.index("model") if "model" in names else None
+        if md is not None and (md in td or E % mesh.size(md)):
+            md = None
+        tp = mesh.size(md) if md is not None else 1
+        T = tok.shape[0]
+        K = slot.shape[0] // T
+        self.ok = bool(td) and T % n == 0 and C % n == 0
+        if not self.ok:
+            return
+        self.n, self.T, self.E, self.C = n, T, E, C
+        self.T_loc, E_loc, C_loc = T // n, E // tp, C // n
+        self.E_loc, self.C_loc = E_loc, C_loc
+        L = self.L = E_loc * C_loc
+        ndim = mesh.ndim
+        self.tok_pl = tuple(Shard(0) if i in td else Replicate()
+                            for i in range(ndim))
+        # a column's rows carry its own experts' share of a token's
+        # output and gradient: partial sums over 'model'
+        self.tok_part = tuple(Shard(0) if i in td else Partial()
+                              if i == md else Replicate()
+                              for i in range(ndim))
+        self.buf_pl = tuple(Shard(1) if i in td else Shard(0) if i == md
+                            else Replicate() for i in range(ndim))
+        if len(td) == 1:
+            self.group = (mesh, td[0])
+        else:       # one group over ('pod', 'data'): the mesh's own ranks
+            from torch._subclasses.fake_tensor import unset_fake_temporarily
+            with unset_fake_temporarily():
+                self.group = mesh[tuple(names[i] for i in td)]._flatten()
+        me = _rank_along(mesh, td)
+        col = mesh.get_local_rank(md) if md is not None else 0
+        dev = slot.device
+        from torch._subclasses.fake_tensor import is_fake
+        if is_fake(slot):
+            even = [L // n + (i < L % n) for i in range(n)]
+            self.send_splits = self.recv_splits = even
+            self.send_tok, self.send_pair, self.recv_rows = (
+                torch.zeros(L, dtype=torch.long, device=dev)
+                for _ in range(3))
+            return
+        pair = torch.arange(T * K, device=dev)
+        t, e, c = pair // K, slot // C, slot % C
+        ours = keep & (e // E_loc == col)
+        dst, src = c // C_loc, t // self.T_loc
+        row = (e % E_loc) * C_loc + c % C_loc
+
+        def listed(sel, by):
+            idx = torch.nonzero(sel)[:, 0]
+            idx = idx[torch.argsort(by[idx] * L + row[idx])]
+            return idx, torch.bincount(by[idx], minlength=n).tolist()
+        out, self.send_splits = listed(ours & (src == me), dst)
+        inn, self.recv_splits = listed(ours & (dst == me), src)
+        self.send_tok = t[out] - me * self.T_loc
+        self.send_pair = self.send_tok * K + pair[out] % K
+        self.recv_rows = row[inn]
+
+    def rows(self, x):
+        """This rank's rows of token-sharded DTensor `x` (T, ...), as a
+        plain tensor whose gradient is partial over 'model'."""
+        if tuple(x.placements) != self.tok_pl:
+            x = reduce_partials(x).redistribute(self.mesh, self.tok_pl)
+        return x.to_local(grad_placements=self.tok_part)
+
+    def all_to_all(self, x, out_splits, in_splits):
+        """`x`'s rows exchanged within the column (differentiable: the
+        gradient takes the reverse exchange)."""
+        from torch.distributed._functional_collectives import \
+            all_to_all_single_autograd
+        return all_to_all_single_autograd(x.contiguous(), out_splits,
+                                          in_splits, self.group)
+
+
+def _moe_plan(tok, slot, keep, E, C):
+    """The `_MoePlan` of token-sharded DTensor `tok` (T, ...) and plain
+    routing ints, or None where the forms do not apply (the tokens not
+    sharded evenly, or the slots not dividing over their shards)."""
+    if not is_dtensor(tok) or is_dtensor(slot):
+        return None
+    plan = _MoePlan(tok, slot, keep, E, C)
+    if not plan.ok:
+        names = [plan.mesh.mesh_dim_names[i] for i in plan.td]
+        _NOTES.add(f"MoE dispatch: {tok.shape[0]} tokens, {C} slots over "
+                   f"the token shards {names}: the plain dispatch, the "
+                   f"whole ({E}, {C}, d) buffer on every rank")
+        return None
+    return plan
+
+
+def dispatch(plain, xf, slot, keep, E, C):
+    """`plain(xf, slot, keep, E, C)`, the (E, C, d) capacity buffer of
+    tokens xf (T, d). On DTensor tokens sharded over the data axes each
+    rank builds only its own shard of the buffer (`_MoePlan`: experts
+    over 'model', slots over the data axes): it sends its tokens of its
+    column's experts to their slots' ranks and places the rows it
+    receives, by one all-to-all; no rank holds the whole buffer or the
+    whole (T, d). Its gradient takes the reverse exchange back to the
+    tokens."""
+    from torch.distributed.tensor import DTensor
+    plan = _moe_plan(xf, slot, keep, E, C)
+    if plan is None:
+        return plain(xf, slot, keep, E, C)
+    xl = plan.rows(xf)
+    d = xl.shape[1]
+    got = plan.all_to_all(xl.index_select(0, plan.send_tok),
+                          plan.recv_splits, plan.send_splits)
+    buf = torch.zeros((plan.L, d), dtype=xl.dtype, device=xl.device
+                      ).index_copy(0, plan.recv_rows, got)
+    return DTensor.from_local(buf.view(plan.E_loc, plan.C_loc, d),
+                              plan.mesh, plan.buf_pl, shape=(E, C, d),
+                              stride=_strides((E, C, d)))
+
+
+def combine(plain, out_buf, slot, keep, gate2):
+    """`plain(out_buf, slot, keep, gate2)`, each token's gated expert
+    outputs (T, d). On DTensors laid out as `dispatch` leaves them, each
+    buffer row goes back to its token's rank by the reverse all-to-all,
+    and each rank sums its own tokens' rows, gated (an index_add); the
+    result is sharded as the tokens are, a partial sum over 'model'
+    (each column's experts), which the next layout change reduces."""
+    from torch.distributed.tensor import DTensor
+    E, C, d = out_buf.shape
+    plan = _moe_plan(gate2, slot, keep, E, C)
+    if plan is None or not is_dtensor(out_buf):
+        return plain(out_buf, slot, keep, gate2)
+    if tuple(out_buf.placements) != plan.buf_pl:
+        out_buf = out_buf.redistribute(plan.mesh, plan.buf_pl)
+    ol = out_buf.to_local().reshape(plan.L, d)
+    got = plan.all_to_all(ol.index_select(0, plan.recv_rows),
+                          plan.send_splits, plan.recv_splits)
+    gate = plan.rows(gate2).reshape(-1).index_select(0, plan.send_pair)
+    routed = torch.zeros((plan.T_loc, d), dtype=ol.dtype, device=ol.device
+                         ).index_add(0, plan.send_tok,
+                                     got * gate.to(ol.dtype)[:, None])
+    return DTensor.from_local(routed, plan.mesh, plan.tok_part,
+                              shape=(plan.T, d), stride=_strides((plan.T, d)))
+
+
+def in_proj(plain, x, w, sizes):
+    """`plain(x, w, sizes)`: `x @ w` split along its last dim. On a
+    DTensor weight sharded on its output dim over mesh dims whose extent
+    divides every piece (Mamba2's fused in-projection: z, x, B, C and dt
+    over 'model'), each piece comes out sharded on its own channels, as
+    a column-parallel projection's, laid out as the fused product was:
+    slicing the fused product at the pieces' bounds, which do not fall on
+    its shards' bounds, would leave each piece whole on every rank. Of
+    the fused weight (d, sum of sizes) and the product (a rank's rows,
+    sum of sizes), the smaller is gathered: a prefill's or a train
+    step's rows outnumber d, so the weight, and one product per piece on
+    that piece's columns; a decode step's few rows, so the product,
+    then each piece re-sharded where it lies (no collective). The same
+    FLOPs either way."""
+    dims = _sharded_dims(w, w.ndim - 1) if is_dtensor(w) else []
+    if not dims:
+        return plain(x, w, sizes)
+    mesh = w.device_mesh
+    n = math.prod(mesh.size(i) for i in dims)
+    if any(s % n for s in sizes):
+        _NOTES.add(f"in-projection pieces {tuple(sizes)} do not divide "
+                   f"over {n} ranks: the fused product, sliced")
+        return plain(x, w, sizes)
+    rows = math.prod((x.to_local() if is_dtensor(x) else x).shape[:-1])
+    if rows <= w.shape[0]:
+        y = x @ w
+        pl = y.placements
+        return tuple(t.redistribute(mesh, pl) for t in
+                     torch.split(_replicate_dims(y, dims), sizes, dim=-1))
+    full = _replicate_dims(w, dims)
+    out, a = [], 0
+    for s in sizes:
+        out.append(x @ full[..., a:a + s].redistribute(mesh, w.placements))
+        a += s
+    return tuple(out)
+
+
+def ssd_chunked(plain, x, dt, A, Bm, Cm, *, chunk=128, initial_state=None):
+    """`plain(...)` (the chunked SSD: x (B, S, H, P), dt (B, S, H), A
+    (H,), Bm, Cm (B, S, G, N), initial_state (B, H, N, P) or None). On
+    DTensors each rank runs its own batch rows (the mesh dims that shard
+    x's batch) and its own heads over 'model', as the reference's specs
+    shard the SSM state's heads (`ssm_state`: H over 'model'): every
+    head is independent, so the (B, nc, Q, Q, H) f32 tensors hold H /
+    |model| heads a rank. Bm and Cm stay whole over 'model' (one group:
+    every head reads it; their gradient is a partial sum there), A's
+    gradient sums over the batch dims. The outputs are DTensors: y
+    sharded like x, the final state (B, H, N, P) on the batch and heads.
+    As it is where 'model' does not divide H (or G > 1 does not divide
+    over it)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    kw = dict(chunk=chunk, initial_state=initial_state)
+    if not is_dtensor(x) or "model" not in x.device_mesh.mesh_dim_names:
+        return plain(x, dt, A, Bm, Cm, **kw)
+    mesh = x.device_mesh
+    md = mesh.mesh_dim_names.index("model")
+    bd = [i for i in _sharded_dims(x, 0) if i != md]
+    tp = mesh.size(md)
+    B, S, H, P = x.shape
+    G = Bm.shape[2]
+    if H % tp or (G > 1 and G % tp) or B % math.prod(mesh.size(i)
+                                                    for i in bd):
+        _NOTES.add(f"SSD: {H} heads, {G} groups over 'model' ({tp}): "
+                   f"every head on every rank")
+        return plain(x, dt, A, Bm, Cm, **kw)
+
+    def pl(heads):
+        """Shard(0) on the batch dims, `heads` on 'model'."""
+        return tuple(Shard(0) if i in bd else heads if i == md
+                     else Replicate() for i in range(mesh.ndim))
+
+    def local(t, placements, grad=None):
+        if t is None:
+            return None
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                                   run_check=False)
+        t = reduce_partials(t)
+        if tuple(t.placements) != placements:
+            t = t.redistribute(mesh, placements)
+        return t.to_local(grad_placements=grad)
+    grp = Shard(2) if G > 1 else Replicate()
+    a_pl = tuple(Shard(0) if i == md else Replicate()
+                 for i in range(mesh.ndim))
+    y, s = plain(
+        local(x, pl(Shard(2))), local(dt, pl(Shard(2))),
+        local(A, a_pl, tuple(Shard(0) if i == md else Partial() if i in bd
+                             else Replicate() for i in range(mesh.ndim))),
+        *(local(t, pl(grp), pl(grp if G > 1 else Partial()))
+          for t in (Bm, Cm)),
+        chunk=chunk, initial_state=local(initial_state, pl(Shard(1))))
+    shape = (B, H, *s.shape[2:])
+    # (the einsums may leave y's local strides permuted; the global
+    # strides given are contiguous ones)
+    return (DTensor.from_local(y.contiguous(), mesh, pl(Shard(2)),
+                               shape=x.shape, stride=_strides(x.shape)),
+            DTensor.from_local(s.contiguous(), mesh, pl(Shard(1)),
+                               shape=shape, stride=_strides(shape)))
 
 
 # the `replaceable` functions' names -> their DTensor forms
@@ -775,6 +1100,8 @@ FORMS = {
     "cross_entropy": cross_entropy, "decode_attention": decode_attention,
     "embed": embed, "write_prefix": write_prefix, "write_rows": write_rows,
     "routed_dropless": routed_dropless, "bincount": bincount,
+    "dispatch": dispatch, "combine": combine, "ssd_chunked": ssd_chunked,
+    "in_proj": in_proj,
     "replicated": replicated, "gathered": gathered,
     "log_sigmoid": log_sigmoid, "slstm_scan": slstm_scan,
     "layer_weights": layer_weights,

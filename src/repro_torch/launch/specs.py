@@ -257,10 +257,12 @@ def _mb_slice(x, i: int, k: int, B: int, dp: int):
     (3, B, S)). Where B splits into dp shards of k pieces each, the
     microbatch is the i-th k-th of every data shard's rows, so it stays
     sharded and no collective moves the batch (the reference slices B
-    contiguously, which GSPMD reshards); otherwise a contiguous slice,
-    sharded evenly (`dtensor_forms.even_shards`: 16 rows over 2x16x16's
-    32 data ranks are sharded over 'data' and replicated over 'pod', as
-    GSPMD's padding gives each rank one row)."""
+    contiguously, which GSPMD reshards). Where the microbatch's rows do
+    not split over the data ranks (16 rows over 2x16x16's 32), each
+    rank's own rows, sharded over 'data' and replicated over 'pod' by an
+    all-gather of those rows alone (`dtensor_forms.microbatch_rows`), as
+    GSPMD's padding gives each rank one row; otherwise a contiguous
+    slice, sharded evenly (`dtensor_forms.even_shards`)."""
     if x.ndim < 2:
         return x
     dim = 0 if x.shape[0] == B else (1 if x.shape[1] == B else None)
@@ -272,8 +274,9 @@ def _mb_slice(x, i: int, k: int, B: int, dp: int):
         y = x.reshape(*shp[:dim], dp, k, B // (dp * k), *shp[dim + 1:])
         y = y.select(dim + 1, i)
         return y.reshape(*shp[:dim], m, *shp[dim + 1:])
-    from repro_torch.launch.dtensor_forms import even_shards
-    return even_shards(x.narrow(dim, i * m, m))
+    from repro_torch.launch.dtensor_forms import even_shards, microbatch_rows
+    mb = microbatch_rows(x, dim, i, k)
+    return mb if mb is not None else even_shards(x.narrow(dim, i * m, m))
 
 
 # the layer-stacked params' top-level keys -> their number of stack axes

@@ -528,8 +528,10 @@ class EncDecModel(_Model):
         cfg, p = self.cfg, self.params
         B, T, _ = enc_embeds.shape
         pos = positions_for(cfg, B, T, self.device)
-        x = enc_embeds.to(self.dtype) \
-            + layers.sinusoid_pos_emb(pos, cfg.d_model).to(self.dtype)
+        # every row's positions are the same: one row's embedding,
+        # broadcast over the batch
+        x = enc_embeds.to(self.dtype) + layers.sinusoid_pos_emb(
+            pos[:1], cfg.d_model).to(self.dtype)
         for lp in unbind_layers(p["enc_layers"]):
             lp = layer_weights(lp)
             x = constrain_compute(x)
@@ -544,8 +546,11 @@ class EncDecModel(_Model):
     def _dec_embed(self, tokens, offset=0):
         B, S = tokens.shape
         pos = positions_for(self.cfg, B, S, self.device, offset)
-        x = embed(self.params["embed"], tokens) \
-            + layers.sinusoid_pos_emb(pos, self.cfg.d_model).to(self.dtype)
+        # an int offset gives every row the same positions: one row's
+        # embedding, broadcast over the batch
+        x = embed(self.params["embed"], tokens) + layers.sinusoid_pos_emb(
+            pos if torch.is_tensor(offset) else pos[:1],
+            self.cfg.d_model).to(self.dtype)
         return x, pos
 
     def _dec_block(self, lp, x, pos, enc):

@@ -175,28 +175,47 @@ def _routed_grouped(p, xf, flat_e, counts, gate2, T, K):
     return routed
 
 
+def _capacity_slots(flat_e, counts, C):
+    """(keep, slot) of each of the n (token, k) pairs in flat (T*K)
+    order: its exclusive position within its expert, counted in that
+    order (a stable sort by expert keeps it inside an expert, so position
+    = rank in the sort - the expert's first rank), kept below C; its slot
+    e * C + position in the (E, C) buffer (clamped to C - 1 when
+    dropped)."""
+    n = flat_e.shape[0]
+    order = torch.argsort(flat_e, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=flat_e.device)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = rank - starts[flat_e]
+    return pos < C, flat_e * C + torch.clamp(pos, max=C - 1)
+
+
 def _routed_capacity(p, xf, flat_e, counts, gate2, T, K, E, C):
     """Capacity-factor dispatch (the reference's, `moe.py:70-112`).
     Returns (routed (T, d), keep (T*K,) bool)."""
-    d = xf.shape[1]
-    n = T * K
     # on DTensors the routing's index math runs on every rank in full
     # (gathered expert ids: T*K integers), as plain tensors
     flat_e, counts = gathered(flat_e, counts)
-    # each pair's exclusive position within its expert in flat (T*K)
-    # order: a stable sort by expert keeps that order inside an expert,
-    # so position = rank in the sort - the expert's first rank
-    order = torch.argsort(flat_e, stable=True)
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(n, device=xf.device)
-    starts = torch.cumsum(counts, 0) - counts
-    pos = rank - starts[flat_e]
-    keep = pos < C
+    keep, slot = _capacity_slots(flat_e, counts, C)
+    buf = act_sharding.constrain_moe_buffer(dispatch(xf, slot, keep, E, C))
+    # expert compute: (E, C, d) x (E, d, f)
+    h = F.silu(torch.bmm(buf, p["we_gate"])) * torch.bmm(buf, p["we_up"])
+    out_buf = act_sharding.constrain_moe_buffer(torch.bmm(h, p["we_down"]))
+    return combine(out_buf, slot, keep, gate2), keep
 
-    # an int slot -> token map (T = empty), then the payload by gathers;
-    # dropped pairs scatter into one spare slot past the end
-    slot = flat_e * C + torch.clamp(pos, max=C - 1)          # (T*K,)
-    tok_idx = torch.arange(n, device=xf.device) // K
+
+@replaceable
+def dispatch(xf, slot, keep, E, C):
+    """The (E, C, d) buffer of the tokens xf (T, d): slot j holds the
+    token of the kept pair at slot j, zeros where none. An int slot ->
+    token map (T = empty), then the payload by a gather; dropped pairs
+    scatter into one spare slot past the end. (The dry run's form builds
+    each rank's shard of the buffer from its own tokens by an
+    all-to-all.)"""
+    T, d = xf.shape
+    K = slot.shape[0] // T
+    tok_idx = torch.arange(slot.shape[0], device=xf.device) // K
     slot_src = torch.full((E * C + 1,), T, dtype=torch.long,
                           device=xf.device)
     slot_src[torch.where(keep, slot, E * C)] = tok_idx
@@ -206,26 +225,30 @@ def _routed_capacity(p, xf, flat_e, counts, gate2, T, K, E, C):
     # 276 ms deepseek-moe-16b train step on the H100 (chip_smoke.py
     # --profile)
     filled = (slot_src < T)[:, None].to(xf.dtype)
-    # (on DTensors both gathers read a replicated source: the tokens'
+    # (on DTensors the gather reads a replicated source: the tokens'
     # all-gather, which DTensor's own gather rule would issue too, with a
     # backward it can run)
-    buf = act_sharding.constrain_moe_buffer(
-        (replicated(xf).index_select(
-            0, torch.clamp(slot_src, max=T - 1)) * filled).reshape(E, C, d))
+    return (replicated(xf).index_select(0, torch.clamp(slot_src, max=T - 1))
+            * filled).reshape(E, C, d)
 
-    # expert compute: (E, C, d) x (E, d, f)
-    h = F.silu(torch.bmm(buf, p["we_gate"])) * torch.bmm(buf, p["we_up"])
+
+@replaceable
+def combine(out_buf, slot, keep, gate2):
+    """(T, d): each token's kept expert outputs from the (E, C, d) buffer,
+    weighted by its gates, summed in the reference's kk order in
+    out_buf's dtype: K gathers of (T, d), never (T*K, d). (The dry run's
+    form brings each token shard's rows back by an all-to-all.)"""
+    T, K = gate2.shape
+    d = out_buf.shape[-1]
     # replicated before the flattening view: the view's backward cannot
     # unflatten a gradient whose capacity dim is sharded over two mesh
     # dims (2x16x16's 'pod' and 'data')
-    flat_out = replicated(act_sharding.constrain_moe_buffer(
-        torch.bmm(h, p["we_down"]))).reshape(E * C, d)
-
-    routed = torch.zeros((T, d), dtype=xf.dtype, device=xf.device)
+    flat_out = replicated(out_buf).reshape(-1, d)
+    routed = torch.zeros((T, d), dtype=out_buf.dtype, device=out_buf.device)
     slot2, keep2 = slot.reshape(T, K), keep.reshape(T, K)
-    for kk in range(K):  # K gathers of (T, d), never (T*K, d)
+    for kk in range(K):
         g = act_sharding.constrain_moe_tokens(
             flat_out.index_select(0, slot2[:, kk]))
         routed = routed + g * (gate2[:, kk]
-                               * keep2[:, kk].to(xf.dtype))[:, None]
-    return routed, keep
+                               * keep2[:, kk].to(out_buf.dtype))[:, None]
+    return routed

@@ -73,12 +73,33 @@ def init_mamba(cfg: ModelConfig, gen, dtype, device):
     }
 
 
-def _split_zxbcdt(cfg, zxbcdt):
+@replaceable
+def in_proj(x, w, sizes):
+    """`x @ w` split along its last dim into pieces of `sizes` (views of
+    the one product). The dry run's form runs one product per piece, so
+    each comes out sharded on its own channels."""
+    return torch.split(x @ w, sizes, dim=-1)
+
+
+def _in_proj(cfg, p, x):
+    """Mamba2's fused in-projection as its pieces z, x, B, C, dt."""
     d_in, H, P, N, G = mamba_dims(cfg)
-    z = zxbcdt[..., :d_in]
-    xBC = zxbcdt[..., d_in:d_in + d_in + 2 * G * N]
-    dt = zxbcdt[..., -H:]
-    return z, xBC, dt
+    return in_proj(x, p["w_in"], (d_in, d_in, G * N, G * N, H))
+
+
+def _conv_pieces(p, pieces, conv_cache, conv):
+    """The depthwise conv `conv(t, w, b, cache) -> (out, new_cache)` run
+    on each of x, B and C (`pieces`) with its own channels of conv_w,
+    conv_b and conv_cache (B, K-1, C) or None: per channel, so the values
+    of one conv over their concatenation. Returns (x, B, C, new
+    conv_cache)."""
+    sizes = [t.shape[-1] for t in pieces]
+    ws = torch.split(p["conv_w"], sizes, dim=-1)
+    bs = torch.split(p["conv_b"], sizes, dim=-1)
+    caches = (None,) * len(sizes) if conv_cache is None \
+        else torch.split(conv_cache, sizes, dim=-1)
+    outs, news = zip(*(conv(*a) for a in zip(pieces, ws, bs, caches)))
+    return (*outs, torch.cat(news, dim=-1))
 
 
 def _causal_conv(xBC, w, b, conv_cache=None):
@@ -88,9 +109,8 @@ def _causal_conv(xBC, w, b, conv_cache=None):
     Returns (silu(out), new_cache)."""
     B, S, C = xBC.shape
     K = w.shape[0]
-    if conv_cache is None:
-        conv_cache = torch.zeros((B, K - 1, C), dtype=xBC.dtype,
-                                 device=xBC.device)
+    if conv_cache is None:      # laid out as xBC is
+        conv_cache = torch.zeros_like(xBC[:, :1]).expand(B, K - 1, C)
     xp = torch.cat([conv_cache, xBC], dim=1)            # (B, S+K-1, C)
     out = xp[:, 0:S] * w[0]
     for i in range(1, K):
@@ -99,10 +119,12 @@ def _causal_conv(xBC, w, b, conv_cache=None):
     return F.silu(out + b), new_cache
 
 
+@replaceable
 def ssd_chunked(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None):
     """Chunked SSD. x: (B, S, H, P); dt: (B, S, H); A: (H,) negative;
     Bm, Cm: (B, S, G, N) with G dividing H. Returns (y in x.dtype,
-    final_state (B, H, N, P) f32)."""
+    final_state (B, H, N, P) f32). Every head is independent of the
+    others (the dry run's form runs each rank's own heads)."""
     B, S, H, Pd = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
@@ -154,13 +176,13 @@ def mamba_forward(cfg: ModelConfig, p, x, *, state=None, conv_cache=None,
     """Full-sequence Mamba2 block. x: (B, S, d). Returns
     (out, (final_state, conv_cache))."""
     d_in, H, P, N, G = mamba_dims(cfg)
-    zxbcdt = x @ p["w_in"]
-    z, xBC, dt = _split_zxbcdt(cfg, zxbcdt)
-    xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_cache)
+    z, xs, Bm, Cm, dt = _in_proj(cfg, p, x)
+    xs, Bm, Cm, new_conv = _conv_pieces(p, (xs, Bm, Cm), conv_cache,
+                                        _causal_conv)
     B_, S = x.shape[0], x.shape[1]
-    xs = xBC[..., :d_in].reshape(B_, S, H, P)
-    Bm = xBC[..., d_in:d_in + G * N].reshape(B_, S, G, N)
-    Cm = xBC[..., d_in + G * N:].reshape(B_, S, G, N)
+    xs = xs.reshape(B_, S, H, P)
+    Bm = Bm.reshape(B_, S, G, N)
+    Cm = Cm.reshape(B_, S, G, N)
     dtp = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, fstate = ssd_chunked(xs, dtp, A, Bm, Cm, chunk=chunk,
@@ -175,16 +197,17 @@ def mamba_decode(cfg: ModelConfig, p, x, state, conv_cache):
     """Single-token recurrent step. x: (B, 1, d); state: (B, H, N, P) f32;
     conv_cache: (B, K-1, C). Returns (out, (state, conv_cache))."""
     d_in, H, P, N, G = mamba_dims(cfg)
-    zxbcdt = x @ p["w_in"]
-    z, xBC, dt = _split_zxbcdt(cfg, zxbcdt)
-    xp = torch.cat([conv_cache, xBC], dim=1)            # (B, K, C)
-    conv_out = F.silu((xp * p["conv_w"][None]).sum(dim=1)
-                      + p["conv_b"])[:, None]           # (B, 1, C)
-    new_conv = xp[:, 1:]
+    z, xs, Bm, Cm, dt = _in_proj(cfg, p, x)
+
+    def conv_step(t, w, b, cache):
+        xp = torch.cat([cache, t], dim=1)               # (B, K, c)
+        return F.silu((xp * w[None]).sum(dim=1) + b), xp[:, 1:]
+    xs, Bm, Cm, new_conv = _conv_pieces(p, (xs, Bm, Cm), conv_cache,
+                                        conv_step)
     B_ = x.shape[0]
-    xs = conv_out[..., :d_in].reshape(B_, H, P)
-    Bm = conv_out[..., d_in:d_in + G * N].reshape(B_, G, N)
-    Cm = conv_out[..., d_in + G * N:].reshape(B_, G, N)
+    xs = xs.reshape(B_, H, P)
+    Bm = Bm.reshape(B_, G, N)
+    Cm = Cm.reshape(B_, G, N)
     rep = H // G
     Bh = Bm.repeat_interleave(rep, dim=1)               # (B, H, N)
     Ch = Cm.repeat_interleave(rep, dim=1)

@@ -14,9 +14,14 @@ splits granite-3-2b smoke's 2 KV heads over 4 ranks, so the forms of
 `split_heads` and `attention` (`gqa_heads`) run; the (2, 2) mesh the
 vocab-parallel loss, the flash-decoding over the sequence-sharded cache
 (`decode_attention`) and the decode row write (`write_rows`);
-deepseek-moe-16b smoke the capacity dispatch; xlstm-1.3b smoke
-(tests/test_torch_act_sharding_ssm.py) the sLSTM token loop on each
-rank's own rows (`slstm_scan`)."""
+deepseek-moe-16b smoke the capacity dispatch of the train step and
+prefill and the dropless dispatch of decode, each rank's buffer shard
+built by an all-to-all (`dispatch`, `combine`; every call checked to
+make its cross-rank plan); zamba2-2.7b smoke the Mamba2 in-projection
+and conv by channel and the SSD on each rank's heads (`in_proj`,
+`ssd_chunked`);
+xlstm-1.3b smoke (tests/test_torch_act_sharding_ssm.py) the sLSTM token
+loop on each rank's own rows (`slstm_scan`)."""
 import socket
 
 import pytest
@@ -93,7 +98,7 @@ def _check(arch, mesh_shape, serve, dataclasses):
     from torch.distributed.tensor import DTensor, distribute_tensor
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.configs import get_smoke_config
-    from repro_torch.launch import specs
+    from repro_torch.launch import dtensor_forms, specs
     from repro_torch.launch.dryrun import _contexts
     from repro_torch.models import build_model
     from repro_torch.models.act_sharding import placements
@@ -124,6 +129,21 @@ def _check(arch, mesh_shape, serve, dataclasses):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5,
                                    msg=what)
 
+    # the MoE forms' cross-rank plan: made at every call of every step
+    used = []
+    plan = dtensor_forms._moe_plan
+
+    def traced(*args):
+        out = plan(*args)
+        used.append(out is not None)
+        return out
+    dtensor_forms._moe_plan = traced
+
+    def planned(what):
+        if cfg.family == "moe":
+            assert used and all(used), f"{what}: MoE plans {used}"
+        used.clear()
+
     # train: loss and every gradient
     plain.requires_grad_(True)
     want_loss, _ = plain.loss(batch)
@@ -136,7 +156,8 @@ def _check(arch, mesh_shape, serve, dataclasses):
         close(loss, want_loss.detach(), "loss")
         for k, p in flatten_params(model.params).items():
             close(specs._grad(p), specs._grad(flat[k]), f"grad {k}")
-    if cfg.family == "moe" or not serve:
+    planned("train")
+    if not serve:
         return
     # prefill + one decode step over a cache laid out by the specs
     cache = plain.init_cache(B, S + 8)
@@ -154,12 +175,14 @@ def _check(arch, mesh_shape, serve, dataclasses):
             got_p, dcache = model.prefill({"tokens": dbatch["tokens"]},
                                           dcache)
         close(got_p, want_p, "prefill logits")
+        planned("prefill")
         with _contexts(cfg, "decode_32k", mesh, False), \
                 implicit_replication():
             tok = distribute_tensor(want_p.argmax(-1), mesh,
                                     placements(mesh, (("data",),)))
             got_d, _ = model.decode(tok, dcache)
         close(got_d, want_d, "decode logits")
+        planned("decode (dropless)")
 
 
 def run_on_gloo(arch, mesh_shape, serve=True):
@@ -177,6 +200,6 @@ def run_on_gloo(arch, mesh_shape, serve=True):
 
 @pytest.mark.parametrize("arch,mesh_shape", [
     ("granite-3-2b", (2, 2)), ("granite-3-2b", (1, 4)),
-    ("deepseek-moe-16b", (2, 2))])
+    ("deepseek-moe-16b", (2, 2)), ("zamba2-2.7b", (2, 2))])
 def test_dtensor_step_equals_plain_model(arch, mesh_shape):
     run_on_gloo(arch, mesh_shape)

@@ -295,15 +295,23 @@ def test_chip_smoke_examples_dry_run(two_threads):
                                        tiny_batch=4, tiny_seq=256)
 
 
-def test_chip_smoke_dryrun_phase(tmp_path):
+@pytest.mark.parametrize("hbm", ["80GB", "1B"])
+def test_chip_smoke_dryrun_phase(tmp_path, monkeypatch, hbm):
     """The dryrun phase (`run_dryrun`) on one quick pair on each mesh (the
-    card runs chatglm3-6b decode_32k on both and granite-3-2b train_4k
-    on 16x16, and the offload example): a fresh process per pair, ok
-    records with an int temp_size, their roofline rows."""
-    out = chip_smoke.run_dryrun(
-        str(tmp_path), pairs=(("whisper-base", "long_500k", "single"),
-                              ("whisper-base", "long_500k", "multi")),
-        offload=False)
+    card runs chatglm3-6b decode_32k on both, granite-3-2b train_4k and
+    deepseek-moe-16b prefill_32k on 16x16, and the offload example): a
+    fresh process per pair, ok records with an int temp_size, their
+    roofline rows; a record over the HBM fails the phase (the same pairs
+    against a 1-byte HBM)."""
+    from repro_torch.roofline import analysis
+    pairs = (("whisper-base", "long_500k", "single"),
+             ("whisper-base", "long_500k", "multi"))
+    if hbm == "1B":
+        monkeypatch.setattr(analysis, "HBM_BYTES", 1)
+        with pytest.raises(AssertionError, match="OVER-HBM"):
+            chip_smoke.run_dryrun(str(tmp_path), pairs=pairs, offload=False)
+        return
+    out = chip_smoke.run_dryrun(str(tmp_path), pairs=pairs, offload=False)
     recs = out["records"]
     assert [r["mesh"] for r in recs] == ["16x16", "2x16x16"]
     for rec in recs:
@@ -312,7 +320,9 @@ def test_chip_smoke_dryrun_phase(tmp_path):
     for row in out["roofline"]:
         assert row["arch"] == "whisper-base" and row["dominant"] in (
             "compute", "memory", "collective")
+        assert row["fits_hbm"]
     assert chip_smoke.DRYRUN_PAIRS == (
         ("chatglm3-6b", "decode_32k", "single"),
         ("granite-3-2b", "train_4k", "single"),
-        ("chatglm3-6b", "decode_32k", "multi"))
+        ("chatglm3-6b", "decode_32k", "multi"),
+        ("deepseek-moe-16b", "prefill_32k", "single"))

@@ -2,7 +2,7 @@
 full config (CPU only; no card):
 
     PYTHONPATH=src python tools/dryrun_peak.py --arch A --shape S \
-        [--mesh single|multi] [--out F]
+        [--mesh single|multi] [--ops GIB] [--out F]
 
 prints one JSON object: the record's `temp_size`, the live bytes when
 the model is built (after the gathers made before the step's first
@@ -10,7 +10,10 @@ layer), the autograd node and the model frames of the op that set the
 peak, and the largest storages live at that moment (GiB, shape, dtype);
 and, from the specs, the bytes one rank holds of the layer stacks'
 weights gathered over the data axes ('model' shards kept), all layers
-and one layer. Run with another tree's `src` on PYTHONPATH to read that
+and one layer. With `--ops GIB`, also the first 60 local ops whose
+outputs hold more than GIB GiB, in order: the op, its input and output
+shapes, the live GiB before it, and its frames (DTensor's own
+included). Run with another tree's `src` on PYTHONPATH to read that
 tree's plan (`run_one`, `_LocalCounter` and the specs are all it uses;
 a tree before `specs.LAYER_STACKS` gives no gathered bytes).
 """
@@ -21,6 +24,7 @@ import json
 import traceback
 
 import torch
+from torch.utils._pytree import tree_flatten
 
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.launch import dryrun, specs
@@ -32,11 +36,31 @@ class _PeakCounter(dryrun._LocalCounter):
     every new peak, where the step is."""
 
     runs: list = []
+    ops_gib = None      # `--ops`: list the ops whose outputs pass it
 
     def __init__(self):
         super().__init__()
-        self.shapes, self.where = {}, None
+        self.shapes, self.where, self.ops = {}, None, []
         _PeakCounter.runs.append(self)
+
+    def _count(self, func, args, kwargs, out):
+        outs = [t for t in tree_flatten(out)[0]
+                if isinstance(t, torch.Tensor)]
+        gib = sum(t.numel() * t.element_size() for t in outs) / 2**30
+        if self.ops_gib is not None and gib > self.ops_gib \
+                and len(self.ops) < 60:
+            ins = [tuple(t.shape) for t in tree_flatten((args, kwargs))[0]
+                   if isinstance(t, torch.Tensor)]
+            frames = [f"{f.name}:{f.lineno}"
+                      for f in traceback.extract_stack()
+                      if "repro_torch" in f.filename
+                      or "distributed/tensor" in f.filename][-7:]
+            self.ops.append({"op": str(func), "in": ins,
+                             "out": [tuple(t.shape) for t in outs],
+                             "out_gib": round(gib, 3),
+                             "live_gib": round(self.live / 2**30, 3),
+                             "frames": frames})
+        return super()._count(func, args, kwargs, out)
 
     def _free(self, key):
         self.shapes.pop(key, None)
@@ -91,9 +115,11 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--ops", type=float, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     multi = args.mesh == "multi"
+    _PeakCounter.ops_gib = args.ops
     built = []
     build = specs.build_model
 
@@ -111,6 +137,8 @@ def main(argv=None):
            "live_at_build_gib": built[0] / 2**30 if built else None,
            "peak": _PeakCounter.runs[-1].where if _PeakCounter.runs else None,
            "gathered": gathered_layer_bytes(args.arch, args.shape, multi)}
+    if args.ops is not None and _PeakCounter.runs:
+        out["ops"] = _PeakCounter.runs[-1].ops
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:
