@@ -254,12 +254,14 @@ Phases, each of which raises (and so exits non-zero) on any failure:
   dryrun   `python -m repro_torch.launch.dryrun` in a subprocess a
            pair (CPU only, fake tensors: no kernel runs): chatglm3-6b x
            decode_32k on the 16x16 and 2x16x16 placeholder meshes,
-           granite-3-2b x train_4k and deepseek-moe-16b x prefill_32k on
-           16x16, then `roofline.analysis` over their records (the
-           H100's spec-sheet peaks), then `python -m
+           granite-3-2b x train_4k, deepseek-moe-16b x prefill_32k and
+           zamba2-2.7b x decode_32k (the SSD's decode step on each
+           rank's (b, h) block) on 16x16, then `roofline.analysis` over
+           their records (the H100's spec-sheet peaks), then `python -m
            repro_torch.examples.offload_dryrun`. Every record must be
            ok and fit the 80 GB HBM; prints bytes per rank, FLOPs,
-           collective counts and the three roofline terms.
+           collective counts, the three roofline terms and each
+           record's notes.
   profile  (only with --profile) torch.profiler over a few decode-only
            steps of an exclusive vllm llama2-7b run at B = 8, over one
            more layerkv run of the fused path (the paged kernels' device
@@ -3623,7 +3625,8 @@ def phase_examples(profile=False):
 DRYRUN_PAIRS = (("chatglm3-6b", "decode_32k", "single"),
                 ("granite-3-2b", "train_4k", "single"),
                 ("chatglm3-6b", "decode_32k", "multi"),
-                ("deepseek-moe-16b", "prefill_32k", "single"))
+                ("deepseek-moe-16b", "prefill_32k", "single"),
+                ("zamba2-2.7b", "decode_32k", "single"))
 
 
 def run_dryrun(out_dir, pairs=DRYRUN_PAIRS, offload=True):

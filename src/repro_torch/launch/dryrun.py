@@ -20,9 +20,9 @@ What a record holds, against the reference's (compiled XLA) record:
   local bytes of the step's outputs, `alias_size` the part written in
   place into an argument (the reference's donation). `temp_size` is the
   peak over the step of the live bytes one rank allocates inside it
-  (activations, saved tensors, gradients, collective results and the
-  outputs as they appear; not the arguments), tracked by storage
-  (`_LocalCounter`); `host_temp_size` is 0: the port places no
+  (activations, saved tensors, gradients, collective results, held
+  once, and the outputs as they appear; not the arguments), tracked by
+  storage (`_LocalCounter`); `host_temp_size` is 0: the port places no
   temporary in host memory. `bytes_per_device` is the device-resident
   arguments plus `temp_size`: the reference's `argument + temp - alias`,
   where XLA's temp excludes the outputs and an aliased output reuses its
@@ -39,7 +39,8 @@ What a record holds, against the reference's (compiled XLA) record:
   the reference's specs keep sharded stays sharded: each rank builds
   its own shard of the MoE's (E, C, d) capacity buffer by an
   all-to-all (`dtensor_forms.dispatch`, `combine`), runs Mamba2's conv
-  and SSD on its own channels and heads (`in_proj`, `ssd_chunked`), and
+  and SSD on its own channels and heads (`in_proj`, `ssd_chunked`) and
+  a decode step's state update on its own (b, h) block (`ssd_step`), and
   a microbatch that does not split over the data ranks comes from its
   own rows (`specs._mb_slice`); where a form cannot, `notes` says so.
 * `flops`: the whole step, per rank: `torch.utils.flop_counter`'s
@@ -153,6 +154,9 @@ def _distribute(mesh, tree, spec):
     return tree
 
 
+_WAIT = torch.ops._c10d_functional.wait_tensor.default
+
+
 class _LocalCounter(TorchDispatchMode):
     """A dispatch mode that lets DTensor desugar each op first (as
     CommDebugMode does) and then sees only the LOCAL ops one rank runs:
@@ -169,7 +173,10 @@ class _LocalCounter(TorchDispatchMode):
     storage dies (a weakref finalizer), so a view or an in-place write
     allocates nothing and a view that outlives its base keeps the bytes
     live. A storage first seen as an input (an argument of the step) is
-    not the step's. `peak` is the most bytes live at once (`temp_size`).
+    not the step's. A collective's `wait_tensor` returns the tensor it
+    was given, as on a card (the fake group's meta kernel makes a second
+    one), so its result is held once. `peak` is the most bytes live at
+    once (`temp_size`).
     `accessed` sums each op's input bytes (each input once) and output
     bytes, but for views (an op that writes nothing and returns only
     storages of its inputs) and queries with no tensor output."""
@@ -248,6 +255,8 @@ class _LocalCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         kwargs = kwargs or {}
+        if func is _WAIT:
+            return args[0]
         out = func(*args, **kwargs)
         if self.paused:
             return out

@@ -28,9 +28,9 @@ _NOTES: set = set()
 def notes() -> list:
     """The redistributions `split_heads`, `gqa_heads` and
     `gather_stack_axes` made, and the plain bodies the forms of the
-    MoE dispatch, the SSD, Mamba2's in-projection and the microbatch
-    slice fell back to on DTensors, since the last `clear_notes`, one
-    line each."""
+    MoE dispatch, the SSD and its decode step, Mamba2's in-projection
+    and the microbatch slice fell back to on DTensors, since the last
+    `clear_notes`, one line each."""
     return sorted(_NOTES)
 
 
@@ -1030,6 +1030,20 @@ def in_proj(plain, x, w, sizes):
     return tuple(out)
 
 
+def _local_at(t, mesh, placements, grad=None):
+    """This rank's local tensor of `t` laid out at `placements` (a plain
+    `t` stands for a replicated one; partial sums reduced first); `grad`:
+    the placements of its gradient, as `to_local` takes them."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                               run_check=False)
+    t = reduce_partials(t)
+    if tuple(t.placements) != placements:
+        t = t.redistribute(mesh, placements)
+    return t.to_local(grad_placements=grad)
+
+
 def ssd_chunked(plain, x, dt, A, Bm, Cm, *, chunk=128, initial_state=None):
     """`plain(...)` (the chunked SSD: x (B, S, H, P), dt (B, S, H), A
     (H,), Bm, Cm (B, S, G, N), initial_state (B, H, N, P) or None). On
@@ -1065,15 +1079,7 @@ def ssd_chunked(plain, x, dt, A, Bm, Cm, *, chunk=128, initial_state=None):
                      else Replicate() for i in range(mesh.ndim))
 
     def local(t, placements, grad=None):
-        if t is None:
-            return None
-        if not is_dtensor(t):
-            t = DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
-                                   run_check=False)
-        t = reduce_partials(t)
-        if tuple(t.placements) != placements:
-            t = t.redistribute(mesh, placements)
-        return t.to_local(grad_placements=grad)
+        return None if t is None else _local_at(t, mesh, placements, grad)
     grp = Shard(2) if G > 1 else Replicate()
     a_pl = tuple(Shard(0) if i == md else Replicate()
                  for i in range(mesh.ndim))
@@ -1093,6 +1099,48 @@ def ssd_chunked(plain, x, dt, A, Bm, Cm, *, chunk=128, initial_state=None):
                                shape=shape, stride=_strides(shape)))
 
 
+def _ssd_step_plan(state):
+    """The state's placements if they shard nothing but its (b, h) dims
+    (the block `ssd_step`'s form runs on each rank), else None."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(state.placements)
+    if all(type(p) is Replicate or (type(p) is Shard and p.dim < 2)
+           for p in pl):
+        return pl
+    return None
+
+
+def ssd_step(plain, state, dec, dt, x, Bm, Cm):
+    """`plain(...)` (one token of the SSD recurrence: state (B, H, N, P),
+    dec, dt (B, H), x (B, H, P), Bm, Cm (B, G, N)). On a DTensor state
+    each rank runs the plain body on its own (b, h) block of the state,
+    as plain tensors (`_ssd_step_plan`), with B and C whole on the
+    rank's rows (one group: every head reads it): DTensor's own einsums
+    view (b, h) as one dim, which torch 2.11 refuses while h is sharded,
+    and gather the whole state's heads where B and C come in sharded by
+    channel. The outputs are DTensors at the state's placements. As it
+    is, noted, where the state is sharded on N or P or holds partial
+    sums, or where there is more than one group."""
+    if not is_dtensor(state):
+        return plain(state, dec, dt, x, Bm, Cm)
+    pl = _ssd_step_plan(state)
+    G = Bm.shape[1]
+    if pl is None or G > 1:
+        _NOTES.add(f"SSD decode step: state {tuple(state.shape)} at "
+                   f"{tuple(state.placements)}, {G} groups: DTensor's "
+                   f"einsums")
+        return plain(state, dec, dt, x, Bm, Cm)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = state.device_mesh
+    rows = tuple(Replicate() if type(p) is Shard and p.dim == 1 else p
+                 for p in pl)
+    s, y = plain(*(_local_at(t, mesh, pl) for t in (state, dec, dt, x)),
+                 *(_local_at(t, mesh, rows) for t in (Bm, Cm)))
+    return tuple(DTensor.from_local(t.contiguous(), mesh, pl, shape=shape,
+                                    stride=_strides(shape))
+                 for t, shape in ((s, state.shape), (y, x.shape)))
+
+
 # the `replaceable` functions' names -> their DTensor forms
 FORMS = {
     "pin_grad": pin_grad, "split_heads": split_heads,
@@ -1101,7 +1149,7 @@ FORMS = {
     "embed": embed, "write_prefix": write_prefix, "write_rows": write_rows,
     "routed_dropless": routed_dropless, "bincount": bincount,
     "dispatch": dispatch, "combine": combine, "ssd_chunked": ssd_chunked,
-    "in_proj": in_proj,
+    "ssd_step": ssd_step, "in_proj": in_proj,
     "replicated": replicated, "gathered": gathered,
     "log_sigmoid": log_sigmoid, "slstm_scan": slstm_scan,
     "layer_weights": layer_weights,

@@ -193,6 +193,21 @@ def mamba_forward(cfg: ModelConfig, p, x, *, state=None, conv_cache=None,
     return y @ p["w_out"], (fstate, new_conv)
 
 
+@replaceable
+def ssd_step(state, dec, dt, x, Bm, Cm):
+    """One token of the SSD recurrence. state: (B, H, N, P) f32; dec, dt:
+    (B, H) f32; x: (B, H, P) f32; Bm, Cm: (B, G, N) with G dividing H.
+    The state decays by dec and takes dt * B x; y (B, H, P) reads the new
+    state through C. Returns (state, y). Every (b, h) is independent of
+    the others (the dry run's form runs each rank's own block)."""
+    rep = state.shape[1] // Bm.shape[1]
+    Bh = Bm.repeat_interleave(rep, dim=1).float()       # (B, H, N)
+    Ch = Cm.repeat_interleave(rep, dim=1).float()
+    state = state * dec[..., None, None] + torch.einsum(
+        "bh,bhn,bhp->bhnp", dt, Bh, x)
+    return state, torch.einsum("bhn,bhnp->bhp", Ch, state)
+
+
 def mamba_decode(cfg: ModelConfig, p, x, state, conv_cache):
     """Single-token recurrent step. x: (B, 1, d); state: (B, H, N, P) f32;
     conv_cache: (B, K-1, C). Returns (out, (state, conv_cache))."""
@@ -208,16 +223,11 @@ def mamba_decode(cfg: ModelConfig, p, x, state, conv_cache):
     xs = xs.reshape(B_, H, P)
     Bm = Bm.reshape(B_, G, N)
     Cm = Cm.reshape(B_, G, N)
-    rep = H // G
-    Bh = Bm.repeat_interleave(rep, dim=1)               # (B, H, N)
-    Ch = Cm.repeat_interleave(rep, dim=1)
     dtp = F.softplus(dt[:, 0].float() + p["dt_bias"])   # (B, H)
     A = -torch.exp(p["A_log"])
     dec = torch.exp(dtp * A)
     xs32 = xs.float()
-    state = state * dec[..., None, None] + torch.einsum(
-        "bh,bhn,bhp->bhnp", dtp, Bh.float(), xs32)
-    y = torch.einsum("bhn,bhnp->bhp", Ch.float(), state)
+    state, y = ssd_step(state, dec, dtp, xs32, Bm, Cm)
     y = y + p["D"][:, None] * xs32
     y = y.reshape(B_, 1, d_in).to(x.dtype)
     y = layers.rmsnorm(y * F.silu(z), p["norm_w"])

@@ -18,8 +18,9 @@ deepseek-moe-16b smoke the capacity dispatch of the train step and
 prefill and the dropless dispatch of decode, each rank's buffer shard
 built by an all-to-all (`dispatch`, `combine`; every call checked to
 make its cross-rank plan); zamba2-2.7b smoke the Mamba2 in-projection
-and conv by channel and the SSD on each rank's heads (`in_proj`,
-`ssd_chunked`);
+and conv by channel, the SSD on each rank's heads (`in_proj`,
+`ssd_chunked`) and the decode step's state update on each rank's (b, h)
+block (`ssd_step`; every decode call checked to make that plan);
 xlstm-1.3b smoke (tests/test_torch_act_sharding_ssm.py) the sLSTM token
 loop on each rank's own rows (`slstm_scan`)."""
 import socket
@@ -129,20 +130,30 @@ def _check(arch, mesh_shape, serve, dataclasses):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5,
                                    msg=what)
 
-    # the MoE forms' cross-rank plan: made at every call of every step
-    used = []
-    plan = dtensor_forms._moe_plan
+    # the forms' plans on each rank's own block, made at every call: the
+    # MoE's cross-rank dispatch in every step, the SSD's decode step on
+    # the state's (b, h) block in every decode
+    used = {"_moe_plan": [], "_ssd_step_plan": []}
 
-    def traced(*args):
-        out = plan(*args)
-        used.append(out is not None)
-        return out
-    dtensor_forms._moe_plan = traced
+    def traced(name):
+        plan = getattr(dtensor_forms, name)
+
+        def run(*args):
+            out = plan(*args)
+            used[name].append(out is not None)
+            return out
+        setattr(dtensor_forms, name, run)
+    for name in used:
+        traced(name)
 
     def planned(what):
-        if cfg.family == "moe":
-            assert used and all(used), f"{what}: MoE plans {used}"
-        used.clear()
+        name = {"moe": "_moe_plan", "hybrid": "_ssd_step_plan"}.get(
+            cfg.family)
+        if name and (cfg.family == "moe" or what.startswith("decode")):
+            assert used[name] and all(used[name]), \
+                f"{what}: {name} {used[name]}"
+        for calls in used.values():
+            calls.clear()
 
     # train: loss and every gradient
     plain.requires_grad_(True)

@@ -298,11 +298,11 @@ def test_chip_smoke_examples_dry_run(two_threads):
 @pytest.mark.parametrize("hbm", ["80GB", "1B"])
 def test_chip_smoke_dryrun_phase(tmp_path, monkeypatch, hbm):
     """The dryrun phase (`run_dryrun`) on one quick pair on each mesh (the
-    card runs chatglm3-6b decode_32k on both, granite-3-2b train_4k and
-    deepseek-moe-16b prefill_32k on 16x16, and the offload example): a
-    fresh process per pair, ok records with an int temp_size, their
-    roofline rows; a record over the HBM fails the phase (the same pairs
-    against a 1-byte HBM)."""
+    card runs chatglm3-6b decode_32k on both, granite-3-2b train_4k,
+    deepseek-moe-16b prefill_32k and zamba2-2.7b decode_32k on 16x16, and
+    the offload example): a fresh process per pair, ok records with an
+    int temp_size, their roofline rows; a record over the HBM fails the
+    phase (the same pairs against a 1-byte HBM)."""
     from repro_torch.roofline import analysis
     pairs = (("whisper-base", "long_500k", "single"),
              ("whisper-base", "long_500k", "multi"))
@@ -325,4 +325,5 @@ def test_chip_smoke_dryrun_phase(tmp_path, monkeypatch, hbm):
         ("chatglm3-6b", "decode_32k", "single"),
         ("granite-3-2b", "train_4k", "single"),
         ("chatglm3-6b", "decode_32k", "multi"),
-        ("deepseek-moe-16b", "prefill_32k", "single"))
+        ("deepseek-moe-16b", "prefill_32k", "single"),
+        ("zamba2-2.7b", "decode_32k", "single"))

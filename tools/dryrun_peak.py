@@ -2,7 +2,7 @@
 full config (CPU only; no card):
 
     PYTHONPATH=src python tools/dryrun_peak.py --arch A --shape S \
-        [--mesh single|multi] [--ops GIB] [--out F]
+        [--mesh single|multi] [--ops GIB] [--forward] [--out F]
 
 prints one JSON object: the record's `temp_size`, the live bytes when
 the model is built (after the gathers made before the step's first
@@ -13,7 +13,10 @@ weights gathered over the data axes ('model' shards kept), all layers
 and one layer. With `--ops GIB`, also the first 60 local ops whose
 outputs hold more than GIB GiB, in order: the op, its input and output
 shapes, the live GiB before it, and its frames (DTensor's own
-included). Run with another tree's `src` on PYTHONPATH to read that
+included); with `--forward` (the step runs under autograd's anomaly
+mode, which keeps each node's forward stack) also, for an op of the
+backward, the model frames of the forward op whose gradient it
+computes. Run with another tree's `src` on PYTHONPATH to read that
 tree's plan (`run_one`, `_LocalCounter` and the specs are all it uses;
 a tree before `specs.LAYER_STACKS` gives no gathered bytes).
 """
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import traceback
 
 import torch
@@ -37,6 +41,7 @@ class _PeakCounter(dryrun._LocalCounter):
 
     runs: list = []
     ops_gib = None      # `--ops`: list the ops whose outputs pass it
+    forward = False     # `--forward`: each op's forward frames
 
     def __init__(self):
         super().__init__()
@@ -60,6 +65,8 @@ class _PeakCounter(dryrun._LocalCounter):
                              "out_gib": round(gib, 3),
                              "live_gib": round(self.live / 2**30, 3),
                              "frames": frames})
+            if self.forward:
+                self.ops[-1]["forward"] = _forward_frames()
         return super()._count(func, args, kwargs, out)
 
     def _free(self, key):
@@ -84,6 +91,21 @@ class _PeakCounter(dryrun._LocalCounter):
                 "frames": frames[-6:],
                 "top": [(round(b / 2**30, 3), s, d) for b, s, d in top]}
         return key
+
+
+def _forward_frames():
+    """The current backward node (None in the forward) and the model
+    frames of the forward op it differentiates, as anomaly mode kept
+    them."""
+    node = torch._C._current_autograd_node()
+    if node is None:
+        return None
+    frame = re.compile(r'File "[^"]*repro_torch[^"]*", line (\d+), '
+                       r'in (\w+)')
+    frames = [f"{m[2]}:{m[1]}"
+              for line in node.metadata.get("traceback_", [])
+              for m in frame.finditer(line)]
+    return {"node": node.name(), "frames": frames[-6:]}
 
 
 def gathered_layer_bytes(arch: str, shape: str, multi: bool):
@@ -116,9 +138,11 @@ def main(argv=None):
     ap.add_argument("--shape", required=True)
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
     ap.add_argument("--ops", type=float, default=None)
+    ap.add_argument("--forward", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     multi = args.mesh == "multi"
+    _PeakCounter.forward = args.forward
     _PeakCounter.ops_gib = args.ops
     built = []
     build = specs.build_model
@@ -129,7 +153,8 @@ def main(argv=None):
         return build(*a, **kw)
     specs.build_model = build_model
     dryrun._LocalCounter = _PeakCounter
-    rec = dryrun.run_one(args.arch, args.shape, multi)
+    with torch.autograd.set_detect_anomaly(args.forward, check_nan=False):
+        rec = dryrun.run_one(args.arch, args.shape, multi)
     out = {"arch": args.arch, "shape": args.shape, "mesh": rec["mesh"],
            "ok": rec["ok"], "error": rec.get("error"),
            "temp_gib": rec["memory"]["temp_size"] / 2**30

@@ -12,8 +12,10 @@ mesh; the process group is process-global), `--jobs` at a time, train pairs
 first, and writes their records to OUT.json as one list; `--src` names
 another tree's `src` to run that tree's dry run (a parent unpacked with
 `git archive`). `compare` prints, for each pair in both files, the GiB a
-rank before and after, `temp_size`, whether `flops`, the memory record
-and the collectives are equal, and the change in `flops`.
+rank before and after, `temp_size` and its change, whether `flops`, the
+memory record and the collectives are equal, and the change in `flops`,
+the collective bytes before and after, and the change in
+`bytes_accessed`.
 """
 from __future__ import annotations
 
@@ -71,16 +73,21 @@ def compare(args):
                     if r.get("ok")}
     before, after = load(args.before), load(args.after)
     print("arch | shape | mesh | GiB before | GiB after | temp_size after "
-          "| memory equal | flops equal | flops after - before | "
-          "collectives equal")
+          "| temp_size after - before | memory equal | flops equal | flops "
+          "after - before | collectives equal | collective bytes before -> "
+          "after | bytes_accessed after - before")
     for key in sorted(before.keys() & after.keys()):
         b, a = before[key], after[key]
+        cb, ca = (r["collectives"]["total_bytes"] for r in (b, a))
         print(" | ".join(str(x) for x in (
             *key, f"{b['bytes_per_device'] / 2**30:.3f}",
             f"{a['bytes_per_device'] / 2**30:.3f}",
-            a["memory"]["temp_size"], a["memory"] == b["memory"],
+            a["memory"]["temp_size"],
+            a["memory"]["temp_size"] - b["memory"]["temp_size"],
+            a["memory"] == b["memory"],
             a["flops"] == b["flops"], f"{a['flops'] - b['flops']:.0f}",
-            a["collectives"] == b["collectives"])))
+            a["collectives"] == b["collectives"], f"{cb} -> {ca}",
+            f"{a['bytes_accessed'] - b['bytes_accessed']:.0f}")))
 
 
 def main(argv=None):
