@@ -117,6 +117,18 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            slo_aware off, 16-token blocks) with a device pool tight enough
            to force layer-wise offload and reload: 8 requests of 256-1024
            prompt tokens, 32 output tokens each, all arriving at t = 0.
+           Its decode steps run the executor's compiled steps: a
+           signature's first step eagerly, then one CUDA graph captured
+           and replayed (`serving.executor._StepGraph`).
+  graphs   the serve phase's weights in an executor of its own with a
+           twin that shares them and a copy of its pool: three dense
+           decode steps of one signature (8 rows, contexts 900-1000)
+           and three host-free fused steps of one signature (two chunks,
+           four decode rows), each held against the same step run
+           eagerly by the twin on fresh tensors: tokens equal, logits and
+           the pool (but its trash block) bit for bit; the first step of
+           each runs eagerly, the second is captured and replayed, the
+           third replayed.
   fused    the same model, weights and prompts through the fused mixed
            step (chunked, fused, 512-token prefill budget): chunk rows on
            the paged-prefill kernel, over the pinned host pool for layers
@@ -133,7 +145,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            that fits everything; fused and moe also assert a step ran with
            a host-tier chunk. Each prints the agreement share of the full
            token streams and wall-clock TTFT / TPOT / decode tokens per
-           second.
+           second, and each run's compiled steps: signatures captured,
+           replays, eager steps by reason and the graph pool's bytes;
+           serve and fused assert replays and at most one capture per
+           signature, moe none (every MoE step is eager).
   cluster  llama2-7b (the serve phase's weights, shared by both
            replicas: each engine gets the same tensors) served by a
            ClusterSession of two port engines behind the slo_aware router,
@@ -263,7 +278,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            collective counts, the three roofline terms and each
            record's notes.
   profile  (only with --profile) torch.profiler over a few decode-only
-           steps of an exclusive vllm llama2-7b run at B = 8, over one
+           steps of an exclusive vllm llama2-7b run at B = 8 (graph
+           replays: the profiler's paged_decode_kernel count must equal
+           the launch counter's), over one
            more layerkv run of the fused path (the paged kernels' device
            time and launches, the two-pool calls apart, the side
            stream's staging copies with the share that overlaps compute
@@ -1905,6 +1922,36 @@ def _staging(eng):
             "stage_runs": pp.stage_runs, "stage_host_s": pp.stage_host_s}
 
 
+def _graph_stats(ex):
+    """Executor `ex`'s compiled steps (`serving.executor._StepGraph`):
+    signatures captured, steps replayed, steps run eagerly by reason, the
+    device bytes its captures reserved in the graph pool, and its novel
+    signatures of the steps it compiles (dense decode, host-free
+    fused)."""
+    return {"captures": ex.graph_captures, "replays": ex.graph_replays,
+            "eager_steps": dict(ex.eager_steps),
+            "graph_pool_bytes": ex.graph_pool_bytes,
+            "compiled_signatures": sum(
+                1 for fn, sig in ex._jit_sigs
+                if fn == "decode" or (fn == "mixed" and not sig[-1]))}
+
+
+def _say_graphs(tag, name, g):
+    _say(f"[{tag}] {name} compiled steps: {g['captures']} graphs captured "
+         f"of {g['compiled_signatures']} compiled signatures, "
+         f"{g['replays']} replays, eager steps {g['eager_steps']}, graph "
+         f"pool {g['graph_pool_bytes']} bytes")
+
+
+def _check_graphs(tag, family, g):
+    """A dense model's steps replayed graphs, at most one capture a
+    signature; a MoE model's ran eagerly, none captured."""
+    ok = (g["captures"] == g["replays"] == 0 if family == "moe" else
+          g["replays"] > 0 and g["captures"] <= g["compiled_signatures"])
+    if not ok:
+        raise AssertionError(f"[{tag}] compiled steps: {g}")
+
+
 def bf16_step(x: float) -> float:
     """The gap between bf16 `x` (x != 0) and the next bf16 value away
     from 0: 2 ** (e - 8) for |x| in [2 ** (e - 1), 2 ** e) (7 stored
@@ -2033,6 +2080,10 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
         raise AssertionError("non-finite logits on the layerkv run")
     host_steps = sum(1 for fn, sig in eng.ex._jit_sigs
                      if fn == "mixed" and sig[-1])
+    graphs = _graph_stats(eng.ex)
+    _say_graphs(tag, "layerkv", graphs)
+    if on_cuda and (cfg.family == "moe" or tag in GRAPH_PATHS):
+        _check_graphs(tag, cfg.family, graphs)
     lk_tokens = {r.rid: list(r.generated) for r in done}
     params = eng.ex.params
 
@@ -2042,6 +2093,8 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
                                  out_len, seed=0, device=device, **ec_kw)
     if eng_v.ex.nonfinite_logits():
         raise AssertionError("non-finite logits on the vllm run")
+    graphs_v = _graph_stats(eng_v.ex)
+    _say_graphs(tag, "vllm", graphs_v)
     v_tokens = {r.rid: list(r.generated) for r in done_v}
     ties = check_first_tokens(
         tag, eng_v.ex, prompts, {rid: t[0] for rid, t in lk_tokens.items()},
@@ -2069,11 +2122,14 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
             "reloads": n_rel, "agreement": agree / total,
             "launches": launches, **staging,
             "host_tier_signatures": host_steps, "near_ties": ties,
+            "graphs": graphs, "graphs_vllm": graphs_v,
             "tokens": lk_tokens, "params": params}
 
 
 # device blocks of the smoke paths' layerkv runs (2 layers, 16-token blocks)
 SMOKE_NDB = 24
+# the full-size dense paths whose layerkv run must replay captured steps
+GRAPH_PATHS = ("serve", "fused")
 # The serving paths: model (its full config, or with `smoke` its smoke
 # config), prompts (count, seed, and lengths when not 256-1024), output
 # tokens, the device blocks of the layerkv run (tight: forces layer-wise
@@ -2215,6 +2271,157 @@ def phase_serve(profile=False):
         res["profile"] = _profile_decode(cfg, res["params"], prompts,
                                          out_len)
     return res
+
+
+# the graphs phase: a pool of `ndb` 16-token blocks; decode steps of
+# `rows` rows at contexts in `ctx`; fused steps of chunks of `chunks`
+# (tokens, offset) with `decode_rows` decode rows at contexts in `ctx`;
+# `steps` steps of each signature (eager, captured + replayed, replayed)
+GRAPHS = dict(ndb=2048, rows=8, ctx=(900, 1000), chunks=((200, 300),
+                                                        (150, 0)),
+              decode_rows=4, steps=3, seed=5)
+
+
+def _graph_batches(cfg, kind, rng, g=GRAPHS, BS=16):
+    """`g["steps"]` steps of one signature: decode (tokens, tables,
+    kv_lens) or fused (chunks, decodes). Each step's rows take disjoint
+    blocks of the pool (the same table in every layer: a layer's writes
+    never share a slot, and the twin makes the same writes in the same
+    order); tokens, blocks and contexts differ between steps."""
+    import numpy as np
+    from repro_torch.serving.executor import MixedChunk, MixedDecode
+    L, out = cfg.n_layers, []
+    for _ in range(g["steps"]):
+        ids = iter(rng.permutation(g["ndb"]).tolist())
+        if kind == "decode":
+            nb = g["ctx"][1] // BS + 1
+            row = [[next(ids) for _ in range(nb)]
+                   for _ in range(g["rows"])]
+            lens = rng.randint(g["ctx"][0], g["ctx"][1], g["rows"])
+            out.append((rng.randint(0, cfg.vocab_size, g["rows"]).tolist(),
+                        np.array([row] * L, np.int32), lens.tolist()))
+            continue
+        chunks = []
+        for C, off in g["chunks"]:
+            tab = [next(ids) for _ in range(-(-(off + C) // BS))]
+            chunks.append(MixedChunk(
+                rng.randint(0, cfg.vocab_size, C).tolist(), off, [tab] * L,
+                [False] * L))
+        decodes = []
+        for _ in range(g["decode_rows"]):
+            ctx = int(rng.randint(*g["ctx"]))
+            tab = [next(ids) for _ in range(ctx // BS + 1)]
+            decodes.append(MixedDecode(int(rng.randint(0, cfg.vocab_size)),
+                                       ctx, [tab] * L))
+        out.append((chunks, decodes))
+    return out
+
+
+def check_step_graphs(cfg, params, device="cuda", g=GRAPHS):
+    """Hold an executor's compiled steps against the same steps run
+    eagerly: an executor on `params` (random weights from a seed if None)
+    whose pool holds random values, and a twin with its weights and a
+    copy of its pool. For each of a dense decode signature and a
+    host-free fused one, `g["steps"]` steps (`_graph_batches`); each is
+    run again by the twin on fresh tensors of the host arrays the step
+    filled its static inputs from (`_paged_decode`, `_mixed_forward`):
+    tokens equal, logits and the pool (but the trash block, padded rows'
+    garbage) bit for bit. On CUDA the first step of a signature runs
+    eagerly, the second is captured and replayed, the third replayed;
+    on the CPU every step runs the static-buffer code eagerly. Raises on
+    a mismatch; returns per kind the signature, the largest logit
+    difference and the executor's compiled-step counts."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import executor as exm
+    BS = 16
+    ex = exm.PagedExecutor(cfg, params, g["ndb"], 16, BS, device=device,
+                           seed=0)
+    gen = torch.Generator(device=ex.device).manual_seed(g["seed"])
+    ex.device_pool.copy_(torch.randn(ex.device_pool.shape, generator=gen,
+                                     device=ex.device))
+    twin = exm.PagedExecutor(cfg, ex.params, g["ndb"], 16, BS,
+                             device=device)
+    twin.device_pool.copy_(ex.device_pool)
+    filled, seen = [], []
+    run, note = exm._StepGraph.run, ex._note_logits
+
+    def spy(self, arrays):
+        filled.append({k: np.array(v) for k, v in arrays.items()})
+        return run(self, arrays)
+    ex._note_logits = lambda lg: (seen.append(lg.clone()), note(lg))
+    rng = np.random.RandomState(g["seed"])
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    exm._StepGraph.run = spy
+    try:
+        for kind in ("decode", "mixed"):
+            step_fn = ex.decode if kind == "decode" else ex.mixed_step
+            worst = 0.0
+            for i, step in enumerate(_graph_batches(cfg, kind, rng, g)):
+                got = step_fn(*step)
+                sig = [s for fn, s in ex._graphs if fn == kind]
+                if len(sig) != 1:
+                    raise AssertionError(f"[graphs] {kind}: signatures "
+                                         f"{sig}, not one")
+                want = _graph_twin(twin, kind, filled[-1], sig[0])
+                want = want[:len(got)]
+                worst = max(worst, float((seen[-1].float()
+                                          - want.float()).abs().max()))
+                if got != torch.argmax(want, dim=-1).tolist() \
+                        or not torch.equal(seen[-1], want) \
+                        or not torch.equal(ex.device_pool[:g["ndb"]],
+                                           twin.device_pool[:g["ndb"]]):
+                    raise AssertionError(
+                        f"[graphs] {kind} step {i} differs from the eager "
+                        f"step: tokens equal {got == want.argmax(-1).tolist()}"
+                        f", logits max |diff| {worst:.3g}")
+            out[kind] = {"signature": sig[0], "max_abs_err": worst,
+                         **_graph_stats(ex)}
+            _say(f"[graphs] {cfg.arch_id} {kind} {sig[0]}: {g['steps']} "
+                 f"steps equal the eager twin's (tokens, logits and pool "
+                 f"bit for bit); {_graph_stats(ex)}")
+    finally:
+        exm._StepGraph.run = run
+    if cuda and (ex.graph_captures, ex.graph_replays) != (
+            2, 2 * (g["steps"] - 1)):
+        raise AssertionError(f"[graphs] {_graph_stats(ex)}: not one "
+                             f"capture per signature and a replay per "
+                             f"later step")
+    return out
+
+
+def _graph_twin(twin, kind, a, sig):
+    """Step `kind` of signature `sig` run eagerly by `twin` on fresh
+    tensors of its host arrays `a`."""
+    import numpy as np
+    import torch
+    dev = twin.device
+
+    def t(name, dtype, n=None):
+        return torch.as_tensor(np.array(a[name][:n]), dtype=dtype,
+                               device=dev)
+    i32, i64 = torch.int32, torch.int64
+    if kind == "decode":
+        return twin._paged_decode(t("tokens", i64), t("tables", i32),
+                                  t("kv_lens", i32))
+    L, Tc, Rb = twin.cfg.n_layers, sig[0], sig[2]
+    return twin._mixed_forward(
+        t("tokens", i64), t("q_pos", i32), t("off", i64), t("blk_dev", i64),
+        [[] for _ in range(L)], t("c_seg", i32), t("q_pos", i32, Tc),
+        t("c_kvlens", i32), t("c_tables", i32), t("c_tier", i32),
+        t("d_tables", i32), t("d_kvlens", i32), t("sample_idx", i64),
+        t("is_chunk", torch.bool), [None] * L, None, Tc, Rb)
+
+
+def phase_graphs(params):
+    """llama2-7b's compiled steps at full width and depth against their
+    eager steps (`check_step_graphs`), on the serve phase's weights."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    out = check_step_graphs(get_config(PATHS["serve"]["arch"]), params)
+    _say(f"[graphs] phase {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def phase_fused(params, excl_tokens, profile=False):
@@ -2383,6 +2590,7 @@ def _run_cluster(cfg, params, device, ref_tokens=None):
                     "steps": st.steps, "offloads": kinds.count("offload"),
                     "reloads": kinds.count("reload"),
                     "host_tier_signatures": host,
+                    "graphs": _graph_stats(eng.ex),
                     "partial_evictions":
                         eng.core.registry.total("partial_evictions"),
                     "decode_tokens": dec_tok[i], "decode_wall_s": dec_wall[i],
@@ -2397,6 +2605,9 @@ def _run_cluster(cfg, params, device, ref_tokens=None):
     if torch.device(device).type == "cuda" \
             and not all(launches[k] > 0 for k in pc["kernels"]):
         raise AssertionError(f"a kernel was never launched: {launches}")
+    if torch.device(device).type == "cuda":
+        for i, r in enumerate(per):
+            _check_graphs(f"cluster r{i}", cfg.family, r["graphs"])
     for eng in engines:
         eng.bm.drop_cache()
         eng.bm.check()
@@ -2576,17 +2787,32 @@ def _profile_decode(cfg, params, prompts, out_len, steps=4):
     for i, p in enumerate(prompts):
         session.submit(Request(rid=f"p{i}", prompt_len=len(p),
                                output_len=out_len, arrival=0.0, prompt=p))
+    from repro_torch.kernels import paged_attention as pa
     for _ in range(3):              # the prefill step, then two warm decodes
-        session.step()
+        session.step()              # (the second captures its graph)
     if len(eng.decoding) != len(prompts):
         raise AssertionError("profile window is not a full decode batch")
-    out = _trace(session.step, steps)
+    before, g0 = pa.launches, _graph_stats(eng.ex)
+    out = _trace(session.step, steps, kernels=("paged_decode_kernel",))
     out["batch"] = len(prompts)
+    g1 = _graph_stats(eng.ex)
+    out["graph_replays"] = g1["replays"] - g0["replays"]
+    out["graph_captures"] = g1["captures"]
+    out["graph_pool_bytes"] = g1["graph_pool_bytes"]
+    traced = out["kernels"]["paged_decode_kernel"]["launches"]
     _say(f"[profile] vllm decode B={len(prompts)}: "
          f"{out['wall_ms_per_step']:.2f} ms wall/step, device busy "
          f"{out['device_busy_ms_per_step']:.2f} ms/step "
          f"({out['device_busy_share']:.3f}), "
-         f"{out['device_ops_per_step']:.0f} device ops/step")
+         f"{out['device_ops_per_step']:.0f} device ops/step; "
+         f"{out['graph_replays']} of {steps} steps replayed a graph "
+         f"({g1['captures']} captured, pool {g1['graph_pool_bytes']} "
+         f"bytes); paged_decode_kernel {traced} in the trace, "
+         f"{pa.launches - before} counted")
+    if traced != pa.launches - before:
+        raise AssertionError(f"the trace shows {traced} paged decode "
+                             f"launches, the counter "
+                             f"{pa.launches - before}")
     for name, ms, n in out["top"]:
         _say(f"[profile]   {ms:8.3f} ms/step  x{n:<5d} {name[:90]}")
     return out
@@ -3823,6 +4049,9 @@ def main(argv=None) -> int:
     params = paths["serve"].pop("params")
     gc.collect()                     # the serve engines' pools go first
     torch.cuda.empty_cache()
+    graphs = phase_graphs(params)
+    gc.collect()
+    torch.cuda.empty_cache()
     paths["generate"] = phase_generate(
         params, _path_prompts("serve", path_config("serve")),
         paths["serve"]["tokens"], profile=args.profile)
@@ -3908,7 +4137,7 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"nvidia_smi": smi, "kernels": rows, "paths": paths,
-                       "dryrun": dry, "device": device,
+                       "graphs": graphs, "dryrun": dry, "device": device,
                        "seconds": time.perf_counter() - t0}, f, indent=1,
                       default=str)
     _say(f"[done] {time.perf_counter() - t0:.1f}s")

@@ -32,6 +32,9 @@ from repro_torch.kernels.ref import (decode_attention_reference,
 launches = 0
 launches_bwd = 0
 launches_decode = 0
+# the counters above, by name: a replayed CUDA graph adds what its capture
+# counted (`serving.executor._StepGraph`)
+COUNTERS = ("launches", "launches_bwd", "launches_decode")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims with a case in both flash sources: 80 is zamba2's shared

@@ -22,6 +22,9 @@ from repro_torch.kernels.ref import NEG_INF, paged_attention_reference
 # kernel launches since the last reset (CPU calls do not count): one per
 # call (the merge of a row's splits runs inside the same launch)
 launches = 0
+# the counter above, by name: a replayed CUDA graph adds what its capture
+# counted (`serving.executor._StepGraph`)
+COUNTERS = ("launches",)
 
 MAX_GROUP = 16  # query heads per KV head the kernel holds (csrc MAX_G)
 # the head dims the paged kernels (this one and paged_prefill.cu) have
@@ -115,17 +118,39 @@ def _fn():
 _tickets = {}
 
 
-def _ticket_buffer(device, n):
-    """At least `n` zeroed int32 tickets for calls on `device`'s current
-    stream, allocated (and zeroed) on it only when a call there needs
-    more than any call before."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
+def reserve_tickets(stream, n):
+    """The ticket buffer of calls on `stream` (a torch.cuda.Stream), grown
+    to at least `n` tickets first if it holds fewer: a new zeroed buffer
+    made on the current stream. A CUDA graph that
+    captures calls on `stream` reserves what its launches need before the
+    capture and keeps the buffer returned, whose address they hold: a
+    later growth puts a new buffer in its place here, which the captured
+    launches never read. Replays of graphs that share a buffer must not
+    overlap (they do not: they run on one stream)."""
+    key = (stream.device, stream.cuda_stream)
     buf = _tickets.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 2 * (0 if buf is None else buf.numel())),
-                          dtype=torch.int32, device=device)
+                          dtype=torch.int32, device=stream.device)
         _tickets[key] = buf
     return buf
+
+
+def _ticket_buffer(device, n):
+    """At least `n` zeroed int32 tickets for calls on `device`'s current
+    stream, allocated (and zeroed) on it only when a call there needs
+    more than any call before. Raises on a stream that is capturing a
+    CUDA graph and has fewer: a buffer made inside the capture would be
+    the graph's, zeroed by it, and no later eager call could see it
+    (`reserve_tickets` first)."""
+    stream = torch.cuda.current_stream(device)
+    buf = _tickets.get((stream.device, stream.cuda_stream))
+    if (buf is None or buf.numel() < n) \
+            and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"paged_attention: a capturing stream needs {n} "
+                           "tickets reserved before the capture "
+                           "(reserve_tickets)")
+    return reserve_tickets(stream, n)
 
 
 def split_pass(q, kv_pool, block_table, kv_len, scale):

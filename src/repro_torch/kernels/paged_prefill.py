@@ -48,6 +48,11 @@ stage_host_s = 0.0
 # launches_mma + launches_tf32 == launches + launches_tiered
 launches_mma = 0
 launches_tf32 = 0
+# the launch counters above, by name (not stage_host_s, a host time): a
+# replayed CUDA graph adds what its capture counted
+# (`serving.executor._StepGraph`)
+COUNTERS = ("launches", "launches_tiered", "launches_stage", "stage_runs",
+            "launches_mma", "launches_tf32")
 
 # the kernel's plain PyTorch version, run for CPU tensors and held
 # against the kernel on the card

@@ -19,6 +19,9 @@ from repro_torch.kernels import _build
 # the small dw sum that follows it)
 launches = 0
 launches_bwd = 0
+# the counters above, by name: a replayed CUDA graph adds what its capture
+# counted (`serving.executor._StepGraph`)
+COUNTERS = ("launches", "launches_bwd")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 8192   # csrc MAX_D: 8 warps x 32 threads x 32 columns a row

@@ -155,6 +155,9 @@ def _distribute(mesh, tree, spec):
 
 
 _WAIT = torch.ops._c10d_functional.wait_tensor.default
+# the counter's name for an all-to-all (the MoE forms' and a shard-to-
+# shard move's)
+ALL_TO_ALL = "_c10d_functional.all_to_all_single"
 
 
 class _LocalCounter(TorchDispatchMode):
@@ -231,10 +234,10 @@ class _LocalCounter(TorchDispatchMode):
     def _free(self, key):
         self.live -= self._held.pop(key)
 
-    def _storage(self, t, new: bool):
+    def _storage(self, t, new: bool, nbytes=None):
         """The key of `t`'s storage (None if it has none of its own),
-        registered if unseen: as a new allocation of the step (`new`) or
-        as one from outside it."""
+        registered if unseen: as a new allocation of the step (`new`) of
+        the storage's bytes (or `nbytes`) or as one from outside it."""
         try:
             st = t.untyped_storage()
         except (NotImplementedError, RuntimeError):
@@ -242,7 +245,7 @@ class _LocalCounter(TorchDispatchMode):
         key = id(st)
         if key in self._held:
             return key
-        nbytes = st.nbytes() if new else 0
+        nbytes = (st.nbytes() if nbytes is None else nbytes) if new else 0
         self._held[key] = nbytes
         weakref.finalize(st, self._free, key)
         if nbytes:
@@ -255,21 +258,43 @@ class _LocalCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         kwargs = kwargs or {}
+        if self.paused:
+            return func(*args, **kwargs)
         if func is _WAIT:
             return args[0]
         out = func(*args, **kwargs)
-        if self.paused:
-            return out
+        with self._node_scaled():
+            return self._count(func, args, kwargs, out)
+
+    @contextlib.contextmanager
+    def _node_scaled(self):
+        """`scale`, times the factor of the autograd node the current op
+        runs for (`scaled_nodes`)."""
         prev = self.scale
-        if self._nodes:       # the autograd node this op runs for
+        if self._nodes:
             node = torch._C._current_autograd_node()
             seq = -1 if node is None else node._sequence_nr()
             self.scale *= math.prod(k for lo, hi, k in self._nodes
                                     if lo < seq <= hi)
         try:
-            return self._count(func, args, kwargs, out)
+            yield
         finally:
             self.scale = prev
+
+    def all_to_all(self, inp, out):
+        """Count one all-to-all that took `inp` to `out` (a shard-to-shard
+        move made uncounted): `out` is a new allocation of its own bytes
+        (the CPU mesh's may be a view of its gathered buffer), they are
+        the collective's result, and it reads `inp` and writes `out`
+        once."""
+        with self._node_scaled():
+            self._storage(out, new=True, nbytes=_local_bytes(out))
+            self.accessed += self.scale * (_local_bytes(inp)
+                                           + _local_bytes(out))
+            self.counts[ALL_TO_ALL] = self.counts.get(ALL_TO_ALL, 0) \
+                + self.scale
+            self.bytes[ALL_TO_ALL] = self.bytes.get(ALL_TO_ALL, 0) \
+                + self.scale * _local_bytes(out)
 
     def _count(self, func, args, kwargs, out):
         ins = [t for t in tree_flatten((args, kwargs))[0]
@@ -327,6 +352,12 @@ TORCH_INTERNALS = (
     ("torch.distributed._functional_collectives", "all_gather_tensor"),
     ("torch.distributed.device_mesh", "DeviceMesh._flatten"),
     ("torch._subclasses.fake_tensor", "is_fake"),
+    # a shard-to-shard move, made on a CPU mesh as an all-gather and a
+    # chunk and counted as the all-to-all a card makes
+    # (`_dtensor_fixes`); `placement_types` holds its own name of it where
+    # it imported the function, and CommDebugMode's key for an all-to-all
+    ("torch.distributed.tensor._collective_utils", "shard_dim_alltoall"),
+    ("torch", "ops.c10d_functional.all_to_all_single"),
     # the sharding caches a new process group empties
     # (`mesh._clear_sharding_caches`)
     ("torch._C", "_clear_DTensor_sharding_propagator_cache"),
@@ -351,8 +382,8 @@ def missing_torch_internals() -> list:
 
 
 @contextlib.contextmanager
-def _dtensor_fixes(counter):
-    """Two adjustments to DTensor for a step on fake tensors.
+def _dtensor_fixes(counter, comm=None):
+    """Three adjustments to DTensor for a step on fake tensors.
 
     Sharding propagation picks an op's placements and infers its output
     shapes by running ops on GLOBAL-shape fake tensors and on fake meshes
@@ -365,7 +396,18 @@ def _dtensor_fixes(counter):
     from an index tensor it builds with torch ops and reads back with
     `.tolist()`; under FakeTensorMode that tensor is fake and cannot be
     read. Run that computation on real (tiny) tensors, uncounted: it reads
-    metadata only."""
+    metadata only.
+
+    A redistribution Shard(i) -> Shard(j) on one mesh dim
+    (`shard_dim_alltoall`) is, on a CPU mesh, an all-gather of every
+    rank's shard and a chunk of the result; a card's NCCL makes it one
+    all-to-all that holds the output shard only. The move runs as torch
+    makes it (its values unchanged) with `counter` paused, and counts as
+    that all-to-all: its output shard live, one all-to-all of the
+    output's bytes (`_LocalCounter.all_to_all`), no all-gather; `comm`, a
+    CommDebugMode, likewise counts the one all-to-all."""
+    import torch.distributed.tensor._collective_utils as coll_utils
+    import torch.distributed.tensor.placement_types as ptypes
     from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
     from torch.distributed.tensor.placement_types import _StridedShard
@@ -386,9 +428,25 @@ def _dtensor_fixes(counter):
                 False),
                (ShardingPropagator, "_propagate_tensor_meta_non_cached",
                 False)]
+    move = coll_utils.shard_dim_alltoall
+
+    def all_to_all(inp, gather_dim, shard_dim, mesh, mesh_dim):
+        seen = None if comm is None else dict(comm.comm_counts)
+        out = uncounted(move)(inp, gather_dim, shard_dim, mesh, mesh_dim)
+        if comm is not None:
+            comm.comm_counts.clear()
+            comm.comm_counts.update(seen)
+            comm.comm_counts[torch.ops.c10d_functional.all_to_all_single] \
+                += 1
+        counter.all_to_all(inp, out)
+        return out
+
+    patches += [(m, "shard_dim_alltoall", None) for m in (coll_utils, ptypes)
+                if getattr(m, "shard_dim_alltoall", None) is move]
     origs = [getattr(cls, name) for cls, name, _ in patches]
     for (cls, name, real), fn in zip(patches, origs):
-        setattr(cls, name, uncounted(fn, real))
+        setattr(cls, name, all_to_all if real is None
+                else uncounted(fn, real))
     try:
         yield
     finally:
@@ -473,7 +531,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
         gc.disable()
         try:
             with _contexts(cfg, shape_name, mesh, multi_pod, coll), mode, \
-                    _dtensor_fixes(coll), implicit_replication(), coll, \
+                    _dtensor_fixes(coll, comm), implicit_replication(), coll, \
                     comm:
                 out = fn(*dargs)
         finally:

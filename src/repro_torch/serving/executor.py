@@ -46,14 +46,39 @@ buffer, `decode` the batch width R, and `mixed_step` the chunk rows Tc /
 chunk segments Sc / decode width Rb / output rows Sb to power-of-two
 buckets, block tables round to 8-block granularity, padded rows carry
 trash-block tables. Every novel shape signature is counted in the registry's
-`jit_retraces` series, the reference's name for it: in the port a
-signature is what a later CUDA-graph capture would key on.
+`jit_retraces` series, the reference's name for it.
+
+Compiled steps, the port's counterpart of the reference's `jax.jit` of
+its decode and mixed steps: a dense model's `decode` and its host-free
+`mixed_step` signatures (no chunk reads the host tier) run through a
+`_StepGraph` per signature. Its inputs live in static buffers, refilled
+whole each step from a pinned host buffer by one non-blocking copy, so
+padded rows never keep an earlier step's values. On CUDA a signature's
+first step runs eagerly on the executor's capture stream (the warm-up:
+kernels loaded, cuBLAS state made), its second is captured there as one
+CUDA graph in the executor's graph memory pool, and that step and every
+later one replay the graph on the current stream; the kernel wrappers'
+launch counters gain, on each replay, what the capture counted. The
+argmax is in the graph; reading the tokens (`.tolist()`) and the
+non-finite count stay outside it, on the static outputs. On the CPU the
+same static-buffer code runs eagerly, with no capture. Steps that stay
+eager, by signature and family: prefill and the two-call chunk path (as
+the reference's jitted prefill, not captured yet); a fused step with a
+host-tier chunk, whose copy-engine runs are listed on the host each
+step (`_HostStaging`); and every MoE step, whose dropless dispatch
+reads its per-expert counts on the host in every layer
+(`models/moe.py`, `counts.tolist()`). A capture or replay that fails
+raises. Counts: `graph_captures`, `graph_replays`, `graph_pool_bytes`
+and `eager_steps` by reason (plain attributes, so the registry stays
+the reference's).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import logging
+import math
 from typing import List, Sequence
 
 import numpy as np
@@ -61,7 +86,8 @@ import torch
 
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import flash_prefill, ops, rmsnorm
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_prefill as pp
 from repro_torch.models import layers
 from repro_torch.models.model import (DecoderModel, ffn, layer_params,
@@ -193,6 +219,133 @@ class _HostStaging:
             self.read_ev[kk % 2].record(self.main)
 
 
+# the kernel modules whose launch counters (`COUNTERS`) a captured step
+# goes through
+_KERNEL_MODULES = (flash_prefill, pa, pp, rmsnorm)
+
+
+def _launch_counts():
+    return {(m, name): getattr(m, name) for m in _KERNEL_MODULES
+            for name in m.COUNTERS}
+
+
+def _set_launch_counts(counts):
+    for (m, name), v in counts.items():
+        setattr(m, name, v)
+
+
+class _StepGraph:
+    """One bucket signature's compiled step (see the module docstring):
+    `fn(**inputs)` on static input buffers, named by `specs` {name:
+    (shape, dtype)}: views of one pinned host buffer and one device
+    buffer at 16-byte offsets, refilled by one copy a step. On CUDA the
+    first `run` is eager on the capture stream, the second captures `fn`
+    and replays it, later ones replay; on the CPU every run is eager.
+    `tickets` is the paged decode's ticket count a launch needs, reserved
+    for the capture stream before the capture."""
+
+    def __init__(self, ex: "PagedExecutor", fn, specs, tickets: int):
+        self.ex, self.fn, self.tickets = ex, fn, tickets
+        offs, n = {}, 0
+        for name, (shape, dtype) in specs.items():
+            offs[name] = n
+            n += _round_up(math.prod(shape) * dtype.itemsize, 16)
+        self.cuda = ex.device.type == "cuda"
+        self._host = torch.empty(max(n, 16), dtype=torch.uint8,
+                                 pin_memory=self.cuda)
+        self._dev = torch.empty(max(n, 16), dtype=torch.uint8,
+                                device=ex.device)
+
+        def view(buf, name):
+            shape, dtype = specs[name]
+            nb = math.prod(shape) * dtype.itemsize
+            return buf[offs[name]:offs[name] + nb].view(dtype).view(shape)
+        self.host = {k: view(self._host, k).numpy() for k in specs}
+        self.inputs = {k: view(self._dev, k) for k in specs}
+        self._copied = torch.cuda.Event() if self.cuda else None
+        self.steps = 0
+        self.graph = self.out = self.deltas = self._keep = None
+
+    def run(self, arrays):
+        """One step on `arrays` {name: host array}: fills the static
+        inputs and returns fn's outputs (on a replay the graph's static
+        outputs, valid until the executor's next step)."""
+        if self.cuda and self.steps:
+            self._copied.synchronize()   # the last step's copy read them
+        for k, a in arrays.items():
+            self.host[k][...] = a
+        self._dev.copy_(self._host, non_blocking=self.cuda)
+        self.steps += 1
+        ex = self.ex
+        if not self.cuda:
+            ex.eager_steps["cpu"] += 1
+            return self.fn(**self.inputs)
+        self._copied.record()
+        if self.steps == 1:
+            ex.eager_steps["first"] += 1
+            return self._warm_up()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        _set_launch_counts({k: v + self.deltas.get(k, 0)
+                            for k, v in _launch_counts().items()})
+        ex.graph_replays += 1
+        return self.out
+
+    def _warm_up(self):
+        main = torch.cuda.current_stream(self.ex.device)
+        cap = self.ex._capture_stream()
+        cap.wait_stream(main)
+        with torch.cuda.stream(cap):
+            out = self.fn(**self.inputs)
+        main.wait_stream(cap)
+        return out
+
+    def _capture(self):
+        """Capture fn on the capture stream into the executor's graph
+        pool. The launches the wrappers count while it is captured run
+        at each replay: they are taken back and kept as the deltas a
+        replay adds. Python's cycle collector stays off meanwhile: a
+        collection could destroy another executor's graph, which a
+        capture forbids. Raises, counters unchanged, if the capture
+        fails."""
+        ex = self.ex
+        dev = ex.device_pool.device
+        cap = ex._capture_stream()
+        self._keep = pa.reserve_tickets(cap, self.tickets)
+        if ex._graph_pool is None:
+            ex._graph_pool = torch.cuda.graph_pool_handle()
+        before = _launch_counts()
+        torch.cuda.synchronize(dev)
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(cap):
+                graph.capture_begin(pool=ex._graph_pool)
+                try:
+                    out = self.fn(**self.inputs)
+                except BaseException:
+                    _set_launch_counts(before)
+                    try:      # end the broken capture; the error above
+                        graph.capture_end()   # is the one that goes up
+                    except RuntimeError:
+                        pass
+                    raise
+                graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        after = _launch_counts()
+        _set_launch_counts(before)
+        self.deltas = {k: after[k] - before[k] for k in after
+                       if after[k] != before[k]}
+        ex.graph_pool_bytes += torch.cuda.memory_reserved(dev) - reserved
+        ex.graph_captures += 1
+        self.graph, self.out = graph, out
+
+
 def check_servable(cfg: ModelConfig):
     """Raise unless the engine can serve `cfg`: dense and MoE only (the
     reference's executor asserts the same), and never an int8 KV cache.
@@ -254,6 +407,18 @@ class PagedExecutor:
         # swaps in the core's registry so one snapshot() carries both.
         self.registry = MetricsRegistry()
         self._jit_sigs: set = set()
+        # compiled steps (`_StepGraph`) by (entry point, signature); on
+        # CUDA one graph memory pool and one capture stream serve them
+        # all (replays run one at a time, on the current stream)
+        self._graphs: dict = {}
+        self._graph_pool = None
+        self._cap_stream = None
+        self.graph_captures = 0     # signatures captured
+        self.graph_replays = 0      # steps that replayed a graph
+        self.graph_pool_bytes = 0   # device bytes the captures reserved
+        # steps run op by op, by reason: "first" (a signature's first
+        # step on CUDA), "cpu", "host-tier", "moe"
+        self.eager_steps = collections.Counter()
 
     @property
     def jit_retraces(self) -> collections.Counter:
@@ -268,6 +433,29 @@ class PagedExecutor:
             log.info("new shape signature #%d for %s%s",
                      int(self.registry.get("jit_retraces", fn=fn)),
                      fn, sig)
+
+    def _capture_stream(self):
+        if self._cap_stream is None:
+            self._cap_stream = torch.cuda.Stream(self.device_pool.device)
+        return self._cap_stream
+
+    def _step_graph(self, fn_name: str, sig: tuple, fn, specs,
+                    tickets: int) -> _StepGraph:
+        """The compiled step of `(fn_name, sig)`, made at its first
+        step."""
+        key = (fn_name, sig)
+        if key not in self._graphs:
+            self._graphs[key] = _StepGraph(self, fn, specs, tickets)
+        return self._graphs[key]
+
+    def _eager_reason(self, has_host: bool = False):
+        """Why a decode or fused step runs eagerly on every occurrence,
+        or None if it runs compiled."""
+        if self.cfg.family == "moe":
+            return "moe"          # counts.tolist() in every layer
+        if has_host:
+            return "host-tier"    # copy runs listed on the host each step
+        return None
 
     def nonfinite_logits(self) -> int:
         """Logits rows with a NaN or inf since construction (waits for
@@ -634,7 +822,31 @@ class PagedExecutor:
             d_kvlens[j] = d.ctx
             sample_idx[n_c + j] = t
         has_host = bool(c_tier.any())
-        self._note_trace("mixed", (Tc, Sc, Rb, Sb, MAXBc, MAXBd, has_host))
+        sig = (Tc, Sc, Rb, Sb, MAXBc, MAXBd, has_host)
+        self._note_trace("mixed", sig)
+        n = n_c + n_d
+        reason = self._eager_reason(has_host)
+        if reason is None:
+            i32, i64 = torch.int32, torch.int64
+            step = self._step_graph(
+                "mixed", sig, self._mixed_graph_fn(Tc, Rb),
+                dict(tokens=((T,), i64), q_pos=((T,), i32),
+                     off=((T,), i64), blk_dev=((L, T), i64),
+                     c_seg=((Tc,), i32), c_kvlens=((Sc,), i32),
+                     c_tables=((L, Sc, MAXBc), i32),
+                     c_tier=((L, Sc), i32),
+                     d_tables=((L, Rb, MAXBd), i32),
+                     d_kvlens=((Rb,), i32), sample_idx=((Sb,), i64),
+                     is_chunk=((Sb,), torch.bool)),
+                Rb * self.cfg.n_kv_heads)
+            logits, toks = step.run(dict(
+                tokens=tokens, q_pos=q_pos, off=off, blk_dev=blk_dev,
+                c_seg=c_seg, c_kvlens=c_kvlens, c_tables=c_tables,
+                c_tier=c_tier, d_tables=d_tables, d_kvlens=d_kvlens,
+                sample_idx=sample_idx, is_chunk=is_chunk))
+            self._note_logits(logits[:n])
+            return toks[:n].tolist()
+        self.eager_steps[reason] += 1
         # each host-tier layer's live host blocks as copy-engine runs
         stage_runs = [pp.host_block_runs(c_tables[l], c_kvlens, c_tier[l],
                                          BS, self.host_pool.shape[0])
@@ -648,9 +860,22 @@ class PagedExecutor:
             dv(d_kvlens, torch.int32), dv(sample_idx), dv(is_chunk,
                                                           torch.bool),
             stage_runs, dv(st_idx) if has_host else None, Tc, Rb)
-        n = n_c + n_d
         self._note_logits(logits[:n])
         return torch.argmax(logits[:n], dim=-1).tolist()
+
+    def _mixed_graph_fn(self, Tc: int, Rb: int):
+        """A host-free fused step of chunk rows Tc and decode width Rb on
+        its static inputs: (logits, their argmax)."""
+        L = self.cfg.n_layers
+
+        def step(tokens, q_pos, off, blk_dev, c_seg, c_kvlens, c_tables,
+                 c_tier, d_tables, d_kvlens, sample_idx, is_chunk):
+            logits = self._mixed_forward(
+                tokens, q_pos, off, blk_dev, [[]] * L, c_seg, q_pos[:Tc],
+                c_kvlens, c_tables, c_tier, d_tables, d_kvlens, sample_idx,
+                is_chunk, [None] * L, None, Tc, Rb)
+            return logits, torch.argmax(logits, dim=-1)
+        return step
 
     # --------------------------------------------------------------- decode
     def _paged_decode(self, tokens, tables, kv_lens):
@@ -704,8 +929,27 @@ class PagedExecutor:
         lens[:R] = kv_lens
         tab = np.full((L, Rb, MAXBb), self.num_device_blocks, np.int32)
         tab[:, :R, :maxb] = tables
+        reason = self._eager_reason()
+        if reason is None:
+            step = self._step_graph(
+                "decode", (Rb, MAXBb), self._decode_graph_fn,
+                dict(tokens=((Rb,), torch.int64),
+                     tables=((L, Rb, MAXBb), torch.int32),
+                     kv_lens=((Rb,), torch.int32)),
+                Rb * self.cfg.n_kv_heads)
+            logits, out = step.run(dict(tokens=toks, tables=tab,
+                                        kv_lens=lens))
+            self._note_logits(logits[:R])
+            return out[:R].tolist()
+        self.eager_steps[reason] += 1
         logits = self._paged_decode(self._to_device(toks),
                                     self._to_device(tab, torch.int32),
                                     self._to_device(lens, torch.int32))
         self._note_logits(logits[:R])
         return torch.argmax(logits[:R], dim=-1).tolist()
+
+    def _decode_graph_fn(self, tokens, tables, kv_lens):
+        """A dense decode step on its static inputs: (logits, their
+        argmax)."""
+        logits = self._paged_decode(tokens, tables, kv_lens)
+        return logits, torch.argmax(logits, dim=-1)

@@ -9,6 +9,7 @@ host-resident layers — the preconditions `chip_smoke.py` asserts on the
 H100. The stub also counts the fused steps that read the host tier,
 which, times the layer count, is the number of two-pool kernel launches
 the card run should show."""
+import collections
 import sys
 from pathlib import Path
 
@@ -33,6 +34,9 @@ class _StubExecutor:
         self._jit_sigs = set()
         self.host_steps = 0
         self.staging_bytes = 0
+        # the compiled steps' counts (`PagedExecutor`): none without one
+        self.graph_captures = self.graph_replays = self.graph_pool_bytes = 0
+        self.eager_steps = collections.Counter()
 
     def prefill(self, prompt, pad_to):
         return 1, [None] * self.cfg.n_layers, [None] * self.cfg.n_layers
@@ -159,6 +163,20 @@ def test_chip_smoke_generate_dry_run():
     assert res["cache_bytes_int8"] < res["cache_bytes"]
     assert chip_smoke._decode_vs_teacher_forcing("t", cfg, "cpu", 2, 20,
                                                  4) < 5e-3
+
+
+def test_chip_smoke_graphs_dry_run():
+    """The graphs phase's check (`check_step_graphs`) at granite-3-2b
+    smoke in f32 on the CPU, at the phase's own pool and batch settings:
+    one decode and one host-free fused signature, every step through its
+    static buffers equal to the eager twin's bit for bit."""
+    cfg = _smoke("granite-3-2b")
+    out = chip_smoke.check_step_graphs(cfg, None, "cpu")
+    g = chip_smoke.GRAPHS
+    assert out["decode"]["signature"] == (g["rows"], 64)
+    assert out["mixed"]["signature"] == (512, 2, 4, 8, 32, 64, False)
+    assert out["decode"]["max_abs_err"] == out["mixed"]["max_abs_err"] == 0
+    assert out["mixed"]["eager_steps"] == {"cpu": 2 * g["steps"]}
 
 
 def test_chip_smoke_generate_vlm_and_train_vlm_dry_run():

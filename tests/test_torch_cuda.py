@@ -1244,3 +1244,152 @@ def test_moe_capacity_bf16_matches_f32_plain_run():
     scale = float(want.abs().max())
     torch.testing.assert_close(got.float().cpu(), want,
                                atol=2e-2 * scale, rtol=2e-2)
+
+
+# ----------------------------------------- compiled steps (CUDA graphs) --
+
+GRAPH_NDB, GRAPH_BS = 48, 16
+
+
+def _graph_executors(seed=0):
+    """A granite-3-2b smoke executor (bf16, D 32) on the card whose pool
+    holds random values, and a twin with its weights and a copy of its
+    pool, which runs the same steps eagerly on fresh tensors."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.executor import PagedExecutor
+    cfg = get_smoke_config("granite-3-2b")
+    ex = PagedExecutor(cfg, None, GRAPH_NDB, 16, GRAPH_BS, device="cuda",
+                       seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    ex.device_pool.copy_(torch.randn(ex.device_pool.shape, generator=g,
+                                     device="cuda"))
+    ref = PagedExecutor(cfg, ex.params, GRAPH_NDB, 16, GRAPH_BS,
+                        device="cuda")
+    ref.device_pool.copy_(ex.device_pool)
+    return ex, ref
+
+
+def _graph_steps(kind, rng, L):
+    """Three steps of one signature: decode (Rb 4, MAXB 8) with 4, 3 and
+    4 rows, or a host-free fused step (Tc 64, Sc 2, Rb 2) of two chunks
+    and two decode rows, each step other blocks, offsets and contexts
+    (every row's blocks its own)."""
+    from repro_torch.serving.executor import MixedChunk, MixedDecode
+    out = []
+    for R in (4, 3, 4):
+        ids = iter(rng.permutation(GRAPH_NDB).tolist())
+        if kind == "decode":
+            lens = rng.randint(1, 3 * GRAPH_BS, R)
+            tab = np.array([[[next(ids) for _ in range(3)]
+                             for _ in range(R)] for _ in range(L)],
+                           np.int32)
+            out.append((rng.randint(0, 512, R).tolist(), tab,
+                        lens.tolist()))
+            continue
+        chunks = []
+        for C, off in ((int(rng.randint(10, 33)), int(rng.randint(0, 24))),
+                       (int(rng.randint(10, 33)), 0)):
+            nb = -(-(off + C) // GRAPH_BS)
+            tabs = [[next(ids) for _ in range(nb)] for _ in range(L)]
+            chunks.append(MixedChunk(rng.randint(0, 512, C).tolist(), off,
+                                     tabs, [False] * L))
+        decodes = []
+        for _ in range(2):
+            ctx = int(rng.randint(1, 40))
+            tabs = [[next(ids) for _ in range(ctx // GRAPH_BS + 1)]
+                    for _ in range(L)]
+            decodes.append(MixedDecode(int(rng.randint(0, 512)), ctx, tabs))
+        out.append((chunks, decodes))
+    return out
+
+
+def _eager_twin(ref, kind, arrays, sig):
+    """The step's forward on fresh tensors of its host arrays, eager."""
+    def t(name, dtype):
+        return torch.as_tensor(np.array(arrays[name]), dtype=dtype,
+                               device="cuda")
+    i32, i64 = torch.int32, torch.int64
+    if kind == "decode":
+        return ref._paged_decode(t("tokens", i64), t("tables", i32),
+                                 t("kv_lens", i32))
+    L, Tc, Rb = ref.cfg.n_layers, sig[0], sig[2]
+    return ref._mixed_forward(
+        t("tokens", i64), t("q_pos", i32), t("off", i64), t("blk_dev", i64),
+        [[] for _ in range(L)], t("c_seg", i32),
+        torch.as_tensor(np.array(arrays["q_pos"][:Tc]), dtype=i32,
+                        device="cuda"),
+        t("c_kvlens", i32), t("c_tables", i32), t("c_tier", i32),
+        t("d_tables", i32), t("d_kvlens", i32), t("sample_idx", i64),
+        t("is_chunk", torch.bool), [None] * L, None, Tc, Rb)
+
+
+def _counts():
+    return (paged_attention.launches, paged_prefill.launches,
+            paged_prefill.launches_tf32, rmsnorm.launches)
+
+
+@pytest.mark.parametrize("kind", ["decode", "mixed"])
+def test_step_graph_replay_matches_eager(monkeypatch, kind):
+    """One signature's three steps: the first eager (warm-up), the second
+    captured and replayed, the third replayed, each against the same
+    step run eagerly on fresh tensors by a twin executor: tokens equal,
+    logits and the pool (but its trash block) bit for bit; each step
+    advances the launch counters by the eager step's counts."""
+    _need_cuda()
+    from repro_torch.serving.executor import _StepGraph
+    filled = []
+    run = _StepGraph.run
+
+    def spy(self, arrays):
+        filled.append({k: np.array(v) for k, v in arrays.items()})
+        return run(self, arrays)
+    monkeypatch.setattr(_StepGraph, "run", spy)
+    ex, ref = _graph_executors()
+    seen = []
+    note = ex._note_logits
+    ex._note_logits = lambda lg: (seen.append(lg.clone()), note(lg))
+    rng = np.random.RandomState(7)
+    L = ex.cfg.n_layers
+    for i, step in enumerate(_graph_steps(kind, rng, L)):
+        before = _counts()
+        got = (ex.decode if kind == "decode" else ex.mixed_step)(*step)
+        stepped = [a - b for a, b in zip(_counts(), before)]
+        (fn, sig), = ex._graphs
+        n = len(got)
+        mid = _counts()
+        want = _eager_twin(ref, kind, filled[-1], sig)[:n]
+        assert stepped == [a - b for a, b in zip(_counts(), mid)]
+        torch.cuda.synchronize()
+        assert got == torch.argmax(want, dim=-1).tolist()
+        assert torch.equal(seen[-1], want), \
+            float((seen[-1].float() - want.float()).abs().max())
+        assert torch.equal(ex.device_pool[:GRAPH_NDB],
+                           ref.device_pool[:GRAPH_NDB])
+        assert (ex.graph_captures, ex.graph_replays) == \
+            ((0, 0), (1, 1), (1, 2))[i]
+    assert ex.eager_steps == {"first": 1} and ex.graph_pool_bytes > 0
+
+
+def test_step_graph_capture_error_raises():
+    """A step that syncs the host inside its forward cannot be captured:
+    its first step runs (eagerly), its second raises, with no graph kept
+    and the launch counters as before it; the card then runs on."""
+    _need_cuda()
+    ex, _ = _graph_executors()
+    decode = ex._paged_decode
+
+    def host_synced(tokens, tables, kv_lens):
+        int(kv_lens.max())           # a host read: refused under capture
+        return decode(tokens, tables, kv_lens)
+    ex._paged_decode = host_synced
+    rng = np.random.RandomState(8)
+    steps = _graph_steps("decode", rng, ex.cfg.n_layers)
+    ex.decode(*steps[0])
+    before = _counts()
+    with pytest.raises(RuntimeError):
+        ex.decode(*steps[1])
+    assert _counts() == before and ex.graph_captures == 0
+    g, = ex._graphs.values()
+    assert g.graph is None
+    torch.cuda.synchronize()
+    assert float(torch.ones(4, device="cuda").sum()) == 4.0

@@ -73,9 +73,9 @@ class _PeakCounter(dryrun._LocalCounter):
         self.shapes.pop(key, None)
         super()._free(key)
 
-    def _storage(self, t, new):
+    def _storage(self, t, new, nbytes=None):
         before = self.peak
-        key = super()._storage(t, new)
+        key = super()._storage(t, new, nbytes)
         if new and key is not None and self._held.get(key) \
                 and key not in self.shapes:
             self.shapes[key] = (self._held[key], tuple(t.shape), str(t.dtype))
