@@ -137,6 +137,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            (28 layers, 64 routed experts top-6 + 2 shared), bf16, random
            weights made on the card after llama2-7b's are freed, through
            the fused step: 6 requests of 256-1024 tokens, 16 output tokens.
+           Its decode and host-free fused steps run compiled, as the
+           serve phase's do (the dropless dispatch reads nothing on the
+           host). Then the graphs phase's check on its weights: three
+           MoE decode steps and three host-free MoE fused steps of one
+           signature each against the eager twin, bit for bit.
            Each of serve / fused / moe is a main path: kernel launch counts
            are zeroed just before its layerkv run and read just after it.
            Each asserts every request finishes, offload and reload both
@@ -147,8 +152,9 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            token streams and wall-clock TTFT / TPOT / decode tokens per
            second, and each run's compiled steps: signatures captured,
            replays, eager steps by reason and the graph pool's bytes;
-           serve and fused assert replays and at most one capture per
-           signature, moe none (every MoE step is eager).
+           serve, fused and moe assert replays, at most one capture per
+           signature and no step eager for a reason but 'first' (a
+           signature's warm-up) or 'host-tier'.
   cluster  llama2-7b (the serve phase's weights, shared by both
            replicas: each engine gets the same tensors) served by a
            ClusterSession of two port engines behind the slo_aware router,
@@ -278,9 +284,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
            collective counts, the three roofline terms and each
            record's notes.
   profile  (only with --profile) torch.profiler over a few decode-only
-           steps of an exclusive vllm llama2-7b run at B = 8 (graph
-           replays: the profiler's paged_decode_kernel count must equal
-           the launch counter's), over one
+           steps of an exclusive vllm llama2-7b run at B = 8 and of a
+           deepseek-moe-16b one at B = 6 (graph replays: the profiler's
+           paged_decode_kernel count must equal the launch counter's),
+           over one
            more layerkv run of the fused path (the paged kernels' device
            time and launches, the two-pool calls apart, the side
            stream's staging copies with the share that overlaps compute
@@ -1943,11 +1950,12 @@ def _say_graphs(tag, name, g):
          f"pool {g['graph_pool_bytes']} bytes")
 
 
-def _check_graphs(tag, family, g):
-    """A dense model's steps replayed graphs, at most one capture a
-    signature; a MoE model's ran eagerly, none captured."""
-    ok = (g["captures"] == g["replays"] == 0 if family == "moe" else
-          g["replays"] > 0 and g["captures"] <= g["compiled_signatures"])
+def _check_graphs(tag, g):
+    """The run's steps replayed graphs, at most one capture a signature,
+    and no step ran eagerly but a signature's first or a host-tier
+    one."""
+    ok = (g["replays"] > 0 and g["captures"] <= g["compiled_signatures"]
+          and set(g["eager_steps"]) <= {"first", "host-tier"})
     if not ok:
         raise AssertionError(f"[{tag}] compiled steps: {g}")
 
@@ -2082,8 +2090,8 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
                      if fn == "mixed" and sig[-1])
     graphs = _graph_stats(eng.ex)
     _say_graphs(tag, "layerkv", graphs)
-    if on_cuda and (cfg.family == "moe" or tag in GRAPH_PATHS):
-        _check_graphs(tag, cfg.family, graphs)
+    if on_cuda and tag in GRAPH_PATHS:
+        _check_graphs(tag, graphs)
     lk_tokens = {r.rid: list(r.generated) for r in done}
     params = eng.ex.params
 
@@ -2128,8 +2136,8 @@ def _serve_pair(tag, cfg, params, prompts, out_len, kernels, ndb, nhb,
 
 # device blocks of the smoke paths' layerkv runs (2 layers, 16-token blocks)
 SMOKE_NDB = 24
-# the full-size dense paths whose layerkv run must replay captured steps
-GRAPH_PATHS = ("serve", "fused")
+# the full-size paths whose layerkv run must replay captured steps
+GRAPH_PATHS = ("serve", "fused", "moe")
 # The serving paths: model (its full config, or with `smoke` its smoke
 # config), prompts (count, seed, and lengths when not 256-1024), output
 # tokens, the device blocks of the layerkv run (tight: forces layer-wise
@@ -2414,13 +2422,14 @@ def _graph_twin(twin, kind, a, sig):
         t("is_chunk", torch.bool), [None] * L, None, Tc, Rb)
 
 
-def phase_graphs(params):
-    """llama2-7b's compiled steps at full width and depth against their
-    eager steps (`check_step_graphs`), on the serve phase's weights."""
+def phase_graphs(params, tag="serve"):
+    """The compiled steps of path `tag`'s model (llama2-7b, or
+    deepseek-moe-16b for moe) at full width and depth against their
+    eager steps (`check_step_graphs`), on that path's weights."""
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
-    out = check_step_graphs(get_config(PATHS["serve"]["arch"]), params)
-    _say(f"[graphs] phase {time.perf_counter() - t0:.1f}s")
+    out = check_step_graphs(get_config(PATHS[tag]["arch"]), params)
+    _say(f"[graphs] {tag} phase {time.perf_counter() - t0:.1f}s")
     return out
 
 
@@ -2445,11 +2454,16 @@ def phase_fused(params, excl_tokens, profile=False):
     return res
 
 
-def phase_moe():
+def phase_moe(profile=False):
     """deepseek-moe-16b (arXiv:2401.06066) at full width and depth, bf16,
     random weights from a seeded generator on the card, served through
     the fused mixed step: MoE FFN (dropless, grouped by expert), paged
-    prefill over one and two pools, paged decode."""
+    prefill over one and two pools, paged decode; the decode and
+    host-free fused steps through their CUDA graphs. Then its compiled
+    steps against their eager twins on the same weights (`phase_graphs`,
+    under "step_graphs" in the result) and, with `profile`, its traced decode
+    step (`_profile_decode`)."""
+    import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import flatten_params
     cfg = get_config(PATHS["moe"]["arch"])
@@ -2458,10 +2472,16 @@ def phase_moe():
     _say(f"[moe] {m.n_experts} routed experts top-{m.top_k} + "
          f"{m.n_shared} shared, d_expert={m.d_expert}, vocab "
          f"{cfg.vocab_size}")
-    res, _, _ = _run_path("moe", cfg, None, "cuda")
+    res, prompts, out_len = _run_path("moe", cfg, None, "cuda")
     n = sum(t.numel() for t in flatten_params(res["params"]).values())
     _say(f"[moe] {n / 1e9:.2f} B parameters")
     res["n_params"] = n
+    gc.collect()                    # the path's engines and their pools
+    torch.cuda.empty_cache()
+    res["step_graphs"] = phase_graphs(res["params"], "moe")
+    if profile:
+        res["profile"] = _profile_decode(cfg, res["params"], prompts,
+                                         out_len)
     return res
 
 
@@ -2607,7 +2627,7 @@ def _run_cluster(cfg, params, device, ref_tokens=None):
         raise AssertionError(f"a kernel was never launched: {launches}")
     if torch.device(device).type == "cuda":
         for i, r in enumerate(per):
-            _check_graphs(f"cluster r{i}", cfg.family, r["graphs"])
+            _check_graphs(f"cluster r{i}", r["graphs"])
     for eng in engines:
         eng.bm.drop_cache()
         eng.bm.check()
@@ -2800,7 +2820,7 @@ def _profile_decode(cfg, params, prompts, out_len, steps=4):
     out["graph_captures"] = g1["captures"]
     out["graph_pool_bytes"] = g1["graph_pool_bytes"]
     traced = out["kernels"]["paged_decode_kernel"]["launches"]
-    _say(f"[profile] vllm decode B={len(prompts)}: "
+    _say(f"[profile] {cfg.arch_id} vllm decode B={len(prompts)}: "
          f"{out['wall_ms_per_step']:.2f} ms wall/step, device busy "
          f"{out['device_busy_ms_per_step']:.2f} ms/step "
          f"({out['device_busy_share']:.3f}), "
@@ -4063,7 +4083,7 @@ def main(argv=None) -> int:
     gc.collect()                     # the cluster's engines hold cycles
     torch.cuda.empty_cache()         # llama2-7b's weights go before MoE's
     torch.cuda.reset_peak_memory_stats()
-    paths["moe"] = phase_moe()
+    paths["moe"] = phase_moe(profile=args.profile)
     paths["moe"].pop("params")
     gc.collect()        # the engines hold reference cycles: free the MoE
     torch.cuda.empty_cache()     # weights and pools before training

@@ -820,9 +820,10 @@ def layer_weights(plain, lp):
 
 def routed_dropless(plain, p, xf, flat_e, counts, gate2, T, K, E):
     """The MoE's dropless routing, which only the decode steps take (the
-    train step and prefill take the capacity path): a fake step cannot
-    read the counts on the host, so the reference's own dropless form,
-    the capacity dispatch at C = T*K slots."""
+    train step and prefill take the capacity path): the reference's own
+    dropless form, the capacity dispatch at C = T*K slots, whose
+    cross-rank plan (`dispatch`, `combine`) keeps the buffer sharded
+    (the plain form's grouped products have no sharding rule)."""
     from repro_torch.models import moe
     return moe._routed_capacity(p, xf, flat_e, counts, gate2, T, K, E,
                                 T * K)[0]

@@ -6,13 +6,23 @@ terms.
 `moe_ffn` returns `(out, aux)` as the reference does, on two paths:
 
   dropless=True   (serving) computes the reference's function with
-                  C = T*K without building the (E, C, d) buffer: the T*K
-                  (token, expert) assignments are grouped by expert and
-                  each expert runs one `torch.matmul` chain over its own
-                  rows. At full width the buffer would be (64, 6T, 2048)
-                  and cost 64x the useful expert FLOPs. Grouping needs the
-                  per-expert counts on the host (one device sync per
-                  layer).
+                  C = T*K without building the (E, C, d) buffer, in
+                  static shapes and with no value read on the host, so a
+                  captured CUDA graph holds it whole (the reference jits
+                  its serving steps, MoE included). The T*K (token,
+                  expert) assignments are sorted by expert (stable:
+                  token order inside one), gathered, run through three
+                  grouped products (`torch._grouped_mm`) whose group
+                  offsets, the counts' cumulative sum, stay on the
+                  device, and put back in (token, k) order. At full
+                  width the buffer would be (64, 6T, 2048) and cost 64x
+                  the useful expert FLOPs. Where the grouped product
+                  would read its offsets on the host (on CUDA every dtype
+                  but bf16: the CUTLASS route takes bf16 only, the others
+                  a per-group loop that copies the offsets to the host),
+                  the capacity dispatch below runs at C = T: top-k picks
+                  K distinct experts a token, so no expert gets more
+                  than T rows and nothing is dropped.
   dropless=False  (training) is the reference's capacity-factor dispatch
                   (`moe.py:44-119`): C = max(1, int(T*K/E*capacity_factor))
                   slots per expert, each (token, k) pair's position within
@@ -125,8 +135,11 @@ def moe_ffn(cfg: ModelConfig, p, x, *, capacity_factor=CAPACITY_FACTOR,
 
 @replaceable
 def bincount(x, n: int):
-    """The count of each of the `n` values in the 1-d integer `x`."""
-    return torch.bincount(x, minlength=n)
+    """The count of each of the `n` values in the 1-d integer `x`, by a
+    scatter-add into n zeros (`torch.bincount` on CUDA reads x's largest
+    value on the host to size its output)."""
+    return torch.zeros(n, dtype=torch.int64, device=x.device).scatter_add_(
+        0, x, torch.ones_like(x))
 
 
 @replaceable
@@ -144,31 +157,39 @@ def gathered(*xs):
 
 @replaceable
 def routed_dropless(p, xf, flat_e, counts, gate2, T, K, E):
-    """Dropless routing: the grouped form, which reads the counts on the
-    host (the dry run's fake step cannot: its form is the capacity
-    dispatch at C = T*K)."""
-    return _routed_grouped(p, xf, flat_e, counts, gate2, T, K)
+    """Dropless routing in static shapes with no host read: the grouped
+    products where they keep their offsets on the device, else the
+    capacity dispatch at C = T (module docstring). (The dry run's form is
+    the capacity dispatch at C = T*K.)"""
+    if grouped_offsets_stay_on_device(xf):
+        return _routed_grouped(p, xf, flat_e, counts, gate2, T, K)
+    return _routed_capacity(p, xf, flat_e, counts, gate2, T, K, E, T)[0]
+
+
+def grouped_offsets_stay_on_device(x) -> bool:
+    """Whether `torch._grouped_mm` takes x's dtype on x's device without
+    reading its offsets on the host: on CUDA bf16 only (the CUTLASS
+    route; other dtypes take a loop over the groups, which copies the
+    offsets to the host), on the CPU every dtype (no device to wait
+    for)."""
+    return x.device.type != "cuda" or x.dtype == torch.bfloat16
 
 
 def _routed_grouped(p, xf, flat_e, counts, gate2, T, K):
-    """Dropless: group the T*K assignments by expert (stable: token order
-    inside one), one matmul chain per expert over its own rows."""
+    """Dropless: the T*K assignments sorted by expert (stable: token
+    order inside one), each expert's SwiGLU chain over its own rows as
+    grouped products with the group ends cumsum(counts) on the device."""
     d = xf.shape[1]
     order = torch.argsort(flat_e, stable=True)
-    tok = order // K                                         # token of each
-    out_assign = xf.new_empty((T * K, d))
-    start = 0
-    for e, n in enumerate(counts.tolist()):
-        if n == 0:
-            continue
-        rows = order[start:start + n]
-        xe = xf[tok[start:start + n]]
-        h = F.silu(xe @ p["we_gate"][e]) * (xe @ p["we_up"][e])
-        out_assign[rows] = h @ p["we_down"][e]
-        start += n
-
-    # combine in the reference's kk order, in x.dtype
-    out_assign = out_assign.reshape(T, K, d)
+    xs = xf.index_select(0, order // K)            # each assignment's token
+    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    h = F.silu(torch._grouped_mm(xs, p["we_gate"], offs=ends)) \
+        * torch._grouped_mm(xs, p["we_up"], offs=ends)
+    ys = torch._grouped_mm(h, p["we_down"], offs=ends)
+    # back in (token, k) order; combined in the reference's kk order, in
+    # x.dtype
+    out_assign = ys.new_empty((T * K, d)).index_copy_(0, order, ys) \
+        .reshape(T, K, d)
     routed = torch.zeros((T, d), dtype=xf.dtype, device=xf.device)
     for kk in range(K):
         routed = routed + out_assign[:, kk] * gate2[:, kk, None]

@@ -49,28 +49,29 @@ trash-block tables. Every novel shape signature is counted in the registry's
 `jit_retraces` series, the reference's name for it.
 
 Compiled steps, the port's counterpart of the reference's `jax.jit` of
-its decode and mixed steps: a dense model's `decode` and its host-free
-`mixed_step` signatures (no chunk reads the host tier) run through a
-`_StepGraph` per signature. Its inputs live in static buffers, refilled
-whole each step from a pinned host buffer by one non-blocking copy, so
-padded rows never keep an earlier step's values. On CUDA a signature's
-first step runs eagerly on the executor's capture stream (the warm-up:
-kernels loaded, cuBLAS state made), its second is captured there as one
-CUDA graph in the executor's graph memory pool, and that step and every
-later one replay the graph on the current stream; the kernel wrappers'
-launch counters gain, on each replay, what the capture counted. The
-argmax is in the graph; reading the tokens (`.tolist()`) and the
-non-finite count stay outside it, on the static outputs. On the CPU the
-same static-buffer code runs eagerly, with no capture. Steps that stay
-eager, by signature and family: prefill and the two-call chunk path (as
-the reference's jitted prefill, not captured yet); a fused step with a
+its decode and mixed steps: a model's `decode` and its host-free
+`mixed_step` signatures (no chunk reads the host tier), dense and MoE
+alike, run through a `_StepGraph` per signature. Its inputs live in
+static buffers, refilled whole each step from a pinned host buffer by
+one non-blocking copy, so padded rows never keep an earlier step's
+values. On CUDA a signature's first step runs eagerly on the executor's
+capture stream (the warm-up: kernels loaded, cuBLAS state made), its
+second is captured there as one CUDA graph in the executor's graph
+memory pool, and that step and every later one replay the graph on the
+current stream; the kernel wrappers' launch counters gain, on each
+replay, what the capture counted. The argmax is in the graph; reading
+the tokens (`.tolist()`) and the non-finite count stay outside it, on
+the static outputs. A MoE step's dropless dispatch reads nothing on the
+host (`models/moe.py`: routing, sort, counts and grouped products in
+static shapes), so the graph holds it whole. On the CPU the same
+static-buffer code runs eagerly, with no capture. Steps that stay
+eager, by signature: prefill and the two-call chunk path (as the
+reference's jitted prefill, not captured yet), and a fused step with a
 host-tier chunk, whose copy-engine runs are listed on the host each
-step (`_HostStaging`); and every MoE step, whose dropless dispatch
-reads its per-expert counts on the host in every layer
-(`models/moe.py`, `counts.tolist()`). A capture or replay that fails
-raises. Counts: `graph_captures`, `graph_replays`, `graph_pool_bytes`
-and `eager_steps` by reason (plain attributes, so the registry stays
-the reference's).
+step (`_HostStaging`). A capture or replay that fails raises. Counts:
+`graph_captures`, `graph_replays`, `graph_pool_bytes` and
+`eager_steps` by reason (plain attributes, so the registry stays the
+reference's).
 """
 from __future__ import annotations
 
@@ -417,7 +418,7 @@ class PagedExecutor:
         self.graph_replays = 0      # steps that replayed a graph
         self.graph_pool_bytes = 0   # device bytes the captures reserved
         # steps run op by op, by reason: "first" (a signature's first
-        # step on CUDA), "cpu", "host-tier", "moe"
+        # step on CUDA), "cpu", "host-tier"
         self.eager_steps = collections.Counter()
 
     @property
@@ -451,8 +452,6 @@ class PagedExecutor:
     def _eager_reason(self, has_host: bool = False):
         """Why a decode or fused step runs eagerly on every occurrence,
         or None if it runs compiled."""
-        if self.cfg.family == "moe":
-            return "moe"          # counts.tolist() in every layer
         if has_host:
             return "host-tier"    # copy runs listed on the host each step
         return None
@@ -949,7 +948,7 @@ class PagedExecutor:
         return torch.argmax(logits[:R], dim=-1).tolist()
 
     def _decode_graph_fn(self, tokens, tables, kv_lens):
-        """A dense decode step on its static inputs: (logits, their
+        """A decode step on its static inputs: (logits, their
         argmax)."""
         logits = self._paged_decode(tokens, tables, kv_lens)
         return logits, torch.argmax(logits, dim=-1)

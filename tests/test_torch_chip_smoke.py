@@ -179,6 +179,40 @@ def test_chip_smoke_graphs_dry_run():
     assert out["mixed"]["eager_steps"] == {"cpu": 2 * g["steps"]}
 
 
+def test_chip_smoke_moe_graphs_dry_run():
+    """The same check at deepseek-moe-16b smoke in f32: its decode and
+    host-free fused signatures, MoE dispatch included, through the
+    static buffers bit for bit against the eager twin."""
+    out = chip_smoke.check_step_graphs(_smoke("deepseek-moe-16b"), None,
+                                       "cpu")
+    g = chip_smoke.GRAPHS
+    assert out["decode"]["signature"] == (g["rows"], 64)
+    assert out["mixed"]["signature"] == (512, 2, 4, 8, 32, 64, False)
+    assert out["decode"]["max_abs_err"] == out["mixed"]["max_abs_err"] == 0
+    assert out["mixed"]["eager_steps"] == {"cpu": 2 * g["steps"]}
+
+
+@pytest.mark.parametrize("eager,replays,captures,ok", [
+    ({"first": 2, "host-tier": 9}, 40, 2, True),
+    ({"first": 2}, 40, 2, True),
+    ({"first": 2, "moe": 3}, 40, 2, False),
+    ({"first": 2}, 0, 2, False),
+    ({"first": 3}, 40, 3, False)],
+    ids=["host-tier", "warm-ups", "moe-eager", "no-replay", "3-captures"])
+def test_chip_smoke_check_graphs(eager, replays, captures, ok):
+    """`_check_graphs`, every main path's rule (serve, fused, moe): graphs
+    replayed, at most one capture per compiled signature, and no step
+    eager for a reason but a signature's first or a host-tier one."""
+    g = {"captures": captures, "replays": replays, "eager_steps": eager,
+         "graph_pool_bytes": 1, "compiled_signatures": 2}
+    assert chip_smoke.GRAPH_PATHS == ("serve", "fused", "moe")
+    if ok:
+        chip_smoke._check_graphs("moe", g)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke._check_graphs("moe", g)
+
+
 def test_chip_smoke_generate_vlm_and_train_vlm_dry_run():
     cfg = _smoke(chip_smoke.GENERATE_VLM["arch"])
     res = chip_smoke.run_generate_vlm(cfg, [20, 33], 3, "cpu")

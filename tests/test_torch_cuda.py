@@ -1218,11 +1218,28 @@ def test_moe_capacity_bf16_matches_f32_plain_run():
     atol = 2e-2 x max |out| and rtol = 2e-2 (bf16 rounds each of the
     expert chain's products and the gate multiply)."""
     _need_cuda()
+    from repro_torch.models import moe
+    cfg, gen, p32, pbf = _moe_full_width()
+    x = torch.randn(2, 256, cfg.d_model, generator=gen).to(torch.bfloat16)
+    want, waux = moe.moe_ffn(cfg, p32, x.float())
+    got, aux = moe.moe_ffn(cfg, pbf, x.to("cuda"))
+    assert float(aux["dropped_frac"]) == float(waux["dropped_frac"]) > 0
+    torch.testing.assert_close(aux["lb_loss"].cpu(), waux["lb_loss"],
+                               atol=1e-5, rtol=1e-5)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.float().cpu(), want,
+                               atol=2e-2 * scale, rtol=2e-2)
+
+
+def _moe_full_width(seed=3):
+    """deepseek-moe-16b's config and one layer's MoE params from a seed:
+    f32 on the CPU (the bf16 init widened), and on the card in bf16 but
+    the f32 router."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import moe
     cfg = get_config("deepseek-moe-16b")
-    gen = torch.Generator().manual_seed(3)
+    gen = torch.Generator().manual_seed(seed)
     p32 = moe.init_moe(dataclasses.replace(cfg, dtype="bfloat16"), gen,
                        torch.bfloat16, "cpu")
     p32 = {k: ({kk: vv.float() for kk, vv in v.items()}
@@ -1235,15 +1252,66 @@ def test_moe_capacity_bf16_matches_f32_plain_run():
     pbf = {k: ({kk: to_card(vv) for kk, vv in v.items()}
                if isinstance(v, dict) else to_card(v))
            for k, v in p32.items()}
+    return cfg, gen, p32, pbf
+
+
+def test_moe_dropless_bf16_matches_f32_plain_run():
+    """The dropless `moe_ffn` (serving's) at deepseek-moe-16b's full
+    width over 2 x 256 tokens: bf16 on the card (the grouped products)
+    against f32 on the CPU from the same values, at
+    `test_moe_capacity_bf16_matches_f32_plain_run`'s tolerance; and f32
+    on the card (the capacity dispatch at C = T) against the same CPU run
+    at atol = rtol = 2e-5 x max |out|."""
+    _need_cuda()
+    from repro_torch.models import moe
+    cfg, gen, p32, pbf = _moe_full_width()
     x = torch.randn(2, 256, cfg.d_model, generator=gen).to(torch.bfloat16)
-    want, waux = moe.moe_ffn(cfg, p32, x.float())
-    got, aux = moe.moe_ffn(cfg, pbf, x.to("cuda"))
-    assert float(aux["dropped_frac"]) == float(waux["dropped_frac"]) > 0
-    torch.testing.assert_close(aux["lb_loss"].cpu(), waux["lb_loss"],
-                               atol=1e-5, rtol=1e-5)
+    want, _ = moe.moe_ffn(cfg, p32, x.float(), dropless=True)
+    got, aux = moe.moe_ffn(cfg, pbf, x.to("cuda"), dropless=True)
+    assert aux == {}
     scale = float(want.abs().max())
     torch.testing.assert_close(got.float().cpu(), want,
                                atol=2e-2 * scale, rtol=2e-2)
+    p32c = {k: ({kk: vv.cuda() for kk, vv in v.items()}
+                if isinstance(v, dict) else v.cuda())
+            for k, v in p32.items()}
+    got32, _ = moe.moe_ffn(cfg, p32c, x.float().cuda(), dropless=True)
+    torch.testing.assert_close(got32.cpu(), want, atol=2e-5 * scale,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [6, 512])
+def test_moe_dropless_captures_in_a_cuda_graph(dtype, T):
+    """The dropless `moe_ffn` at deepseek-moe-16b's full width, T tokens
+    (a decode batch, a fused chunk), captured by `torch.cuda.graph` in
+    bf16 (the grouped products) and f32 (C = T): the capture raises
+    nothing, and replays on other tokens equal eager calls on them bit
+    for bit."""
+    _need_cuda()
+    from repro_torch.models import moe
+    cfg, gen, _, pbf = _moe_full_width()
+    p = {k: ({kk: vv.to(dtype) for kk, vv in v.items()}
+             if isinstance(v, dict) else v if k == "router" else v.to(dtype))
+         for k, v in pbf.items()}
+    xs = [torch.randn(1, T, cfg.d_model, generator=gen).to("cuda", dtype)
+          for _ in range(3)]
+    static = xs[0].clone()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):          # warm-up off the default stream
+        moe.moe_ffn(cfg, p, static, dropless=True)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = moe.moe_ffn(cfg, p, static, dropless=True)
+    for x in xs[1:]:
+        static.copy_(x)
+        graph.replay()
+        want, _ = moe.moe_ffn(cfg, p, x, dropless=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), \
+            float((out.float() - want.float()).abs().max())
 
 
 # ----------------------------------------- compiled steps (CUDA graphs) --
@@ -1251,13 +1319,13 @@ def test_moe_capacity_bf16_matches_f32_plain_run():
 GRAPH_NDB, GRAPH_BS = 48, 16
 
 
-def _graph_executors(seed=0):
-    """A granite-3-2b smoke executor (bf16, D 32) on the card whose pool
+def _graph_executors(seed=0, arch="granite-3-2b"):
+    """A smoke executor of `arch` (bf16, D 32) on the card whose pool
     holds random values, and a twin with its weights and a copy of its
     pool, which runs the same steps eagerly on fresh tensors."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.serving.executor import PagedExecutor
-    cfg = get_smoke_config("granite-3-2b")
+    cfg = get_smoke_config(arch)
     ex = PagedExecutor(cfg, None, GRAPH_NDB, 16, GRAPH_BS, device="cuda",
                        seed=seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
@@ -1335,6 +1403,18 @@ def test_step_graph_replay_matches_eager(monkeypatch, kind):
     step run eagerly on fresh tensors by a twin executor: tokens equal,
     logits and the pool (but its trash block) bit for bit; each step
     advances the launch counters by the eager step's counts."""
+    _check_replay(monkeypatch, kind, "granite-3-2b")
+
+
+@pytest.mark.parametrize("kind", ["decode", "mixed"])
+def test_moe_step_graph_replay_matches_eager(monkeypatch, kind):
+    """The same for deepseek-moe-16b smoke: its decode and host-free
+    fused steps, dropless MoE dispatch included, captured and replayed
+    bit for bit against the eager twin."""
+    _check_replay(monkeypatch, kind, "deepseek-moe-16b")
+
+
+def _check_replay(monkeypatch, kind, arch):
     _need_cuda()
     from repro_torch.serving.executor import _StepGraph
     filled = []
@@ -1344,7 +1424,7 @@ def test_step_graph_replay_matches_eager(monkeypatch, kind):
         filled.append({k: np.array(v) for k, v in arrays.items()})
         return run(self, arrays)
     monkeypatch.setattr(_StepGraph, "run", spy)
-    ex, ref = _graph_executors()
+    ex, ref = _graph_executors(arch=arch)
     seen = []
     note = ex._note_logits
     ex._note_logits = lambda lg: (seen.append(lg.clone()), note(lg))

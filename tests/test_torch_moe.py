@@ -8,6 +8,7 @@ tests/test_torch_train.py); the MoE model's prefill against JAX's; the
 seeded init's router dtype; and the weight bridge keeping the
 reference's f32 router in a bf16 model."""
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -69,6 +70,98 @@ def test_moe_ffn_dropless_matches_jax(smoke_params, B, S):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     # serving reads no load-balance terms, so the dropless path makes none
     assert aux == {}
+
+
+# routings of the dropless cases: the router as it was initialised, one
+# expert given every token (its column pulled toward the tokens' common
+# direction), and two given every token (top-2: the other two experts get
+# no rows)
+ROUTINGS = {"as initialised": (), "one expert takes all": (0,),
+            "idle experts": (0, 1)}
+
+
+def _routed_to(jl, tl, x, experts):
+    """`jl`, `tl` and `x` with the router pulled so that each expert in
+    `experts` is among every token's top-k: x gets a common direction u
+    (rows u + x / 4) and those experts' router columns 8 x u / |u|^2
+    more, earlier ones more."""
+    if not experts:
+        return jl, tl, x
+    d = x.shape[-1]
+    u = np.random.RandomState(9).choice([-1.0, 1.0], d).astype(np.float32)
+    x = (u + x / 4).astype(np.float32)
+    r = np.array(tl["router"])
+    for i, e in enumerate(experts):
+        r[:, e] += (8.0 * (len(experts) - i) / d) * u
+    jl = dict(jl, router=jnp.asarray(r))
+    tl = dict(tl, router=torch.from_numpy(r))
+    return jl, tl, x
+
+
+@pytest.mark.parametrize("form", ["grouped", "static"])
+@pytest.mark.parametrize("routing", list(ROUTINGS))
+@pytest.mark.parametrize("B,S", [(1, 1), (1, 37), (3, 8)])
+def test_moe_dropless_forms_match_jax(smoke_params, monkeypatch, form,
+                                      routing, B, S):
+    """Both dropless forms against the JAX `moe_ffn(dropless=True)` at f32
+    atol = rtol = 2e-5: the grouped products (offsets on the device) and
+    the capacity dispatch at C = T (the route where the grouped product
+    would read its offsets on the host), on routings that leave experts
+    idle or send one expert every token (C = T exactly full)."""
+    jcfg, tcfg, jp, tp = smoke_params
+    x = np.random.RandomState(B * 100 + S).randn(
+        B, S, jcfg.d_model).astype(np.float32)
+    jl = jax.tree.map(lambda a: a[1], jp["layers"])["moe"]
+    tl = layer_params(tp["layers"], 1)["moe"]
+    jl, tl, x = _routed_to(jl, tl, x, ROUTINGS[routing])
+    T, K, E = B * S, tcfg.moe.top_k, tcfg.moe.n_experts
+    top = torch.topk(torch.from_numpy(x.reshape(T, -1)) @ tl["router"], K,
+                     dim=-1).indices
+    counts = torch.bincount(top.reshape(-1), minlength=E)
+    for e in ROUTINGS[routing]:
+        assert counts[e] == T
+    if len(ROUTINGS[routing]) == K:
+        assert (counts == 0).sum() == E - K
+    calls = []
+    grouped, capacity = tmoe._routed_grouped, tmoe._routed_capacity
+    monkeypatch.setattr(tmoe, "_routed_grouped", lambda *a: calls.append(
+        "grouped") or grouped(*a))
+    monkeypatch.setattr(tmoe, "_routed_capacity", lambda *a: calls.append(
+        ("static", a[-1])) or capacity(*a))
+    if form == "static":
+        monkeypatch.setattr(tmoe, "grouped_offsets_stay_on_device",
+                            lambda x: False)
+    want, _ = jmoe.moe_ffn(jcfg, jl, jnp.asarray(x), dropless=True)
+    got, aux = tmoe.moe_ffn(tcfg, tl, torch.from_numpy(x), dropless=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert aux == {}
+    assert calls == (["grouped"] if form == "grouped" else [("static", T)])
+
+
+def test_bincount_equals_torch_bincount():
+    """The scatter-add count equals `torch.bincount` (values absent, one
+    value only, every value), as int64."""
+    rng = np.random.RandomState(0)
+    for x, n in ((rng.randint(0, 64, 36), 64), (np.full(7, 3), 8),
+                 (np.arange(16), 16), (rng.randint(0, 5, 1000), 9)):
+        t = torch.from_numpy(x).long()
+        got = tmoe.bincount(t, n)
+        assert got.dtype == torch.int64
+        assert torch.equal(got, torch.bincount(t, minlength=n))
+
+
+def test_grouped_route_by_device_and_dtype():
+    """The grouped products serve every dtype on the CPU and bf16 only on
+    CUDA (its CUTLASS route keeps the offsets on the device); f32 and
+    f16 on CUDA take the capacity dispatch at C = T. (A stand-in with a
+    CUDA device: no card here.)"""
+    for dev, dt, want in (("cpu", torch.float32, True),
+                          ("cpu", torch.bfloat16, True),
+                          ("cuda", torch.bfloat16, True),
+                          ("cuda", torch.float32, False),
+                          ("cuda", torch.float16, False)):
+        x = types.SimpleNamespace(device=torch.device(dev), dtype=dt)
+        assert tmoe.grouped_offsets_stay_on_device(x) is want
 
 
 def test_moe_ffn_without_shared_experts_matches_jax():

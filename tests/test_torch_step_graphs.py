@@ -9,11 +9,15 @@ a capture (the card's capture and replay are in tests/test_torch_cuda.py):
   padded row back at the trash block and length 0);
 * the same for a host-free fused step (`mixed_step`) signature, against
   a fresh `_mixed_forward` on fresh tensors of the same host arrays;
-* MoE steps and fused steps with a host-tier chunk stay eager, with no
-  static buffers;
+* the same for deepseek-moe-16b's decode and host-free fused steps
+  (the dropless dispatch reads nothing on the host, so its steps take
+  the static buffers as a dense model's do);
+* fused steps with a host-tier chunk stay eager, with no static
+  buffers, for both families;
 * the engine's tokens, `jit_retraces` and registry snapshot still equal
-  the JAX engine's on granite-3-2b smoke in f32 in exclusive, two-call
-  chunked and fused modes, its compiled steps in use.
+  the JAX engine's on granite-3-2b and deepseek-moe-16b smoke in f32 in
+  exclusive, two-call chunked and fused modes, its compiled steps in
+  use.
 
 Smoke configs in f32, at most 5 requests of prompts below 60 tokens."""
 import dataclasses
@@ -118,7 +122,17 @@ def test_static_decode_equals_a_fresh_decode():
     (`_same_pool`) equal a fresh `_paged_decode`'s bit for bit, through
     one set of static buffers, and the second step's padded row reads
     the trash block with length 0."""
-    ex = _executor()
+    _check_static_decode(ARCH)
+
+
+def test_static_moe_decode_equals_a_fresh_decode():
+    """The same for deepseek-moe-16b: its decode steps, MoE dispatch
+    included, through the static buffers bit for bit."""
+    _check_static_decode("deepseek-moe-16b")
+
+
+def _check_static_decode(arch):
+    ex = _executor(arch)
     ref = _twin(ex)
     seen = _logits_of(ex)
     rng = np.random.RandomState(3)
@@ -188,6 +202,15 @@ def test_static_fused_step_equals_a_fresh_forward(monkeypatch):
     chunks at other offsets and decode rows with other tables and
     contexts; each step's logits and pool (`_same_pool`) equal a fresh
     `_mixed_forward`'s bit for bit, through one set of static buffers."""
+    _check_static_fused(monkeypatch, ARCH)
+
+
+def test_static_moe_fused_step_equals_a_fresh_forward(monkeypatch):
+    """The same for deepseek-moe-16b's host-free fused steps."""
+    _check_static_fused(monkeypatch, "deepseek-moe-16b")
+
+
+def _check_static_fused(monkeypatch, arch):
     filled = []
     run = _StepGraph.run
 
@@ -195,7 +218,7 @@ def test_static_fused_step_equals_a_fresh_forward(monkeypatch):
         filled.append({k: np.array(v) for k, v in arrays.items()})
         return run(self, arrays)
     monkeypatch.setattr(_StepGraph, "run", spy)
-    ex = _executor()
+    ex = _executor(arch)
     ref = _twin(ex)
     seen = _logits_of(ex)
     rng = np.random.RandomState(4)
@@ -219,16 +242,23 @@ def test_static_fused_step_equals_a_fresh_forward(monkeypatch):
 
 
 def test_moe_and_host_tier_steps_stay_eager():
-    """deepseek-moe-16b's decode and fused steps, and a dense fused step
-    with a host-tier chunk, run op by op with no static buffers, counted
-    by reason."""
+    """deepseek-moe-16b's decode and host-free fused steps take their
+    static buffers (counted "cpu" here), its fused step with a host-tier
+    chunk runs op by op, as does a dense fused step with one: no static
+    buffers, counted by reason."""
     rng = np.random.RandomState(5)
     moe = _executor("deepseek-moe-16b")
     L = moe.cfg.n_layers
     moe.decode(*_decode_batch(rng, L, 2, 2))
     ids = _free_blocks(rng, L)
     moe.mixed_step([_chunk(rng, ids, 12, 0)], [_decode_row(rng, ids, 5)])
-    assert moe._graphs == {} and moe.eager_steps == {"moe": 2}
+    assert [fn for fn, _ in moe._graphs] == ["decode", "mixed"]
+    assert moe.eager_steps == {"cpu": 2}
+    ids = _free_blocks(rng, L)
+    moe.mixed_step([_chunk(rng, ids, 12, 8, tiers=[False, True])],
+                   [_decode_row(rng, ids, 5)])
+    assert len(moe._graphs) == 2
+    assert moe.eager_steps == {"cpu": 2, "host-tier": 1}
     dense = _executor()
     L = dense.cfg.n_layers
     ids = _free_blocks(rng, L)
@@ -250,11 +280,21 @@ def _flat(tree, prefix=""):
     return out
 
 
+def _params(arch):
+    jcfg = dataclasses.replace(jax_smoke(arch), dtype="float32")
+    jp = build_model(jcfg).init(jax.random.PRNGKey(42))
+    tcfg = _cfg(arch)
+    return jcfg, tcfg, jp, from_jax_params(_flat(jp), tcfg, "cpu")
+
+
 @pytest.fixture(scope="module")
 def params():
-    jcfg = dataclasses.replace(jax_smoke(ARCH), dtype="float32")
-    jp = build_model(jcfg).init(jax.random.PRNGKey(42))
-    return jcfg, jp, from_jax_params(_flat(jp), _cfg(), "cpu")
+    return _params(ARCH)
+
+
+@pytest.fixture(scope="module")
+def moe_params():
+    return _params("deepseek-moe-16b")
 
 
 MODES = {
@@ -271,7 +311,17 @@ def test_engine_with_compiled_steps_matches_jax(params, mode):
     """Tokens, shape signatures (`jit_retraces`) and the registry's
     snapshot equal the JAX engine's; the port's decode (and, fused, its
     host-free mixed) steps ran through their static buffers."""
-    jcfg, jp, tp = params
+    _check_engine(params, mode)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_moe_engine_with_compiled_steps_matches_jax(moe_params, mode):
+    """The same for deepseek-moe-16b smoke, its MoE steps compiled."""
+    _check_engine(moe_params, mode)
+
+
+def _check_engine(params, mode):
+    jcfg, tcfg, jp, tp = params
     r0 = np.random.RandomState(2)
     spec = [(f"r{i}", int(r0.randint(6, 10)),
              [int(x) for x in r0.randint(0, jcfg.vocab_size,
@@ -286,7 +336,7 @@ def test_engine_with_compiled_steps_matches_jax(params, mode):
     jeng = JaxEngine(jcfg, jp, JaxServeConfig.for_engine(**kw),
                      hw=JAX_TPU_V5E)
     jdone = {r.rid: r.generated for r in jeng.run(reqs(JaxRequest))}
-    teng = LayerKVEngine(_cfg(), tp, ServeConfig.for_engine(**kw),
+    teng = LayerKVEngine(tcfg, tp, ServeConfig.for_engine(**kw),
                          hw=TPU_V5E, device="cpu")
     tdone = {r.rid: r.generated for r in teng.run(reqs(Request))}
     assert tdone == jdone

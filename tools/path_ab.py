@@ -18,8 +18,11 @@ its last position, their gap and one bf16 step at the larger one's
 magnitude, through this checkout's `chip_smoke.solo_top2` and
 `bf16_step`: the helpers of `chip_smoke.check_first_tokens`, which
 accepts a differing first token only as such a near-tie (the two tokens
-the two largest logits, the gap at most one step). This tool asserts
-nothing: it reports every request's numbers. With --bf16-f32-reduce, bf16 matrix products keep
+the two largest logits, the gap at most one step). It also records each
+run's wall-clock TTFT and TPOT per request, its decode tokens per second
+and the layerkv run's compiled-step counts, as `chip_smoke._serve_pair`
+prints them. This tool asserts nothing: it reports every request's
+numbers. With --bf16-f32-reduce, bf16 matrix products keep
 their split-K reductions in f32
 (`torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
 False`). The process writes OUT_DIR/path_ab_<TAG>_<i>.json and prints a
@@ -70,16 +73,19 @@ def _one(tree: str, tag: str, out: str, f32_reduce: bool) -> None:
     else:
         cfg = get_config(pc["arch"])
         prompts = cs._prompts(cfg.vocab_size, n=pc["n"], seed=pc["seed"])
-    eng, done, _ = cs._serve(cfg, None, "layerkv", pc["ndb"], pc["nhb"],
-                             prompts, pc["out_len"], seed=0, device="cuda",
-                             **pc["mode"])
+    eng, done, st = cs._serve(cfg, None, "layerkv", pc["ndb"], pc["nhb"],
+                              prompts, pc["out_len"], seed=0, device="cuda",
+                              **pc["mode"])
     lk = {r.rid: list(r.generated) for r in done}
+    graphs = {k: getattr(eng.ex, k, None) for k in (
+        "graph_captures", "graph_replays", "graph_pool_bytes")}
+    graphs["eager_steps"] = dict(getattr(eng.ex, "eager_steps", {}))
     params = eng.ex.params
     del eng, done
     gc.collect()
-    eng, done, _ = cs._serve(cfg, params, "vllm", pc["ndb_ref"], 16,
-                             prompts, pc["out_len"], seed=0, device="cuda",
-                             **pc["mode"])
+    eng, done, st_v = cs._serve(cfg, params, "vllm", pc["ndb_ref"], 16,
+                                prompts, pc["out_len"], seed=0,
+                                device="cuda", **pc["mode"])
     vl = {r.rid: list(r.generated) for r in done}
     rows = []
     for i, p in enumerate(prompts):
@@ -92,9 +98,15 @@ def _one(tree: str, tag: str, out: str, f32_reduce: bool) -> None:
                      "one_bf16_step": HERE.bf16_step(l0)})
     agree = sum(a == b for rid in lk for a, b in zip(lk[rid], vl[rid]))
     total = sum(len(t) for t in lk.values())
+    wall = {name: {"ttft_s": sorted(s["ttft_s"].values()),
+                   "tpot_ms": sorted(x * 1e3 for x in s["tpot_s"].values()),
+                   "decode_tok_per_s": s["decode_tokens"]
+                   / s["decode_wall_s"] if s["decode_wall_s"] else None}
+            for name, s in (("layerkv", st), ("vllm", st_v))}
     res = {"tree": tree, "tag": tag, "bf16_f32_reduce": f32_reduce,
            "nvidia_smi": cs._smi(), "torch": torch.__version__,
-           "requests": rows, "agreement": agree / total}
+           "requests": rows, "agreement": agree / total, "wall": wall,
+           "layerkv_graphs": graphs}
     with open(out, "w") as f:
         json.dump(res, f, indent=1)
     bad = [r["rid"] for r in rows if r["layerkv_first"] != r["vllm_first"]]
@@ -102,6 +114,13 @@ def _one(tree: str, tag: str, out: str, f32_reduce: bool) -> None:
           f"differ for {bad or 'none'}; full-stream agreement "
           f"{agree}/{total}; {res['nvidia_smi']}, torch {torch.__version__}",
           flush=True)
+    for name, w in wall.items():
+        print(f"[path_ab]   {name}: TTFT s "
+              f"{[round(x, 4) for x in w['ttft_s']]}; TPOT ms "
+              f"{[round(x, 2) for x in w['tpot_ms']]}; decode "
+              f"{w['decode_tok_per_s'] or float('nan'):.1f} tok/s",
+              flush=True)
+    print(f"[path_ab]   layerkv compiled steps: {graphs}", flush=True)
     for r in rows:
         print(f"[path_ab]   {r['rid']} len {r['prompt_len']}: layerkv "
               f"{r['layerkv_first']} vllm {r['vllm_first']} solo top2 "
